@@ -1,0 +1,116 @@
+"""sivae_torch conv kernels: each plain PyTorch version against its Pallas
+original (interpret mode on the CPU) and the CPU routing of the wrappers.
+The CUDA kernels themselves are tested in test_torch_cuda.py.
+
+Tolerances: fp32 atol 1e-4 (as tests/test_pallas_conv.py). bf16 atol/rtol
+0.05: the plain version sums all 27 taps in fp32 and rounds once, the
+Pallas v1 rounds its running sum to bf16 after every depth tap."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sivae_tpu.kernels.conv3d import conv3d_same_pallas
+from sivae_tpu.kernels.conv3d_small import conv3d_from1 as jax_from1
+from sivae_tpu.kernels.conv3d_small import conv3d_to1 as jax_to1
+from sivae_torch.kernels import build
+from sivae_torch.kernels.conv3d import conv3d_same, conv3d_same_plain
+from sivae_torch.kernels.conv3d_small import (conv3d_from1, conv3d_from1_plain, conv3d_to1,
+                                              conv3d_to1_plain)
+
+torch.set_num_threads(2)
+
+CONV_SHAPES = [((2, 4, 5, 6), 3, 4), ((1, 6, 8, 6), 8, 8), ((2, 3, 4, 4), 1, 5)]
+TO1_SHAPES = [((2, 4, 5, 6), 3), ((1, 6, 8, 6), 8), ((2, 3, 4, 4), 1)]
+FROM1_SHAPES = [((2, 4, 5, 6), 3), ((1, 6, 8, 6), 8)]
+
+
+def _inputs(seed, shape, cin, cout):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(*shape, cin).astype(np.float32)
+    w = (rng.randn(3, 3, 3, cin, cout) * 0.1).astype(np.float32)
+    return x, w
+
+
+def _bf16(a: np.ndarray):
+    """The same bf16 values for both stacks."""
+    t = torch.from_numpy(a).to(torch.bfloat16)
+    return t, jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+
+
+@pytest.mark.parametrize("shape,cin,cout", CONV_SHAPES)
+def test_conv3d_plain_matches_pallas(shape, cin, cout):
+    x, w = _inputs(0, shape, cin, cout)
+    got = conv3d_same_plain(torch.from_numpy(x), torch.from_numpy(w)).numpy()
+    want = np.asarray(conv3d_same_pallas(jnp.asarray(x), jnp.asarray(w), True))
+    np.testing.assert_allclose(got, want, atol=1e-4)
+
+
+@pytest.mark.parametrize("shape,cin,cout", CONV_SHAPES + [((1, 4, 4, 4), 4, 4)])
+def test_conv3d_plain_matches_pallas_bf16(shape, cin, cout):
+    x, w = _inputs(2, shape, cin, cout)
+    (xt, xj), (wt, wj) = _bf16(x), _bf16(w)
+    got = conv3d_same_plain(xt, wt).float().numpy()
+    want = np.asarray(conv3d_same_pallas(xj, wj, True).astype(jnp.float32))
+    np.testing.assert_allclose(got, want, atol=0.05, rtol=0.05)
+
+
+@pytest.mark.parametrize("shape,c", TO1_SHAPES)
+def test_to1_plain_matches_pallas(shape, c):
+    x, w = _inputs(0, shape, c, 1)
+    got = conv3d_to1_plain(torch.from_numpy(x), torch.from_numpy(w)).numpy()
+    want = np.asarray(jax_to1(jnp.asarray(x), jnp.asarray(w), True))
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=1e-4)
+
+
+@pytest.mark.parametrize("shape,c", FROM1_SHAPES)
+def test_from1_plain_matches_pallas(shape, c):
+    x, w = _inputs(1, shape, 1, c)
+    got = conv3d_from1_plain(torch.from_numpy(x), torch.from_numpy(w)).numpy()
+    want = np.asarray(jax_from1(jnp.asarray(x), jnp.asarray(w), True))
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=1e-4)
+
+
+def test_to1_plain_matches_pallas_bf16():
+    x, w = _inputs(3, (1, 4, 6, 4), 8, 1)
+    (xt, xj), (wt, wj) = _bf16(x), _bf16(w)
+    got = conv3d_to1_plain(xt, wt).float().numpy()
+    want = np.asarray(jax_to1(xj, wj, True).astype(jnp.float32))
+    np.testing.assert_allclose(got, want, atol=0.05, rtol=0.05)
+
+
+def test_cpu_tensors_take_plain_versions_and_count_nothing():
+    build.reset_launches()
+    x, w = _inputs(4, (2, 3, 4, 5), 3, 4)
+    x1, w1 = _inputs(5, (2, 3, 4, 5), 1, 6)
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    assert torch.equal(conv3d_same(xt, wt), conv3d_same_plain(xt, wt))
+    wt1 = torch.from_numpy(w[..., :1].copy())
+    assert torch.equal(conv3d_to1(xt, wt1), conv3d_to1_plain(xt, wt1))
+    x1t, w1t = torch.from_numpy(x1), torch.from_numpy(w1)
+    assert torch.equal(conv3d_from1(x1t, w1t), conv3d_from1_plain(x1t, w1t))
+    assert build.launches == {"conv3d_same": 0, "conv3d_to1": 0, "conv3d_from1": 0}
+
+
+@pytest.mark.parametrize("fn,x_shape,w_shape", [
+    (conv3d_same, (2, 3, 4, 5, 3), (3, 3, 3, 4, 4)),    # Ci mismatch
+    (conv3d_same, (2, 3, 4, 5, 3), (1, 1, 1, 3, 4)),    # not 3x3x3
+    (conv3d_to1, (2, 3, 4, 5, 3), (3, 3, 3, 3, 2)),     # Co != 1
+    (conv3d_from1, (2, 3, 4, 5, 2), (3, 3, 3, 2, 4)),   # Ci != 1
+])
+def test_wrappers_reject_bad_shapes(fn, x_shape, w_shape):
+    with pytest.raises(ValueError):
+        fn(torch.zeros(x_shape), torch.zeros(w_shape))
+
+
+def test_plain_conv_matches_torch_conv3d():
+    """The plain version is a SAME 3x3x3 correlation (cross-check against
+    torch's own conv on the CPU)."""
+    x, w = _inputs(6, (2, 5, 6, 7), 5, 3)
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    want = torch.nn.functional.conv3d(xt.permute(0, 4, 1, 2, 3), wt.permute(4, 3, 0, 1, 2),
+                                      padding=1).permute(0, 2, 3, 4, 1)
+    torch.testing.assert_close(conv3d_same_plain(xt, wt), want, atol=1e-5, rtol=1e-5)
