@@ -1,7 +1,7 @@
 """Configuration dataclasses for the spatial-latent model family.
 
-Port of `sivae_tpu/config.py:27-129` with torch dtypes. The JAX package's
-TPU tactics (`remat*`, `use_pallas_*`, `PACK_SAVES`) have no counterpart:
+Port of `sivae_tpu/config.py:27-129` and `:178-230` (the loss and optimizer
+configs) with torch dtypes. The JAX package's TPU tactics (`remat*`, `use_pallas_*`, `PACK_SAVES`) have no counterpart:
 the port routes every 3x3x3 stride-1 conv the same way, to its CUDA kernel
 for a CUDA tensor and to the plain PyTorch version for a CPU tensor.
 """
@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Optional, Tuple
+from typing import Any, Optional, Sequence, Tuple
 
 import torch
 
@@ -80,3 +80,49 @@ class SpatialVAEConfig:
         d, h, w = self.latent_spatial_shape
         return d * h * w
 
+
+@dataclass(frozen=True)
+class SoftIntroLossConfig:
+    """Soft-IntroVAE loss hyper-parameters (reference utils/my_trainer.py:188-198).
+
+    `scale` is the paper's normalizing constant s; the reference uses
+    8 / (80*96*80). `loss_multiplier` is the x10 applied to both lossE and
+    lossD (my_trainer.py:284,321); the DataParallel variant uses multiplier
+    1.0 and expELBO weight 0.25 (main_DataParallel.py:470).
+
+    `dp_semantics` selects the DataParallel trainer's step, which differs
+    from my_trainer in four ways: (1) every KL is per position (its calc_kl
+    sums the singleton channel only); (2) its reconstruction loss ignores
+    `reduction`, so the expELBO recon terms are batch-mean scalars; (3) phase
+    D's loss_rec uses rec.detach(); (4) phase D re-decodes z_rec / z_fake
+    without detaching them.
+    """
+
+    beta_rec: float = 1.0
+    beta_neg: float = 1024.0
+    beta_kl: float = 0.75
+    gamma_r: float = 1e-8
+    scale: Optional[float] = None  # None => 8 / prod(input_shape)
+    exp_elbo_weight: float = 0.5
+    loss_multiplier: float = 10.0
+    dp_semantics: bool = False
+
+    def resolved_scale(self, input_shape: Sequence[int]) -> float:
+        if self.scale is not None:
+            return self.scale
+        n = 1
+        for s in input_shape:
+            n *= s
+        return 8.0 / n
+
+
+@dataclass(frozen=True)
+class OptimConfig:
+    """Adam + MultiStep LR (reference my_trainer.py:183-186)."""
+
+    lr: float = 2e-4
+    milestones: Tuple[int, ...] = (350,)  # in epochs
+    gamma: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8

@@ -37,12 +37,14 @@ LINK_FLAGS = ARCH_FLAGS + ["-shared", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C entry points: name -> argument types (all return int)
 SIGNATURES = {
     "sivae_conv3d_same": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "sivae_conv3d_same_body": [_P, _P, _P, _I, _I, _I],
     "sivae_conv3d_to1": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "sivae_conv3d_from1": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "sivae_conv3d_fused_stats": [_P, _P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -50,7 +52,8 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # Launch counts per kernel wrapper: each wrapper adds one where it launches
 # its kernel and nowhere else (a CPU tensor takes the plain version and
 # counts nothing).
-launches: Dict[str, int] = {"conv3d_same": 0, "conv3d_to1": 0, "conv3d_from1": 0}
+launches: Dict[str, int] = {"conv3d_same": 0, "conv3d_to1": 0, "conv3d_from1": 0,
+                            "conv3d_fused_stats": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()

@@ -1,7 +1,9 @@
 """3x3x3 SAME stride-1 3D convolution, NDHWC x DHWIO -> NDHWC.
 
 Replaces the Pallas kernel `sivae_tpu/kernels/conv3d.py:_conv3d_impl`
-(`_conv_tap_kernel`), forward only; its dgrad use comes with training.
+(`_conv_tap_kernel`) in both its uses: the forward, and the input gradient,
+which is the same kernel on the flipped, IO-swapped weights (`_bwd`,
+`sivae_tpu/kernels/conv3d.py:134-149`).
 
 The kernel (`csrc/conv3d.cu`) is an implicit GEMM over M = B*D*H*W voxels,
 N = Co, K = 27*Ci. Bound on an H100 SXM at the flagship site (64->64 at
@@ -15,7 +17,11 @@ copy), sum all 27 taps in fp32 and round once. The Pallas v1 rounds after
 each depth tap, so bf16 comparisons against it allow for that.
 
 `conv3d_same` takes the plain version for a CPU tensor and launches the
-kernel for a CUDA tensor; nothing falls back.
+kernel for a CUDA tensor; nothing falls back. It is differentiable: a
+`torch.autograd.Function` whose dx goes through the same dispatch (so the
+CPU tests run the very backward the card runs, with the plain version
+inside) and whose dw is the library's weight-gradient correlation, as the
+JAX package leaves it to XLA.
 """
 
 from __future__ import annotations
@@ -42,8 +48,53 @@ def conv3d_same_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return acc.to(x.dtype)
 
 
+def flip_swap(w: torch.Tensor) -> torch.Tensor:
+    """DHWIO weights of the input-gradient conv: taps flipped, I and O swapped."""
+    return w.flip((0, 1, 2)).transpose(3, 4).contiguous()
+
+
+def wgrad(x: torch.Tensor, g: torch.Tensor, w_dtype: torch.dtype) -> torch.Tensor:
+    """dw (3, 3, 3, Ci, Co) of a 3x3x3 SAME conv, NDHWC x and g: the
+    correlation of x with g over (B, D, H, W), by the library
+    (`torch.nn.grad.conv3d_weight`, cuDNN on the card), accumulated in fp32
+    and cast to `w_dtype`. The card's bf16 call accumulates in fp32 inside
+    cuDNN; on the CPU the operands are widened first."""
+    xc, gc = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)  # NCDHW views
+    if not x.is_cuda:
+        xc, gc = xc.float(), gc.float()
+    shape = (g.shape[-1], x.shape[-1], 3, 3, 3)                  # OIDHW
+    dw = torch.nn.grad.conv3d_weight(xc, shape, gc.to(xc.dtype), padding=1)
+    return dw.permute(2, 3, 4, 1, 0).to(w_dtype)
+
+
+class _Conv3dSame(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w):
+        # dx needs only w, dw only x: a frozen half keeps no activations here
+        ctx.save_for_backward(x if ctx.needs_input_grad[1] else None,
+                              w if ctx.needs_input_grad[0] else None)
+        ctx.w_dtype = w.dtype
+        return conv3d_same_forward(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = conv3d_same_forward(g.to(w.dtype), flip_swap(w))
+        if ctx.needs_input_grad[1]:
+            dw = wgrad(x, g.to(x.dtype), ctx.w_dtype)
+        return dx, dw
+
+
 def conv3d_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (B, D, H, W, Ci), w (3, 3, 3, Ci, Co) -> (B, D, H, W, Co)."""
+    """x (B, D, H, W, Ci), w (3, 3, 3, Ci, Co) -> (B, D, H, W, Co), differentiable."""
+    return _Conv3dSame.apply(x, w)
+
+
+def conv3d_same_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The conv itself, outside autograd: plain version or kernel launch."""
     if x.dim() != 5 or w.shape[:3] != (3, 3, 3) or w.dim() != 5 or w.shape[3] != x.shape[-1]:
         raise ValueError(f"conv3d_same: bad shapes x{tuple(x.shape)} w{tuple(w.shape)}")
     if x.device.type == "cpu":

@@ -5,7 +5,16 @@
 - `conv3d_from1` (1 -> C, the encoder stem) replaces `_small_in_impl`
   (`_small_in_kernel`).
 
-Forward only; each is the other's input gradient, which comes with training.
+Each is the other's input gradient (`_to1_bwd`, `_from1_bwd`,
+`sivae_tpu/kernels/conv3d_small.py:281-288`, `:309-314`): dx of `conv3d_to1`
+is `conv3d_from1` of the cotangent on tap-flipped weights and the reverse,
+so both directions run these two kernels. dw is the library's, as the JAX
+package leaves it to XLA, written as ONE matrix product: the 1-channel
+operand is unfolded into its 27 shifted copies (N voxels x 27, small) and
+contracted over the voxels against the C-channel operand, which is read
+once. (cuDNN's weight-gradient call for a 1-channel side took ~75 ms at the
+flagship shape on an H100, batch 8, bf16.)
+
 A 1-channel side makes the conv a 27-tap stencil, not a matrix product. At
 64 channels, 80x96x80, batch 8, bf16 both move ~629 MB on their C-wide side
 (~0.19 ms at 3.35 TB/s on an H100 SXM) and do ~1.7e10 FMAs on CUDA cores
@@ -14,7 +23,8 @@ at its shapes; `csrc/conv3d_small.cu` says how each kernel meets it. Both
 accumulate in fp32 and round once.
 
 The wrappers take the plain version for a CPU tensor and launch the kernel
-for a CUDA tensor; nothing falls back.
+for a CUDA tensor; nothing falls back. `conv3d_to1` and `conv3d_from1` are
+differentiable `torch.autograd.Function`s over the same dispatch.
 """
 
 from __future__ import annotations
@@ -51,6 +61,40 @@ def conv3d_from1_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return acc.to(x.dtype)
 
 
+def _unfold27(v: torch.Tensor, flip: bool = False) -> torch.Tensor:
+    """v (B, D, H, W) -> (B*D*H*W, 32): column t holds v at the input voxel
+    of tap t (0 outside the volume), taps in `_taps()` order, or in reverse
+    order with `flip`; columns 27-31 are zero (a 16-byte aligned row for the
+    card's matrix product). fp32 on the CPU; the card's bf16 product
+    accumulates in fp32 itself."""
+    if not v.is_cuda:
+        v = v.float()
+    b, d, h, w = v.shape
+    vp = F.pad(v, (1, 1, 1, 1, 1, 1))
+    cols = v.new_zeros((b, d, h, w, 32))
+    for t, (kd, kh, kw) in enumerate(_taps()):
+        cols[..., 26 - t if flip else t] = vp[:, kd:kd + d, kh:kh + h, kw:kw + w]
+    return cols.reshape(-1, 32)
+
+
+def wgrad_to1(x: torch.Tensor, g: torch.Tensor, w_dtype: torch.dtype) -> torch.Tensor:
+    """dw (3, 3, 3, C, 1) of `conv3d_to1`: dw[t, c] = sum_u x[u, c] g[u - off_t],
+    one (C, N) x (N, 27) product over the unfolded cotangent (flipped taps)."""
+    c = x.shape[-1]
+    cols = _unfold27(g[..., 0], flip=True)
+    dw = x.reshape(-1, c).to(cols.dtype).t() @ cols               # (C, 32)
+    return dw[:, :27].t().reshape(3, 3, 3, c, 1).to(w_dtype)
+
+
+def wgrad_from1(x: torch.Tensor, g: torch.Tensor, w_dtype: torch.dtype) -> torch.Tensor:
+    """dw (3, 3, 3, 1, C) of `conv3d_from1`: dw[t, c] = sum_v x[v + off_t] g[v, c],
+    one (27, N) x (N, C) product over the unfolded input."""
+    c = g.shape[-1]
+    cols = _unfold27(x[..., 0])
+    dw = cols.t() @ g.reshape(-1, c).to(cols.dtype)               # (32, C)
+    return dw[:27].reshape(3, 3, 3, 1, c).to(w_dtype)
+
+
 def _launch(name: str, x: torch.Tensor, w27: torch.Tensor, y: torch.Tensor, c: int) -> None:
     b, d, h, wd = y.shape[:4]
     build.require_voxels(b, d, h, wd)
@@ -63,8 +107,58 @@ def _launch(name: str, x: torch.Tensor, w27: torch.Tensor, y: torch.Tensor, c: i
     build.launches[name] += 1
 
 
+class _Conv3dTo1(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x if ctx.needs_input_grad[1] else None,
+                              w if ctx.needs_input_grad[0] else None)
+        ctx.w_dtype = w.dtype
+        return conv3d_to1_forward(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:  # (3,3,3,C,1) flipped, as the (3,3,3,1,C) of from1
+            dx = conv3d_from1_forward(g.to(w.dtype), w.flip((0, 1, 2)).transpose(3, 4))
+        if ctx.needs_input_grad[1]:
+            dw = wgrad_to1(x, g.to(x.dtype), ctx.w_dtype)
+        return dx, dw
+
+
+class _Conv3dFrom1(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x if ctx.needs_input_grad[1] else None,
+                              w if ctx.needs_input_grad[0] else None)
+        ctx.w_dtype = w.dtype
+        return conv3d_from1_forward(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = conv3d_to1_forward(g.to(w.dtype), w.flip((0, 1, 2)).transpose(3, 4))
+        if ctx.needs_input_grad[1]:
+            dw = wgrad_from1(x, g.to(x.dtype), ctx.w_dtype)
+        return dx, dw
+
+
 def conv3d_to1(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (B, D, H, W, C), w (3, 3, 3, C, 1) -> (B, D, H, W, 1)."""
+    """x (B, D, H, W, C), w (3, 3, 3, C, 1) -> (B, D, H, W, 1), differentiable."""
+    return _Conv3dTo1.apply(x, w)
+
+
+def conv3d_from1(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (B, D, H, W, 1), w (3, 3, 3, 1, C) -> (B, D, H, W, C), differentiable."""
+    return _Conv3dFrom1.apply(x, w)
+
+
+def conv3d_to1_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The C -> 1 stencil itself, outside autograd: plain version or kernel."""
     if x.dim() != 5 or tuple(w.shape) != (3, 3, 3, x.shape[-1], 1):
         raise ValueError(f"conv3d_to1: bad shapes x{tuple(x.shape)} w{tuple(w.shape)}")
     if x.device.type == "cpu":
@@ -79,8 +173,8 @@ def conv3d_to1(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def conv3d_from1(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (B, D, H, W, 1), w (3, 3, 3, 1, C) -> (B, D, H, W, C)."""
+def conv3d_from1_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The 1 -> C stencil itself, outside autograd: plain version or kernel."""
     if x.dim() != 5 or x.shape[-1] != 1 or w.shape[:4] != (3, 3, 3, 1) or w.dim() != 5:
         raise ValueError(f"conv3d_from1: bad shapes x{tuple(x.shape)} w{tuple(w.shape)}")
     if x.device.type == "cpu":

@@ -1,8 +1,8 @@
 """Core 3D conv building blocks (PyTorch, NCDHW API, channels_last_3d inside).
 
 Port of `sivae_tpu/models/blocks.py` (`make_act`, `avg_pool3d`,
-`upsample_nearest3d`, `Conv3d`, `BatchNorm`, `ConvBlock`, `UpBlock`,
-`ConvBNAct`). Module and parameter names follow the reference torch
+`upsample_nearest3d`, `Conv3d`, `BatchNorm` in both modes, `ConvBlock`,
+`UpBlock`, `ConvBNAct`). Module and parameter names follow the reference torch
 `state_dict` (reference models/models.py:8-80): `block.{0,1,4,5}` inside a
 residual block, `shortcut` for its 1x1 projection, `{0,1}` inside a
 conv-BN-act unit. A reference checkpoint therefore loads with
@@ -20,6 +20,7 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from sivae_torch.config import ActivationConfig
 from sivae_torch.kernels.conv3d import conv3d_same
@@ -46,6 +47,13 @@ def make_act(cfg: ActivationConfig, which: str = "body") -> nn.Module:
     if name == "relu":
         return nn.ReLU()
     raise ValueError(f"unknown activation {name!r}")
+
+
+def act_slope(cfg: ActivationConfig, which: str = "body") -> float:
+    """The activation as a LeakyReLU slope (ReLU is slope 0), for the
+    `BatchNorm` that applies it itself."""
+    act = make_act(cfg, which)
+    return act.negative_slope if isinstance(act, nn.LeakyReLU) else 0.0
 
 
 def avg_pool3d(x: torch.Tensor, stride: int) -> torch.Tensor:
@@ -162,19 +170,92 @@ class UpsampleConv3d(Conv3d):
         return upsampled_conv3x3(x.to(self.dtype), self.weight, b)
 
 
-class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over (N, D, H, W) with running stats, in flax's
-    op order: `(x - mean) * (rsqrt(var + eps) * weight) + bias`, cast to the
-    compute dtype (`sivae_tpu/models/blocks.py:349-361`). Buffer names are
-    torch's (`num_batches_tracked` included), so reference checkpoints load.
-    Batch statistics come with the training step; until then a forward in
-    training mode raises.
+_BN_AXES = (0, 2, 3, 4)
+_BN_VIEW = (1, -1, 1, 1, 1)
+
+
+def _act(y: torch.Tensor, slope: Optional[float]) -> torch.Tensor:
+    if slope is None:
+        return y
+    return F.relu(y) if slope == 0.0 else F.leaky_relu(y, slope)
+
+
+class _BatchNormTrain(torch.autograd.Function):
+    """Train-mode BatchNorm (+ optional LeakyReLU / ReLU) that keeps only its
+    input and the per-channel fp32 statistics for the backward pass.
+
+    Written as separate eager ops, autograd would keep `x.float()`, `x - mean`
+    and the scaled product alive for every BN site of every forward of the
+    two-phase step: several GB per full-resolution site. Here the backward
+    recomputes them from `x` in fp32, the gradient through the batch mean
+    and variance included. Plain torch ops on purpose: the JAX package has
+    no kernel here either.
+
+    Returns (y, mean, var); mean and var (biased) are not differentiable and
+    feed the running statistics.
     """
 
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, slope, out_dtype):
+        xf = x.float()
+        mean = xf.mean(dim=_BN_AXES)
+        raw_var = (xf * xf).mean(dim=_BN_AXES) - mean * mean
+        del xf
+        var = raw_var.clamp_min(0.0)  # flax's fast variance: max(0, E[x^2] - mean^2)
+        rstd = torch.rsqrt(var + eps)
+        # same op order as the eval branch (flax `_normalize`)
+        y = x - mean.view(_BN_VIEW)
+        y = y.mul_((rstd * weight.float()).view(_BN_VIEW)).add_(bias.float().view(_BN_VIEW))
+        y = _act(y.to(out_dtype), slope)
+        # d max(0, v) / dv: 1 above 0, 0 below, 1/2 at the tie (as jnp.maximum)
+        k = (raw_var > 0).float() + 0.5 * (raw_var == 0).float()
+        ctx.save_for_backward(x, weight, bias, mean, rstd, k)
+        ctx.slope = slope
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, g, _g_mean, _g_var):
+        x, weight, bias, mean, rstd, k = ctx.saved_tensors
+        n = x.numel() // x.shape[1]
+        d = x - mean.view(_BN_VIEW)                      # fp32, a new tensor
+        mul = rstd * weight.float()
+        gf = g.float()
+        if ctx.slope is not None:                        # the forward's own pre-activation
+            pos = (d * mul.view(_BN_VIEW) + bias.float().view(_BN_VIEW)) > 0
+            gf = torch.where(pos, gf, gf * ctx.slope)
+            del pos
+        xhat = d.mul_(rstd.view(_BN_VIEW))
+        dbias = gf.sum(dim=_BN_AXES)
+        dweight = (gf * xhat).sum(dim=_BN_AXES)
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = xhat.mul_((-k * dweight / n).view(_BN_VIEW)).add_(gf)
+            dx = dx.sub_((dbias / n).view(_BN_VIEW)).mul_(mul.view(_BN_VIEW)).to(x.dtype)
+        return dx, dweight.to(weight.dtype), dbias.to(bias.dtype), None, None, None
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm over (N, D, H, W) in flax's op order,
+    `(x - mean) * (rsqrt(var + eps) * weight) + bias`, cast to the compute
+    dtype, then the activation when `act_slope` is given (LeakyReLU slope;
+    0 is ReLU; None is no activation). Port of `_BNCore`
+    (`sivae_tpu/models/blocks.py:313-361`).
+
+    Eval mode takes the running statistics. Training mode takes the batch's:
+    mean and mean of squares in fp32, `var = max(0, E[x^2] - mean^2)`, and
+    moves the running statistics by `0.9 * old + 0.1 * new` with the BIASED
+    variance, as flax does (torch's `BatchNorm3d` stores the unbiased one).
+    Buffer names are torch's (`num_batches_tracked` included), so reference
+    checkpoints load.
+    """
+
+    momentum = 0.9  # share of the old running statistic that is kept
+
     def __init__(self, ch: int, dtype=torch.float32, param_dtype=torch.float32,
-                 eps: float = 1e-5):
+                 eps: float = 1e-5, act_slope: Optional[float] = None):
         super().__init__()
-        self.dtype, self.eps = dtype, eps
+        self.dtype, self.eps, self.act_slope = dtype, eps, act_slope
         self.weight = nn.Parameter(torch.ones(ch, dtype=param_dtype))
         self.bias = nn.Parameter(torch.zeros(ch, dtype=param_dtype))
         self.register_buffer("running_mean", torch.zeros(ch))
@@ -183,20 +264,25 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            raise NotImplementedError("BatchNorm batch statistics come with the training step; "
-                                      "call .eval() first")
-        mean, var = self.running_mean, self.running_var
-        shape = (1, -1, 1, 1, 1)
-        y = x - mean.view(shape)
-        mul = torch.rsqrt(var.view(shape) + self.eps) * self.weight.view(shape)
+            y, mean, var = _BatchNormTrain.apply(x, self.weight, self.bias, self.eps,
+                                                 self.act_slope, self.dtype)
+            with torch.no_grad():
+                self.running_mean.mul_(self.momentum).add_(mean, alpha=1.0 - self.momentum)
+                self.running_var.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)
+                self.num_batches_tracked += 1
+            return y
+        y = x - self.running_mean.view(_BN_VIEW)
+        mul = torch.rsqrt(self.running_var.view(_BN_VIEW) + self.eps) * self.weight.view(_BN_VIEW)
         y = y * mul
-        y = y + self.bias.view(shape)
-        return y.to(self.dtype)
+        y = y + self.bias.view(_BN_VIEW)
+        return _act(y.to(self.dtype), self.act_slope)
 
 
 class ConvBNAct(nn.Sequential):
     """conv -> BN -> act [-> dropout]: the stem / plain-stage unit
-    (reference `blocks.0` = Sequential(conv, bn, act, dropout))."""
+    (reference `blocks.0` = Sequential(conv, bn, act, dropout)). The BN
+    applies the activation itself; index 2 stays as an identity so the
+    module indices match the reference."""
 
     def __init__(self, in_ch: int, out_ch: int, act: ActivationConfig, dropout: float = 0.0,
                  use_bias: bool = True, kernel_size: int = 3, dtype=torch.float32,
@@ -204,8 +290,8 @@ class ConvBNAct(nn.Sequential):
         super().__init__(
             Conv3d(in_ch, out_ch, kernel_size, use_bias=use_bias, dtype=dtype,
                    param_dtype=param_dtype, generator=generator),
-            BatchNorm(out_ch, dtype=dtype, param_dtype=param_dtype),
-            make_act(act),
+            BatchNorm(out_ch, dtype=dtype, param_dtype=param_dtype, act_slope=act_slope(act)),
+            nn.Identity(),
             Dropout(dropout),
         )
 
@@ -215,7 +301,9 @@ class ConvBlock(nn.Module):
 
     conv3 -> BN -> act -> AvgPool(stride) -> conv3 -> BN; when stride == 1
     the input is added back (1x1 projection if channel counts differ) before
-    the output activation.
+    the output activation. Each BN applies the activation that follows it
+    directly (`block.2`, and the output activation when there is no
+    residual); `block.2` stays as an identity.
     """
 
     def __init__(self, in_ch: int, out_ch: int, stride: int, act: ActivationConfig,
@@ -224,17 +312,18 @@ class ConvBlock(nn.Module):
         super().__init__()
         kw = dict(dtype=dtype, param_dtype=param_dtype)
         self.stride = stride
+        slope = act_slope(act)
         self.block = nn.Sequential(
             Conv3d(in_ch, out_ch, use_bias=use_bias, generator=generator, **kw),
-            BatchNorm(out_ch, **kw),
-            make_act(act),
+            BatchNorm(out_ch, act_slope=slope, **kw),
+            nn.Identity(),
             AvgPool(stride),
             Conv3d(out_ch, out_ch, use_bias=use_bias, generator=generator, **kw),
-            BatchNorm(out_ch, **kw),
+            BatchNorm(out_ch, act_slope=None if stride == 1 else slope, **kw),
         )
         self.shortcut = (Conv3d(in_ch, out_ch, 1, use_bias=True, generator=generator, **kw)
                          if stride == 1 and in_ch != out_ch else None)
-        self.act = make_act(act)
+        self.act = make_act(act) if stride == 1 else nn.Identity()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.block(x)
@@ -250,6 +339,7 @@ class UpBlock(nn.Module):
     conv3 (to out_ch) -> BN; residual iff stride == 1. At stride 2 the
     upsample and the second conv run as one fused op (`UpsampleConv3d`);
     `block.3` stays an identity so the parameter names match the reference.
+    The BNs apply their activations as in `ConvBlock`.
     """
 
     def __init__(self, in_ch: int, out_ch: int, stride: int, act: ActivationConfig,
@@ -261,17 +351,18 @@ class UpBlock(nn.Module):
         kw = dict(dtype=dtype, param_dtype=param_dtype)
         self.stride = stride
         conv2 = UpsampleConv3d if stride == 2 else Conv3d
+        slope = act_slope(act)
         self.block = nn.Sequential(
             Conv3d(in_ch, in_ch, use_bias=use_bias, generator=generator, **kw),
-            BatchNorm(in_ch, **kw),
-            make_act(act),
+            BatchNorm(in_ch, act_slope=slope, **kw),
+            nn.Identity(),
             nn.Identity(),
             conv2(in_ch, out_ch, use_bias=use_bias, generator=generator, **kw),
-            BatchNorm(out_ch, **kw),
+            BatchNorm(out_ch, act_slope=None if stride == 1 else slope, **kw),
         )
         self.shortcut = (Conv3d(in_ch, out_ch, 1, use_bias=True, generator=generator, **kw)
                          if stride == 1 and in_ch != out_ch else None)
-        self.act = make_act(act)
+        self.act = make_act(act) if stride == 1 else nn.Identity()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.block(x)

@@ -10,8 +10,10 @@ SoftIntroVAE :257-300). Module names follow the reference `state_dict`:
 
 The latent is a 1-channel spatial map (B, 1, d, h, w) with
 (d, h, w) = input_shape / prod(strides), e.g. (10, 12, 10) -> 1200-d.
-Parameters are fp32; `cfg.dtype` is the compute dtype. BN runs in eval
-mode only until the training step is ported.
+Parameters are fp32; `cfg.dtype` is the compute dtype. In eval mode BN
+takes its running statistics and dropout is the identity; in training mode
+(`train/step.py` switches it) BN takes the batch's statistics and moves the
+running ones, and every `Dropout` draws from the generator it was given.
 """
 
 from __future__ import annotations

@@ -189,8 +189,11 @@ def test_port_package_imports_without_jax_installed():
         "            raise ImportError('blocked ' + name)\n"
         "sys.meta_path.insert(0, Block())\n"
         "import sivae_torch\n"
-        "for m in pkgutil.walk_packages(sivae_torch.__path__, 'sivae_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(sivae_torch.__path__, 'sivae_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "for name in ('train.step', 'train.state', 'ops.losses', 'kernels.conv3d_fused'):\n"
+        "    assert 'sivae_torch.' + name in names, name\n"
         "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
                           capture_output=True, text=True, timeout=120)

@@ -1,11 +1,14 @@
 """sivae_torch conv kernels: each plain PyTorch version against its Pallas
-original (interpret mode on the CPU) and the CPU routing of the wrappers.
-The CUDA kernels themselves are tested in test_torch_cuda.py.
+original (interpret mode on the CPU), the CPU routing of the wrappers, and
+each wrapper's gradient (a `torch.autograd.Function`) against `jax.vjp` of
+the Pallas original. The CUDA kernels themselves are tested in
+test_torch_cuda.py.
 
 Tolerances: fp32 atol 1e-4 (as tests/test_pallas_conv.py). bf16 atol/rtol
 0.05: the plain version sums all 27 taps in fp32 and rounds once, the
 Pallas v1 rounds its running sum to bf16 after every depth tap."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -92,7 +95,8 @@ def test_cpu_tensors_take_plain_versions_and_count_nothing():
     assert torch.equal(conv3d_to1(xt, wt1), conv3d_to1_plain(xt, wt1))
     x1t, w1t = torch.from_numpy(x1), torch.from_numpy(w1)
     assert torch.equal(conv3d_from1(x1t, w1t), conv3d_from1_plain(x1t, w1t))
-    assert build.launches == {"conv3d_same": 0, "conv3d_to1": 0, "conv3d_from1": 0}
+    assert build.launches == {"conv3d_same": 0, "conv3d_to1": 0, "conv3d_from1": 0,
+                              "conv3d_fused_stats": 0}
 
 
 @pytest.mark.parametrize("fn,x_shape,w_shape", [
@@ -114,3 +118,50 @@ def test_plain_conv_matches_torch_conv3d():
     want = torch.nn.functional.conv3d(xt.permute(0, 4, 1, 2, 3), wt.permute(4, 3, 0, 1, 2),
                                       padding=1).permute(0, 2, 3, 4, 1)
     torch.testing.assert_close(conv3d_same_plain(xt, wt), want, atol=1e-5, rtol=1e-5)
+
+
+GRAD_CASES = (
+    [("same", conv3d_same, conv3d_same_pallas, sh, ci, co) for sh, ci, co in CONV_SHAPES]
+    + [("to1", conv3d_to1, jax_to1, sh, c, 1) for sh, c in TO1_SHAPES]
+    + [("from1", conv3d_from1, jax_from1, sh, 1, c) for sh, c in FROM1_SHAPES])
+
+
+@pytest.mark.parametrize("name,fn,jax_fn,shape,cin,cout", GRAD_CASES,
+                         ids=[f"{c[0]}-{c[4]}to{c[5]}-{'x'.join(map(str, c[3]))}"
+                              for c in GRAD_CASES])
+def test_gradients_match_pallas_vjp(name, fn, jax_fn, shape, cin, cout):
+    """dx (the kernel's plain version on flipped weights) and dw (the
+    library's correlation) against `jax.vjp` of the Pallas original in
+    interpret mode, fp32 atol 1e-4."""
+    x, w = _inputs(7, shape, cin, cout)
+    g = np.random.RandomState(8).randn(*shape, cout).astype(np.float32)
+    y_j, vjp = jax.vjp(lambda a, b: jax_fn(a, b, True), jnp.asarray(x), jnp.asarray(w))
+    dx_j, dw_j = vjp(jnp.asarray(g))
+    xt = torch.from_numpy(x).requires_grad_()
+    wt = torch.from_numpy(w).requires_grad_()
+    y_t = fn(xt, wt)
+    dx_t, dw_t = torch.autograd.grad(y_t, (xt, wt), torch.from_numpy(g))
+    np.testing.assert_allclose(y_t.detach().numpy(), np.asarray(y_j), atol=1e-4)
+    np.testing.assert_allclose(dx_t.numpy(), np.asarray(dx_j), atol=1e-4)
+    np.testing.assert_allclose(dw_t.numpy(), np.asarray(dw_j), atol=1e-4)
+
+
+@pytest.mark.parametrize("fn,cin,cout", [(conv3d_same, 3, 4), (conv3d_to1, 3, 1),
+                                         (conv3d_from1, 1, 4)])
+def test_gradients_honour_needs_input_grad_and_bf16(fn, cin, cout):
+    """Data needs no dx and a frozen weight no dw: each is computed only when
+    asked for, and bf16 operands give bf16 gradients near the fp32 ones."""
+    x, w = _inputs(9, (2, 3, 4, 5), cin, cout)
+    g = torch.from_numpy(np.random.RandomState(10).randn(2, 3, 4, 5, cout).astype(np.float32))
+    xt, wt = torch.from_numpy(x).requires_grad_(), torch.from_numpy(w).requires_grad_()
+    dx, dw = torch.autograd.grad(fn(xt, wt), (xt, wt), g)
+    (dw_only,) = torch.autograd.grad(fn(xt.detach(), wt), (wt,), g)
+    (dx_only,) = torch.autograd.grad(fn(xt, wt.detach()), (xt,), g)
+    assert torch.equal(dw_only, dw) and torch.equal(dx_only, dx)
+    assert not fn(xt.detach(), wt.detach()).requires_grad
+    xb = xt.detach().bfloat16().requires_grad_()
+    wb = wt.detach().bfloat16().requires_grad_()
+    dxb, dwb = torch.autograd.grad(fn(xb, wb), (xb, wb), g.bfloat16())
+    assert dxb.dtype == dwb.dtype == torch.bfloat16
+    for got, want in ((dxb, dx), (dwb, dw)):
+        assert (got.float() - want).abs().max() <= 0.05 * max(1.0, want.abs().max().item())

@@ -1,7 +1,9 @@
 """sivae_torch model: eval-mode encode / decode of `tiny_spatial` against the
-JAX model on the same weights (carried with `jax_to_state_dict`), the fused
-upsample+conv against JAX and against upsample-then-conv, the weight carry's
-completeness in both directions, and reference-checkpoint loading.
+JAX model on the same weights (carried with `jax_to_state_dict`), train-mode
+BatchNorm (output, running statistics, gradients) against flax's `_BNCore`
+and against autograd of the naive formula, the fused upsample+conv against
+JAX and against upsample-then-conv, the weight carry's completeness in both
+directions, and reference-checkpoint loading.
 
 fp32 tolerance: max|diff| <= 1e-4 * max(1, max|ref|) (the two stacks sum
 the same products in other orders)."""
@@ -15,6 +17,7 @@ import pytest
 import torch
 
 from sivae_tpu.config import SpatialVAEConfig as JaxSpatialVAEConfig
+from sivae_tpu.models.blocks import _BNCore
 from sivae_tpu.models.registry import make_model as jax_make_model
 from sivae_tpu.ops.fused_upconv import upsampled_conv3x3 as jax_upsampled_conv3x3
 from sivae_tpu.utils.torch_import import import_spatial_soft_intro_vae
@@ -181,14 +184,126 @@ def test_reparameterize_and_dropout_need_explicit_generators():
 
 
 def test_eval_only_blocks_refuse_what_they_do_not_compute():
-    """BatchNorm has no batch statistics before the training step, and
-    UpBlock upsamples by 2 only (through the fused op)."""
+    """A fresh BatchNorm in eval mode is the identity up to eps, and UpBlock
+    upsamples by 2 only (through the fused op)."""
     bn = BatchNorm(3)
     x = torch.randn(2, 3, 2, 2, 2)
     torch.testing.assert_close(bn.eval()(x), x / np.sqrt(1.0 + 1e-5))
-    with pytest.raises(NotImplementedError):
-        bn.train()(x)
     act = get_model_config("tiny_spatial").act
     assert isinstance(UpBlock(4, 3, 2, act).block[4], UpsampleConv3d)
     with pytest.raises(ValueError):
         UpBlock(4, 3, 3, act)
+
+
+def _bn_inputs(seed, c=5):
+    rng = np.random.RandomState(seed)
+    x = (rng.randn(3, 4, 5, 6, c) * rng.uniform(0.5, 2.0, c) + rng.randn(c)).astype(np.float32)
+    return {"x": x, "g": rng.randn(3, 4, 5, 6, c).astype(np.float32),
+            "scale": (1.0 + 0.3 * rng.randn(c)).astype(np.float32),
+            "bias": (0.2 * rng.randn(c)).astype(np.float32),
+            "mean": (0.1 * rng.randn(c)).astype(np.float32),
+            "var": rng.uniform(0.5, 1.5, c).astype(np.float32)}
+
+
+def _port_bn(a, act_slope=None, dtype=torch.float32):
+    bn = BatchNorm(a["x"].shape[-1], dtype=dtype, act_slope=act_slope).train()
+    bn.load_state_dict({"weight": torch.from_numpy(a["scale"]), "bias": torch.from_numpy(a["bias"]),
+                        "running_mean": torch.from_numpy(a["mean"]),
+                        "running_var": torch.from_numpy(a["var"]),
+                        "num_batches_tracked": torch.tensor(0)})
+    return bn
+
+
+@pytest.mark.parametrize("what", ["y", "running_mean", "running_var", "dx", "dweight", "dbias"])
+def test_train_mode_batchnorm_matches_flax(what):
+    """Output, moved running statistics (biased variance, momentum 0.9) and
+    the three gradients against `_BNCore` under `jax.vjp`, fp32 atol 1e-5."""
+    a = _bn_inputs(0)
+    core = _BNCore()
+    variables = {"params": {"scale": a["scale"], "bias": a["bias"]},
+                 "batch_stats": {"mean": a["mean"], "var": a["var"]}}
+
+    def apply(x, params):
+        y, mut = core.apply({"params": params, "batch_stats": variables["batch_stats"]}, x,
+                            use_running_average=False, mutable=["batch_stats"])
+        return y, mut["batch_stats"]
+
+    y_j, vjp, stats_j = jax.vjp(apply, jnp.asarray(a["x"]), variables["params"], has_aux=True)
+    dx_j, dparams_j = vjp(jnp.asarray(a["g"]))
+    want = {"y": y_j, "running_mean": stats_j["mean"], "running_var": stats_j["var"], "dx": dx_j,
+            "dweight": dparams_j["scale"], "dbias": dparams_j["bias"]}
+
+    bn = _port_bn(a)
+    x = to_ncdhw(a["x"]).requires_grad_()
+    y = bn(x)
+    dx, dweight, dbias = torch.autograd.grad(y, (x, bn.weight, bn.bias), to_ncdhw(a["g"]))
+    got = {"y": to_ndhwc(y), "running_mean": bn.running_mean.numpy(),
+           "running_var": bn.running_var.numpy(), "dx": to_ndhwc(dx),
+           "dweight": dweight.numpy(), "dbias": dbias.numpy()}
+    assert int(bn.num_batches_tracked) == 1
+    np.testing.assert_allclose(got[what], np.asarray(want[what]), atol=1e-5, rtol=1e-5)
+
+
+def _naive_bn(x, weight, bias, slope, eps=1e-5):
+    xf = x.float()
+    mean = xf.mean(dim=(0, 2, 3, 4))
+    var = ((xf * xf).mean(dim=(0, 2, 3, 4)) - mean * mean).clamp_min(0.0)
+    v = (1, -1, 1, 1, 1)
+    y = ((x - mean.view(v)) * (torch.rsqrt(var.view(v) + eps) * weight.view(v))
+         + bias.view(v)).to(x.dtype)
+    if slope is None:
+        return y
+    return torch.relu(y) if slope == 0.0 else torch.nn.functional.leaky_relu(y, slope)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("slope", [None, 0.2, 0.0], ids=["no_act", "leaky", "relu"])
+def test_lean_batchnorm_matches_autograd_of_the_naive_formula(slope, dtype):
+    """The Function that saves only its input and the per-channel statistics
+    gives the output and gradients of the formula written out in eager ops
+    (which keeps every intermediate). bf16: same output bits; the naive
+    backward rounds its intermediates to bf16, the lean one works in fp32."""
+    a = _bn_inputs(1)
+    bn = _port_bn(a, act_slope=slope, dtype=dtype)
+    x = to_ncdhw(a["x"]).to(dtype).requires_grad_()
+    g = to_ncdhw(a["g"]).to(dtype)
+    y = bn(x)
+    got = torch.autograd.grad(y, (x, bn.weight, bn.bias), g)
+    x2 = x.detach().clone().requires_grad_()
+    y2 = _naive_bn(x2, bn.weight, bn.bias, slope)
+    want = torch.autograd.grad(y2, (x2, bn.weight, bn.bias), g)
+    assert y.dtype == dtype and got[0].dtype == dtype and got[1].dtype == torch.float32
+    assert torch.equal(y, y2)
+    tol = 1e-5 if dtype == torch.float32 else 3e-2
+    for p, q in zip(got, want):
+        lim = tol * max(1.0, q.float().abs().max().item())
+        assert (p.float() - q.float()).abs().max().item() <= lim
+
+
+def test_batchnorm_constant_channel_takes_the_clamped_variance():
+    """A constant channel has E[x^2] - mean^2 = 0 (or rounding below it):
+    the variance is clamped at 0, the output is the bias, and the gradient
+    stays finite (no path through the clamped variance)."""
+    bn = BatchNorm(2).train()
+    x = torch.full((2, 2, 3, 3, 3), 0.7)
+    x[:, 1] = torch.randn(2, 3, 3, 3)
+    x.requires_grad_()
+    y = bn(x)
+    (dx,) = torch.autograd.grad(y.sum() + (y * y).sum(), x)
+    assert torch.allclose(y[:, 0], torch.zeros(()), atol=1e-3) and torch.isfinite(dx).all()
+    assert bn.running_var[0] <= 0.9 + 1e-6
+
+
+def test_block_fusion_keeps_module_names_and_eval_outputs():
+    """The BNs apply their activations themselves; the reference's module
+    indices (and so its state_dict keys) are unchanged."""
+    act = get_model_config("tiny_spatial").act
+    from sivae_torch.models.blocks import ConvBlock
+
+    for blk, fused_out in ((ConvBlock(4, 4, 2, act), True), (ConvBlock(4, 6, 1, act), False),
+                           (UpBlock(4, 3, 2, act), True), (UpBlock(4, 4, 1, act), False)):
+        keys = {k.rsplit(".", 1)[0] for k in blk.state_dict()}
+        assert {"block.0", "block.1", "block.4", "block.5"} <= keys
+        assert blk.block[1].act_slope == 0.2
+        assert (blk.block[5].act_slope == 0.2) == fused_out
+        assert isinstance(blk.act, torch.nn.Identity) == fused_out
