@@ -41,6 +41,7 @@ _F = ctypes.c_float
 # C entry points: name -> argument types (all return int)
 SIGNATURES = {
     "sivae_conv3d_same": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "sivae_conv3d_same_mma": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "sivae_conv3d_same_body": [_P, _P, _P, _I, _I, _I],
     "sivae_conv3d_to1": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "sivae_conv3d_from1": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],

@@ -95,10 +95,29 @@ def conv3d_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def conv3d_same_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The conv itself, outside autograd: plain version or kernel launch."""
+    if x.device.type == "cpu":
+        _check_shapes(x, w)
+        return conv3d_same_plain(x, w)
+    y = _launch("sivae_conv3d_same", x, w)
+    build.launches["conv3d_same"] += 1
+    return y
+
+
+def conv3d_same_earlier_body(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The conv on a CUDA tensor through the bodies that preceded the wgmma
+    one ("mma" or "fma"), whatever the dispatch would choose: for timing the
+    two tensor-core bodies side by side and for the card tests. No model path
+    calls it and it counts no launch."""
+    return _launch("sivae_conv3d_same_mma", x, w)
+
+
+def _check_shapes(x: torch.Tensor, w: torch.Tensor) -> None:
     if x.dim() != 5 or w.shape[:3] != (3, 3, 3) or w.dim() != 5 or w.shape[3] != x.shape[-1]:
         raise ValueError(f"conv3d_same: bad shapes x{tuple(x.shape)} w{tuple(w.shape)}")
-    if x.device.type == "cpu":
-        return conv3d_same_plain(x, w)
+
+
+def _launch(entry: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    _check_shapes(x, w)
     build.require_cuda(x, w)
     b, d, h, wd, ci = x.shape
     co = w.shape[-1]
@@ -106,15 +125,17 @@ def conv3d_same_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     y = torch.empty((b, d, h, wd, co), dtype=x.dtype, device=x.device)
     lib = build.library()
     with torch.cuda.device(x.device):
-        rc = lib.sivae_conv3d_same(x.data_ptr(), w.data_ptr(), y.data_ptr(), b, d, h, wd, ci, co,
-                                   build.dtype_code(x), build.stream_of(x))
-    build.check(rc, "conv3d_same")
-    build.launches["conv3d_same"] += 1
+        rc = getattr(lib, entry)(x.data_ptr(), w.data_ptr(), y.data_ptr(), b, d, h, wd, ci, co,
+                                 build.dtype_code(x), build.stream_of(x))
+    build.check(rc, entry)
     return y
 
 
+BODIES = ("fma", "mma", "wgmma")
+
+
 def conv3d_same_body(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor) -> str:
-    """Which kernel body a CUDA call on these tensors runs ("mma" or "fma")."""
+    """Which kernel body a CUDA call on these tensors runs: "wgmma", "mma" or "fma"."""
     used = build.library().sivae_conv3d_same_body(
         x.data_ptr(), w.data_ptr(), y.data_ptr(), x.shape[-1], w.shape[-1], build.dtype_code(x))
-    return "mma" if used else "fma"
+    return BODIES[used]
