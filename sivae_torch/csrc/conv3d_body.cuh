@@ -30,6 +30,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "ptx.cuh"
 
 namespace sivae {
 
@@ -201,44 +202,6 @@ constexpr int kSmemC = WM * LDC * 4;
 constexpr int kSmemW = kSmemC > kSmemAB ? kSmemC : kSmemAB;  // > 48 KB: dynamic, opt-in
 constexpr int kACopies = kRows * (WK / 8);  // 16-byte copies per line buffer
 static_assert(kACopies <= 3 * 256 && (kAElems * 2) % 16 == 0, "loader layout");
-
-// 16-byte asynchronous global -> shared copy; with valid == false no byte is
-// read and the 16 destination bytes are zero-filled (the SAME padding).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// ldmatrix: four 8x8 b16 matrices from shared memory; lane l gives the row
-// address of matrix l / 8 (row l % 8). With .trans each thread receives the
-// transposed pairs, which is the mma B-fragment layout for a [k][n] tile.
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-// d += a (16x16 bf16, row) * b (16x8 bf16, col), fp32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // kMinBlocks blocks of 72.7 KB per SM: 3 (<= 85 registers) for the plain
 // conv, 2 for the fused forms, whose extra state would spill under 85.

@@ -1,28 +1,34 @@
 // 3x3x3 SAME stride-1 convolutions with a 1-channel side, for sm_90a.
 //
-// A conv with one output (or one input) channel is not a matrix product but a
-// 27-tap stencil with a channel reduction (C -> 1) or a channel broadcast
-// (1 -> C). Both are bound by device memory or by CUDA-core FMAs: at the
-// flagship sites (64 channels at 80x96x80, batch 8, bf16) the C-wide side is
-// ~629 MB and there are ~8.5e9 FMAs, and no tensor-core form helps.
+// A conv with one output (or one input) channel is a 27-tap stencil with a
+// channel reduction (C -> 1) or a channel broadcast (1 -> C). Both are bound
+// by the bytes of their C-wide side: at the flagship sites (64 channels at
+// 80x96x80, batch 8, bf16) that side is ~629 MB, 0.19 ms at 3.35 TB/s, while
+// the 1.7e10 multiply-adds are 0.03 ms of tensor-core time (C -> 1 only: its
+// channel contraction is a matrix product per input voxel) or 0.5 ms of
+// CUDA-core time.
 //
-// - conv3d_to1_kernel replaces sivae_tpu/kernels/conv3d_small.py:_small_out_impl
-//   (_small_out_kernel). Eight threads per output voxel, each owning 16-byte
-//   chunks of the C contiguous channels: one warp reads four voxels' tap rows
-//   as fully used 128-byte lines. fp32 FMAs against the 27xC weights held in
-//   shared memory, then a shuffle reduce over the eight threads. Neighbouring
-//   voxels read overlapping windows, so the 27x re-reads hit L1/L2 and device
-//   memory sees each input about once.
+// - C -> 1 replaces sivae_tpu/kernels/conv3d_small.py:_small_out_impl
+//   (_small_out_kernel). Two bodies:
+//   "mma" (conv3d_to1_mma.cuh; bf16, C = 16, 32 or 64): the channels are
+//   contracted once per input voxel on the tensor cores and the 27 taps are
+//   summed from shared memory, so each input byte is read about once.
+//   "fma" (conv3d_to1_kernel below; fp32, where TF32 would not hold the fp32
+//   tolerance, and every other C): eight threads per output voxel, each
+//   owning 16-byte chunks of the C contiguous channels; fp32 FMAs against the
+//   27xC weights held in shared memory, then a shuffle reduce. The 27x
+//   re-reads of overlapping windows hit L1/L2, which is what bounds it.
 // - conv3d_from1_kernel replaces _small_in_impl (_small_in_kernel). One thread
 //   per (voxel, group of 8 channels): the 27 input scalars of the window are
 //   loaded once into registers and reused across the group's channels, the
 //   27xC weights sit in shared memory, and the group's outputs leave as
 //   16-byte stores, consecutive threads on consecutive addresses, so the
-//   output stream is written contiguously.
-// Both accumulate in fp32 and round once. Odd channel counts (C not a
+//   output stream, its bound, is written contiguously.
+// All accumulate in fp32 and round once. Odd channel counts (C not a
 // multiple of the 16-byte vector) take the same walk with scalar accesses.
 
 #include "common.cuh"
+#include "conv3d_to1_mma.cuh"
 
 namespace sivae {
 namespace {
@@ -170,10 +176,17 @@ void launch_from1(const void* x, const void* w, void* y, int B, int D, int H, in
 
 extern "C" {
 
+// Which body a C -> 1 call with these arguments runs: 1 = mma (tensor-core
+// contraction), 0 = fma.
+int sivae_conv3d_to1_body(const void* x, int C, int dtype) {
+  return sivae::to1_mma_eligible(x, C, dtype) ? 1 : 0;
+}
+
 // x (B,D,H,W,C), w (3,3,3,C), y (B,D,H,W); contiguous, one dtype, B*D*H*W < 2^31.
 int sivae_conv3d_to1(const void* x, const void* w, void* y, int B, int D, int H, int W, int C,
                      int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (sivae::to1_mma_eligible(x, C, dtype)) return sivae::launch_to1_mma(x, w, y, B, D, H, W, C, s);
   if (dtype == sivae::kFloat32)
     sivae::launch_to1<float>(x, w, y, B, D, H, W, C, s);
   else

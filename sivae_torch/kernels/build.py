@@ -43,6 +43,7 @@ SIGNATURES = {
     "sivae_conv3d_same": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "sivae_conv3d_same_mma": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "sivae_conv3d_same_body": [_P, _P, _P, _I, _I, _I],
+    "sivae_conv3d_to1_body": [_P, _I, _I],
     "sivae_conv3d_to1": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "sivae_conv3d_from1": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "sivae_conv3d_fused_stats": [_P, _P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
