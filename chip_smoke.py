@@ -11,8 +11,12 @@ failure exits non-zero and prints no result):
    site of the spatial_1200 encode + decode path and the two sites only the
    input gradient sees (128->64 and 256->128), batch 2, plus odd shapes
    (conv 3->4 and 1->5, stencils with 5 channels), in fp32 (TF32 off) and
-   bf16: max error, kernel / plain / library (`library_ms`, a yardstick
-   only) times, and the roofline bound. The fused conv + statistics kernel
+   bf16: the body the dispatch chose, max error, kernel / plain / library
+   (`library_ms`, a yardstick only) times, and the roofline bound; for
+   `conv3d_same` rows that the wgmma body takes, the earlier mma.sync body's
+   error and time on the same operands. The flagship sites of `conv3d_same`
+   and `conv3d_to1` are also run at batch 8, the batch both main paths run,
+   and `conv3d_to1` at C = 16 and 32. The fused conv + statistics kernel
    runs with and without its prologue at the flagship site and at two shapes
    whose 128-voxel tiles straddle (b, d) planes; its library yardstick is the
    unfused stage (elementwise prologue, cuDNN conv, two reductions).
@@ -49,7 +53,7 @@ failure exits non-zero and prints no result):
    fp32 parameters, dropout on, default loss config, the first 8 synthetic
    volumes. One warm-up step; one step with the counters at 0 (155
    conv3d_same, 10 conv3d_to1, 12 conv3d_from1 launches expected, forward
-   and backward together); 5 timed steps (median, min, max s/step, vol/s);
+   and backward together; conv3d_same's are also printed by site); 5 timed steps (median, min, max s/step, vol/s);
    the last step's metrics must be finite and `nan` unset; encoder and
    decoder parameters and both halves' BN running statistics must have
    moved; peak memory; one validation step with finite metrics; a
@@ -105,6 +109,10 @@ SMALL_SITES = [(64, (80, 96, 80)), (5, (8, 10, 12))]
 # (7 * 9 = 63 voxels a plane), one for each body
 FUSED_SITES = [(64, 64, (80, 96, 80)), (64, 64, (6, 7, 9)), (3, 5, (6, 7, 9))]
 FLAGSHIP = (64, (80, 96, 80))
+FLAGSHIP_CONV = (64, 64, (80, 96, 80))
+# bf16 only, (batch, C, grid): the decoder tail at the main paths' batch, and
+# the other channel counts of its tensor-core body at a grid no patch divides
+TO1_BF16_SITES = [(8, 64, (80, 96, 80)), (2, 32, (20, 23, 37)), (2, 16, (20, 23, 37))]
 SLOPE = 0.2                  # the model's LeakyReLU
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 TOL_SUMS = 1e-3
@@ -156,6 +164,11 @@ def dtype_name(dtype) -> str:
 
 def grid_name(sp) -> str:
     return "x".join(map(str, sp))
+
+
+def _batch_tag(b: int) -> str:
+    """Phase 3 runs at batch 2 unless a row says otherwise."""
+    return "" if b == 2 else f" batch {b}"
 
 
 # ---------------------------------------------------------------------------
@@ -217,22 +230,27 @@ def unfused_stage(x, w_cl, in_a, in_b, slope):
 
 def phase_kernels(dev) -> dict:
     from sivae_torch.kernels import build
-    from sivae_torch.kernels.conv3d import conv3d_same, conv3d_same_body, conv3d_same_plain
+    from sivae_torch.kernels.conv3d import (conv3d_same, conv3d_same_body,
+                                            conv3d_same_earlier_body, conv3d_same_plain)
     from sivae_torch.kernels.conv3d_fused import conv3d_fused_stats, conv3d_fused_stats_plain
     from sivae_torch.kernels.conv3d_small import (conv3d_from1, conv3d_from1_plain, conv3d_to1,
-                                                  conv3d_to1_plain)
+                                                  conv3d_to1_body, conv3d_to1_plain)
 
     gen = torch.Generator(device=dev).manual_seed(0)
     failures, rows = [], {}
 
-    def run(name, site, dtype, kern, plain, lib_fn, nbytes, flops, numel, body=""):
-        """kern / plain return a tensor or a tuple (y, sums...)."""
+    def run(name, site, dtype, kern, plain, lib_fn, nbytes, flops, numel, body="", earlier=None):
+        """kern / plain return a tensor or a tuple (y, sums...); `earlier` is
+        the body the dispatch's choice superseded, held to the same plain."""
         k = kern()
         torch.cuda.synchronize()
         p = plain()
         k, p = (k, p) if isinstance(k, tuple) else ((k,), (p,))
         err, rel, ok = _compare(k[0], p[0], TOL[dtype])
         sums = ""
+        if earlier is not None:
+            e_err, e_rel, e_ok = _compare(earlier(), p[0], TOL[dtype])
+            ok = ok and e_ok
         for ks, ps in zip(k[1:], p[1:]):
             s_err, s_rel, s_ok = _compare(ks, ps, TOL_SUMS)
             ok = ok and s_ok
@@ -243,10 +261,13 @@ def phase_kernels(dev) -> dict:
         plain_ms = time_ms(plain, max(2, reps // 5))
         lib_ms = time_ms(lib_fn, reps)
         b_ms, b_by = bound(nbytes, flops, PEAK_FLOPS[dtype])
+        old = ""
+        if earlier is not None:
+            old = f" | earlier body max_rel {e_rel:.3e} {time_ms(earlier, reps):.3f} ms"
         tag = f"{name} {site} {dtype_name(dtype)}"
-        log(f"[kernel] {tag:52s} {body:4s} max_abs {err:.3e} max_rel {rel:.3e}{sums} "
+        log(f"[kernel] {tag:52s} {body:5s} max_abs {err:.3e} max_rel {rel:.3e}{sums} "
             f"{'ok' if ok else 'FAIL'} | kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
-            f"library {lib_ms:.3f} ms bound {b_ms:.3f} ms ({b_by})")
+            f"library {lib_ms:.3f} ms bound {b_ms:.3f} ms ({b_by}){old}")
         if not ok:
             failures.append(tag)
         rows[(name, site, dtype)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -254,31 +275,37 @@ def phase_kernels(dev) -> dict:
 
     for dtype in (torch.float32, torch.bfloat16):
         isz = 4 if dtype == torch.float32 else 2
-        for ci, co, sp in CONV_SITES:
-            b = 2
+        flagship8 = [(8,) + FLAGSHIP_CONV] if dtype == torch.bfloat16 else []
+        for b, ci, co, sp in [(2,) + site for site in CONV_SITES] + flagship8:
             x = torch.randn((b,) + sp + (ci,), generator=gen, device=dev).to(dtype)
             w = _he((3, 3, 3, ci, co), 27 * ci, gen, dev, dtype)
             x_cl = x.permute(0, 4, 1, 2, 3)                    # NCDHW view, channels_last_3d
             w_cl = w.permute(4, 3, 0, 1, 2).contiguous(memory_format=torch.channels_last_3d)
             n_vox = b * sp[0] * sp[1] * sp[2]
             body = conv3d_same_body(x, w, torch.empty((b,) + sp + (co,), dtype=dtype, device=dev))
-            run("conv3d_same", f"{ci}->{co}@{grid_name(sp)}", dtype,
+            run("conv3d_same", f"{ci}->{co}@{grid_name(sp)}" + _batch_tag(b), dtype,
                 lambda: conv3d_same(x, w), lambda: conv3d_same_plain(x, w),
                 lambda: F.conv3d(x_cl, w_cl, padding=1),
                 (x.numel() + w.numel() + n_vox * co) * isz, 2.0 * n_vox * 27 * ci * co,
-                x.numel(), body)
+                x.numel(), body,
+                (lambda: conv3d_same_earlier_body(x, w)) if body == "wgmma" else None)
 
-        for c, sp in SMALL_SITES:
-            b = 2
+        to1_more = TO1_BF16_SITES if dtype == torch.bfloat16 else []
+        for b, c, sp in [(2,) + site for site in SMALL_SITES] + to1_more:
             n_vox = b * sp[0] * sp[1] * sp[2]
             x = torch.randn((b,) + sp + (c,), generator=gen, device=dev).to(dtype)
             w = _he((3, 3, 3, c, 1), 27 * c, gen, dev, dtype)
             x_cl = x.permute(0, 4, 1, 2, 3)
             w_cl = w.permute(4, 3, 0, 1, 2).contiguous()
-            run("conv3d_to1", f"{c}->1@{grid_name(sp)}", dtype, lambda: conv3d_to1(x, w),
-                lambda: conv3d_to1_plain(x, w), lambda: F.conv3d(x_cl, w_cl, padding=1),
-                (x.numel() + w.numel() + n_vox) * isz, 2.0 * n_vox * 27 * c, x.numel())
+            run("conv3d_to1", f"{c}->1@{grid_name(sp)}" + _batch_tag(b), dtype,
+                lambda: conv3d_to1(x, w), lambda: conv3d_to1_plain(x, w),
+                lambda: F.conv3d(x_cl, w_cl, padding=1),
+                (x.numel() + w.numel() + n_vox) * isz, 2.0 * n_vox * 27 * c, x.numel(),
+                conv3d_to1_body(x))
 
+        for c, sp in SMALL_SITES:
+            b = 2
+            n_vox = b * sp[0] * sp[1] * sp[2]
             x = torch.randn((b,) + sp + (1,), generator=gen, device=dev).to(dtype)
             w = _he((3, 3, 3, 1, c), 27, gen, dev, dtype)
             x_cl = x.permute(0, 4, 1, 2, 3)
@@ -673,6 +700,7 @@ def phase_train(dev, real) -> dict:
     torch.cuda.synchronize()
     counts = dict(build.launches)
     log(f"[train] launches in one step {counts}")
+    log(f"[train] conv3d_same launches by site {json.dumps(build.conv3d_same_sites)}")
     if counts != TRAIN_LAUNCHES:
         raise SystemExit(f"chip_smoke: train-step launches {counts}, expected {TRAIN_LAUNCHES}")
 

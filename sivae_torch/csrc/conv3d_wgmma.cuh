@@ -12,7 +12,9 @@
 //   wrote it in (MN-major: the DHWIO weight keeps Co contiguous). A comes from
 //   registers (the RS form), loaded with ldmatrix from the line buffer.
 // - L2 -> shared bytes: a block of 256 output voxels (kMT = 2) reads the
-//   27 x 64 x 64 weights once for twice the voxels of the old 128-row tile.
+//   weights once for twice the voxels of the old 128-row tile, and a block of
+//   128 output channels (kNT = 2, where Co % 128 == 0) reads the input once
+//   for twice the channels, its A fragments serving both column tiles.
 // - Address arithmetic and block-wide barriers: one producer thread issues
 //   TMA copies into a ring of stages; two consumer warpgroups wait on each
 //   stage's "full" mbarrier and release it through its "empty" mbarrier. No
@@ -29,8 +31,9 @@
 // and the ragged last tile alike, costs a few selects per ldmatrix.
 //
 // A stage holds one (kd, kh) line buffer of 64 channels (136 * kMT rows of
-// 128 B, swizzled) and the 3 kw weight tiles (64 x 64 each): 41 KB (kMT = 1,
-// 5 stages) or 58 KB (kMT = 2, 3 stages). The epilogue rounds once, stages
+// 128 B, swizzled) and the 3 kw weight tiles (64 x 64 kNT each): 41 KB
+// (128 x 64 blocks, 5 stages) to 82 KB (256 x 128 blocks, 2 stages);
+// wgmma_block_shape() picks the block shape per call. The epilogue rounds once, stages
 // each warp's 16 x 64 tile in its own piece of shared memory and stores 16
 // bytes per lane.
 
@@ -50,17 +53,24 @@ constexpr int kEpiRow = GN * 2 + 16;          // staged output row, padded again
 constexpr int kEpiWarp = 16 * kEpiRow;        // one warp's 16 x 64 staged tile
 constexpr int kConsumerWarps = 8;
 
-template <int kMT>
+constexpr int kSmemMax = 232448;  // shared memory one block may use
+
+// kMT m64 tiles per consumer warpgroup (block rows = 128 * kMT), kNT 64-wide
+// column tiles per block
+template <int kMT, int kNT>
 struct WgmmaCfg {
   static constexpr int kM = 128 * kMT;                        // output voxels per block
+  static constexpr int kN = GN * kNT;                         // output channels per block
   static constexpr int kABytes = kMT * kBoxRows * GK * 2;     // line buffer
-  static constexpr int kStage = kABytes + 3 * kBTile;
-  static constexpr int kStages = kMT == 1 ? 5 : 3;
+  static constexpr int kStage = kABytes + 3 * kNT * kBTile;
+  static constexpr int kFixed = kConsumerWarps * kEpiWarp + 128 + 1024;  // epilogue, barriers, slack
+  static constexpr int kFit = (kSmemMax - kFixed) / kStage;
+  static constexpr int kStages = kFit > 5 ? 5 : kFit;
   static constexpr int kEpiOff = kStages * kStage;
   static constexpr int kBarOff = kEpiOff + kConsumerWarps * kEpiWarp;
-  static constexpr int kSmem = kBarOff + 2 * kStages * 8 + 1024;  // + room to align the base
+  static constexpr int kSmem = kStages * kStage + kFixed;  // with room to align the base
   static_assert(kStage % 1024 == 0 && kABytes % 1024 == 0, "swizzle atoms are 1024 B");
-  static_assert(kSmem <= 232448, "shared memory of one block");
+  static_assert(kStages >= 2 && 2 * kStages * 8 <= 128, "ring depth");
 };
 
 // 27-bit mask of the taps of output voxel m that lie inside the volume
@@ -79,12 +89,12 @@ __device__ __forceinline__ uint32_t tap_mask(unsigned m, unsigned n_vox, int D, 
 // rows), warpgroup 2 produces (one thread; the rest leave). xmap: the input as
 // (n_vox, Ci) bf16, box 136 x 64, 128-byte swizzle. wmap: the weight as
 // (27 * Ci, Co), box 64 x 64, 128-byte swizzle.
-template <int kMT>
+template <int kMT, int kNT>
 __global__ void __launch_bounds__(384, 1)
 conv3d_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                     const __grid_constant__ CUtensorMap wmap, __nv_bfloat16* __restrict__ y, int B,
                     int D, int H, int W, int Ci, int Co) {
-  using Cfg = WgmmaCfg<kMT>;
+  using Cfg = WgmmaCfg<kMT, kNT>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;  // swizzle atoms: 1024-aligned
   unsigned char* smem = smem_raw + (base - smem_u32(smem_raw));
@@ -94,7 +104,7 @@ conv3d_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
   const int wg = tid >> 7;
   const unsigned n_vox = static_cast<unsigned>(B) * D * H * W;
   const unsigned m0 = blockIdx.x * Cfg::kM;
-  const int n0 = blockIdx.y * GN;
+  const int n0 = blockIdx.y * Cfg::kN;
   const int chunks = Ci / GK;
   const int steps = 9 * chunks;
 
@@ -126,8 +136,10 @@ conv3d_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
             tma_load_2d(a + q * kBoxRows * GK * 2, &xmap, full, c * GK, row0 + q * kBoxRows);
 #pragma unroll
           for (int kw = 0; kw < 3; ++kw)
-            tma_load_2d(a + Cfg::kABytes + kw * kBTile, &wmap, full, n0,
-                        (lp * 3 + kw) * Ci + c * GK);
+#pragma unroll
+            for (int nt = 0; nt < kNT; ++nt)
+              tma_load_2d(a + Cfg::kABytes + (kw * kNT + nt) * kBTile, &wmap, full, n0 + nt * GN,
+                          (lp * 3 + kw) * Ci + c * GK);
           if (++stage == Cfg::kStages) {
             stage = 0;
             parity ^= 1u;
@@ -150,11 +162,13 @@ conv3d_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
       for (int h = 0; h < 2; ++h)
         mask[t][h] = tap_mask(m0 + row_wg + t * 64 + g + 8 * h, n_vox, D, H, W);
 
-    float acc[kMT][32];
+    float acc[kMT][kNT][32];
 #pragma unroll
     for (int t = 0; t < kMT; ++t)
 #pragma unroll
-      for (int i = 0; i < 32; ++i) acc[t][i] = 0.f;
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[t][nt][i] = 0.f;
 
     // ldmatrix row address of this lane: slot (output row + kw), 16-byte piece
     const int l_row = lane & 15, l_hi = lane >> 4;
@@ -195,8 +209,11 @@ conv3d_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
         for (int t = 0; t < kMT; ++t)
 #pragma unroll
           for (int kk = 0; kk < GK / 16; ++kk)
-            wgmma_m64n64k16_rs(acc[t], fa[set][t][kk],
-                               smem_desc(b_base + kw * kBTile + kk * (16 * GN * 2)));
+#pragma unroll
+            for (int nt = 0; nt < kNT; ++nt)  // the A fragments serve every column tile
+              wgmma_m64n64k16_rs(
+                  acc[t][nt], fa[set][t][kk],
+                  smem_desc(b_base + (kw * kNT + nt) * kBTile + kk * (16 * GN * 2)));
         wgmma_commit();
       }
       wgmma_wait<0>();  // the stage's weight tiles have been read
@@ -214,7 +231,9 @@ conv3d_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
 #pragma unroll
     for (int t = 0; t < kMT; ++t)
 #pragma unroll
-      for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(acc[t][i])::"memory");
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(acc[t][nt][i])::"memory");
 
     // epilogue: round once, stage the warp's 16 x 64 tile, 16-byte stores.
     // accumulator layout: registers 4j .. 4j+3 are columns 8j + 2 t4, + 1 of
@@ -223,23 +242,27 @@ conv3d_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
 #pragma unroll
     for (int t = 0; t < kMT; ++t) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        unsigned char* p = epi + g * kEpiRow + (j * 8 + 2 * t4) * 2;
-        *reinterpret_cast<__nv_bfloat162*>(p) =
-            __floats2bfloat162_rn(acc[t][4 * j], acc[t][4 * j + 1]);
-        *reinterpret_cast<__nv_bfloat162*>(p + 8 * kEpiRow) =
-            __floats2bfloat162_rn(acc[t][4 * j + 2], acc[t][4 * j + 3]);
-      }
-      __syncwarp();
+      for (int nt = 0; nt < kNT; ++nt) {
 #pragma unroll
-      for (int it = 0; it < 4; ++it) {
-        const int row = it * 4 + (lane >> 3), piece = lane & 7;
-        const unsigned m = m0 + row_wg + t * 64 + row;
-        if (m < n_vox)
-          *reinterpret_cast<uint4*>(y + static_cast<long long>(m) * Co + n0 + piece * 8) =
-              *reinterpret_cast<const uint4*>(epi + row * kEpiRow + piece * 16);
+        for (int j = 0; j < 8; ++j) {
+          unsigned char* p = epi + g * kEpiRow + (j * 8 + 2 * t4) * 2;
+          *reinterpret_cast<__nv_bfloat162*>(p) =
+              __floats2bfloat162_rn(acc[t][nt][4 * j], acc[t][nt][4 * j + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(p + 8 * kEpiRow) =
+              __floats2bfloat162_rn(acc[t][nt][4 * j + 2], acc[t][nt][4 * j + 3]);
+        }
+        __syncwarp();
+#pragma unroll
+        for (int it = 0; it < 4; ++it) {
+          const int row = it * 4 + (lane >> 3), piece = lane & 7;
+          const unsigned m = m0 + row_wg + t * 64 + row;
+          if (m < n_vox)
+            *reinterpret_cast<uint4*>(y + static_cast<long long>(m) * Co + n0 + nt * GN +
+                                      piece * 8) =
+                *reinterpret_cast<const uint4*>(epi + row * kEpiRow + piece * 16);
+        }
+        __syncwarp();
       }
-      __syncwarp();
     }
   }
 }
@@ -250,22 +273,48 @@ inline bool wgmma_eligible(const void* x, const void* w, const void* y, int Ci, 
   return mma_eligible(x, w, y, Ci, Co, dtype) && Ci % GK == 0;
 }
 
-// Blocks of 256 rows halve the weights' L2 traffic; blocks of 128 rows keep
-// the small sites from leaving SMs idle (one block per SM runs at a time).
-inline int wgmma_tiles(unsigned n_vox, int Co) {
-  const unsigned long long blocks256 = (static_cast<unsigned long long>(n_vox) + 255) / 256 * (Co / GN);
-  return blocks256 >= 2 * 132 ? 2 : 1;
+// The block shape for a call, as 10 * kMT + kNT. One block runs per SM at a
+// time, so a call lasts about (rounds of blocks over the SMs) x (a block's
+// work, 128 kMT x 64 kNT outputs) x (the shape's cost per output): wider
+// blocks re-read less (the A fragments serve both column tiles, 256 rows
+// share one pass over the weights), smaller ones fill the card at the small
+// sites. The relative costs are measured ones (H100, 64->128 at 40x48x40,
+// batch 8: 0.544 / 0.482 / 0.415 / 0.391 ms for 128x64 / 256x64 / 128x128 /
+// 256x128 blocks).
+inline int wgmma_block_shape(unsigned n_vox, int Co) {
+  static const int sms = [] {
+    int dev = 0, n = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || n <= 0)
+      n = 132;
+    return n;
+  }();
+  const struct { int shape, mt, nt; double cost; } shapes[4] = {
+      {11, 1, 1, 1.10}, {21, 2, 1, 1.00}, {12, 1, 2, 0.85}, {22, 2, 2, 0.80}};
+  int best = 11;
+  double best_t = -1.0;
+  for (const auto& c : shapes) {
+    if (Co % (GN * c.nt) != 0) continue;
+    const long long blocks =
+        (static_cast<long long>(n_vox) + 128 * c.mt - 1) / (128 * c.mt) * (Co / (GN * c.nt));
+    const double t = static_cast<double>((blocks + sms - 1) / sms) * c.mt * c.nt * c.cost;
+    if (best_t < 0 || t < best_t) {
+      best_t = t;
+      best = c.shape;
+    }
+  }
+  return best;
 }
 
-template <int kMT>
+template <int kMT, int kNT>
 inline int launch_wgmma(const CUtensorMap& xmap, const CUtensorMap& wmap, void* y, int B, int D,
                         int H, int W, int Ci, int Co, unsigned n_vox, cudaStream_t s) {
-  using Cfg = WgmmaCfg<kMT>;
-  auto kernel = conv3d_wgmma_kernel<kMT>;
+  using Cfg = WgmmaCfg<kMT, kNT>;
+  auto kernel = conv3d_wgmma_kernel<kMT, kNT>;
   const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::kSmem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const dim3 grid((n_vox + Cfg::kM - 1) / Cfg::kM, Co / GN);
+  const dim3 grid((n_vox + Cfg::kM - 1) / Cfg::kM, Co / Cfg::kN);
   kernel<<<grid, 384, Cfg::kSmem, s>>>(xmap, wmap, static_cast<__nv_bfloat16*>(y), B, D, H, W, Ci,
                                        Co);
   return static_cast<int>(cudaGetLastError());
@@ -287,9 +336,12 @@ inline int launch_conv3d_wgmma(const void* x, const void* w, void* y, int B, int
   if (!encode_bf16_map(&xmap, x, 2, xdims, xstr, xbox, CU_TENSOR_MAP_SWIZZLE_128B) ||
       !encode_bf16_map(&wmap, w, 2, wdims, wstr, wbox, CU_TENSOR_MAP_SWIZZLE_128B))
     return static_cast<int>(cudaErrorInvalidValue);
-  return wgmma_tiles(n_vox, Co) == 2
-             ? launch_wgmma<2>(xmap, wmap, y, B, D, H, W, Ci, Co, n_vox, s)
-             : launch_wgmma<1>(xmap, wmap, y, B, D, H, W, Ci, Co, n_vox, s);
+  switch (wgmma_block_shape(n_vox, Co)) {
+    case 21: return launch_wgmma<2, 1>(xmap, wmap, y, B, D, H, W, Ci, Co, n_vox, s);
+    case 12: return launch_wgmma<1, 2>(xmap, wmap, y, B, D, H, W, Ci, Co, n_vox, s);
+    case 22: return launch_wgmma<2, 2>(xmap, wmap, y, B, D, H, W, Ci, Co, n_vox, s);
+    default: return launch_wgmma<1, 1>(xmap, wmap, y, B, D, H, W, Ci, Co, n_vox, s);
+  }
 }
 
 }  // namespace sivae

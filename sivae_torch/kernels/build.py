@@ -57,6 +57,10 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 launches: Dict[str, int] = {"conv3d_same": 0, "conv3d_to1": 0, "conv3d_from1": 0,
                             "conv3d_fused_stats": 0}
 
+# conv3d_same's launches keyed by site, "Ci->Co@DxHxW b B": which shapes a
+# path sends through the kernel, and how often
+conv3d_same_sites: Dict[str, int] = {}
+
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
 
@@ -64,6 +68,7 @@ _lock = threading.Lock()
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+    conv3d_same_sites.clear()
 
 
 def _nvcc() -> str:

@@ -8,13 +8,19 @@ which is the same kernel on the flipped, IO-swapped weights (`_bwd`,
 The kernel (`csrc/conv3d.cu`) is an implicit GEMM over M = B*D*H*W voxels,
 N = Co, K = 27*Ci. Bound on an H100 SXM at the flagship site (64->64 at
 80x96x80, batch 8, bf16): 1.09 TFLOP is ~1.10 ms at 989 TF/s, ~1.26 GB
-in+out is ~0.38 ms at 3.35 TB/s, so the tensor cores bound it. bf16 with
-Ci % 32 == 0 and Co % 64 == 0 runs a tensor-core body (mma.sync on
-ldmatrix fragments; one line buffer of input rows per (kd, kh) serves its 3
-kw taps, which cuts the input's L2 traffic 3x); fp32 and odd channel counts
-run an fp32 FMA body. Both apply SAME padding by bounds checks (no padded
-copy), sum all 27 taps in fp32 and round once. The Pallas v1 rounds after
-each depth tap, so bf16 comparisons against it allow for that.
+in+out is ~0.38 ms at 3.35 TB/s, so the tensor cores bound it. Three bodies,
+chosen in C by shape and type (`conv3d_same_body` names the one a call runs):
+"wgmma" for bf16 with Ci % 64 == 0 and Co % 64 == 0 (warp-specialised: a
+producer thread feeds a ring of shared-memory stages by TMA, two consumer
+warpgroups multiply with `wgmma.mma_async`, synchronised by mbarriers; the
+weight tile is read from shared memory once per warpgroup, which is what the
+shared-memory bandwidth of the earlier body could not afford); "mma" for the
+other bf16 shapes with Ci % 32 == 0 and Co % 64 == 0 (`mma.sync` on `ldmatrix`
+fragments over a `cp.async` ring); "fma" for fp32 and odd channel counts. All
+apply SAME padding without a padded copy (masks or bounds checks), serve the
+3 kw taps of a (kd, kh) from one line buffer of input rows, sum all 27 taps
+in fp32 and round once. The Pallas v1 rounds after each depth tap, so bf16
+comparisons against it allow for that.
 
 `conv3d_same` takes the plain version for a CPU tensor and launches the
 kernel for a CUDA tensor; nothing falls back. It is differentiable: a
@@ -100,6 +106,9 @@ def conv3d_same_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return conv3d_same_plain(x, w)
     y = _launch("sivae_conv3d_same", x, w)
     build.launches["conv3d_same"] += 1
+    b, d, h, wd, ci = x.shape
+    site = f"{ci}->{w.shape[-1]}@{d}x{h}x{wd} b{b}"
+    build.conv3d_same_sites[site] = build.conv3d_same_sites.get(site, 0) + 1
     return y
 
 

@@ -15,12 +15,17 @@ contracted over the voxels against the C-channel operand, which is read
 once. (cuDNN's weight-gradient call for a 1-channel side took ~75 ms at the
 flagship shape on an H100, batch 8, bf16.)
 
-A 1-channel side makes the conv a 27-tap stencil, not a matrix product. At
-64 channels, 80x96x80, batch 8, bf16 both move ~629 MB on their C-wide side
-(~0.19 ms at 3.35 TB/s on an H100 SXM) and do ~1.7e10 FMAs on CUDA cores
-(~0.25 ms at 67 TF/s), so each is bound by whichever of the two is larger
-at its shapes; `csrc/conv3d_small.cu` says how each kernel meets it. Both
-accumulate in fp32 and round once.
+A 1-channel side makes the conv a 27-tap stencil with a channel reduction or
+broadcast. Both are bound by the bytes of their C-wide side: at 64 channels,
+80x96x80, batch 8, bf16 that side is ~629 MB, ~0.19 ms at 3.35 TB/s on an
+H100 SXM (`chip_smoke.py` computes the same bound from each call's shapes).
+`conv3d_to1` in bf16 with C = 16, 32 or 64 meets it by contracting the
+channels once per input voxel on the tensor cores and summing the 27 taps
+from shared memory (`conv3d_to1_contract_first_plain` is that algorithm in
+PyTorch); its fp32 and odd-C body and `conv3d_from1` do their multiply-adds
+on CUDA cores (~1.7e10 of them, ~0.5 ms at 67 TF/s counting 2 per FMA) behind
+L1-served window reads; `csrc/conv3d_small.cu` says how each body is laid
+out. All accumulate in fp32 and round once.
 
 The wrappers take the plain version for a CPU tensor and launch the kernel
 for a CUDA tensor; nothing falls back. `conv3d_to1` and `conv3d_from1` are
@@ -47,6 +52,20 @@ def conv3d_to1_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     for kd, kh, kw in _taps():
         sl = xp[:, kd:kd + d, kh:kh + h, kw:kw + wd, :].float()
         acc += torch.matmul(sl, w[kd, kh, kw, :, 0].float())
+    return acc.to(x.dtype)[..., None]
+
+
+def conv3d_to1_contract_first_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The tensor-core body's algorithm in PyTorch, for the tests: contract
+    the channels once per input voxel, Z[v, t] = sum_c x[v, c] w[t, c] in
+    fp32, then sum the 27 shifted taps of Z and round once. Same function as
+    `conv3d_to1_plain`, another order of the fp32 sums."""
+    b, d, h, wd, c = x.shape
+    z = torch.matmul(x.float(), w[..., 0].reshape(27, c).float().t())   # (B, D, H, W, 27)
+    zp = F.pad(z, (0, 0, 1, 1, 1, 1, 1, 1))
+    acc = torch.zeros((b, d, h, wd), dtype=torch.float32, device=x.device)
+    for t, (kd, kh, kw) in enumerate(_taps()):
+        acc += zp[:, kd:kd + d, kh:kh + h, kw:kw + wd, t]
     return acc.to(x.dtype)[..., None]
 
 
@@ -187,3 +206,10 @@ def conv3d_from1_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     y = torch.empty(x.shape[:4] + (c,), dtype=x.dtype, device=x.device)
     _launch("conv3d_from1", x, w27, y, c)
     return y
+
+
+def conv3d_to1_body(x: torch.Tensor) -> str:
+    """Which kernel body a CUDA `conv3d_to1` call on x runs: "mma" (tensor-core
+    channel contraction) or "fma"."""
+    used = build.library().sivae_conv3d_to1_body(x.data_ptr(), x.shape[-1], build.dtype_code(x))
+    return "mma" if used else "fma"

@@ -19,19 +19,20 @@ import pytest
 import torch
 
 from sivae_torch.kernels import build
-from sivae_torch.kernels.conv3d import conv3d_same, conv3d_same_plain
+from sivae_torch.kernels.conv3d import (conv3d_same, conv3d_same_body, conv3d_same_earlier_body,
+                                        conv3d_same_plain)
 from sivae_torch.kernels.conv3d_fused import (conv3d_fused_stats, conv3d_fused_stats_plain,
                                               conv3d_stats)
 from sivae_torch.kernels.conv3d_small import (conv3d_from1, conv3d_from1_plain, conv3d_to1,
-                                              conv3d_to1_plain)
+                                              conv3d_to1_body, conv3d_to1_plain)
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 CASES = [  # kernel, plain version, x shape, w shape
-    (conv3d_same, conv3d_same_plain, (2, 6, 8, 10, 64), (3, 3, 3, 64, 64)),    # mma body in bf16
+    (conv3d_same, conv3d_same_plain, (2, 6, 8, 10, 64), (3, 3, 3, 64, 64)),    # wgmma body in bf16
     (conv3d_same, conv3d_same_plain, (1, 5, 6, 4, 64), (3, 3, 3, 64, 128)),
     (conv3d_same, conv3d_same_plain, (2, 4, 5, 6, 3), (3, 3, 3, 3, 4)),       # FMA body
     (conv3d_same, conv3d_same_plain, (2, 3, 4, 4, 1), (3, 3, 3, 1, 5)),
-    (conv3d_to1, conv3d_to1_plain, (2, 6, 8, 10, 64), (3, 3, 3, 64, 1)),      # 16-byte body
+    (conv3d_to1, conv3d_to1_plain, (2, 6, 8, 10, 64), (3, 3, 3, 64, 1)),      # mma body in bf16
     (conv3d_to1, conv3d_to1_plain, (2, 4, 5, 6, 5), (3, 3, 3, 5, 1)),         # scalar body
     (conv3d_from1, conv3d_from1_plain, (2, 6, 8, 10, 1), (3, 3, 3, 1, 64)),
     (conv3d_from1, conv3d_from1_plain, (2, 4, 5, 6, 1), (3, 3, 3, 1, 5)),
@@ -64,6 +65,69 @@ def test_kernel_matches_plain_and_counts_one_launch(cuda_device, dtype, kern, pl
     assert got.shape == want.shape and got.dtype == dtype
     err = (got.float() - want.float()).abs().max().item()
     assert err <= TOL[dtype] * max(1.0, want.float().abs().max().item())
+
+
+# bf16 shapes of conv3d_same and the body each must take. The wgmma body
+# walks 128 or 256 consecutive voxels a block: W and H that no tile divides,
+# M not a multiple of 64, B = 1 and 3, tiles that straddle rows, planes and
+# batch elements, Ci != Co, K of several 64-channel chunks, a grid large
+# enough for several rounds of blocks (36864 voxels x 128 channels).
+BODY_CASES = [
+    ((1, 3, 5, 7, 64), 64, "wgmma"),        # M = 105: one ragged block
+    ((3, 5, 7, 9, 64), 128, "wgmma"),       # M = 945, 63 voxels a plane
+    ((1, 2, 3, 200, 64), 64, "wgmma"),      # a row longer than a block
+    ((3, 4, 6, 5, 256), 128, "wgmma"),      # the 256 -> 128 input-gradient site's channels
+    ((2, 9, 11, 13, 128), 64, "wgmma"),
+    ((1, 32, 36, 32, 64), 128, "wgmma"),    # several rounds of blocks over the SMs
+    ((2, 5, 6, 7, 96), 64, "mma"),          # Ci = 32 * 3: the earlier tensor-core body
+    ((2, 4, 5, 6, 64), 24, "fma"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_shape,co,body", BODY_CASES)
+def test_conv3d_same_bodies_match_plain(cuda_device, x_shape, co, body):
+    """Each bf16 body the dispatch chooses, and the earlier body on the same
+    operands, against the plain version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn(x_shape, generator=gen, device=cuda_device).bfloat16()
+    w = (0.1 * torch.randn((3, 3, 3, x_shape[-1], co), generator=gen,
+                           device=cuda_device)).bfloat16()
+    got = conv3d_same(x, w)
+    assert conv3d_same_body(x, w, got) == body
+    before = dict(build.launches)
+    earlier = conv3d_same_earlier_body(x, w)
+    torch.cuda.synchronize()
+    assert build.launches == before  # the measuring entry counts nothing
+    want = conv3d_same_plain(x, w).float()
+    tol = TOL[torch.bfloat16] * max(1.0, want.abs().max().item())
+    assert (got.float() - want).abs().max().item() <= tol
+    assert (earlier.float() - want).abs().max().item() <= tol
+
+
+# bf16 shapes of conv3d_to1: the mma body marches 16 x 16 patches along d, so
+# H and W below, at and above one patch, D = 1, B = 1 and 3, every C it
+# takes; C = 5 and 48 fall to the CUDA-core body
+TO1_CASES = [((1, 1, 3, 4, 64), "mma"), ((3, 5, 7, 9, 64), "mma"), ((1, 9, 16, 16, 64), "mma"),
+             ((2, 3, 17, 33, 64), "mma"), ((1, 90, 18, 20, 16), "mma"), ((2, 4, 35, 6, 32), "mma"),
+             ((2, 4, 5, 6, 5), "fma"), ((1, 4, 5, 6, 48), "fma")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_shape,body", TO1_CASES)
+def test_conv3d_to1_bodies_match_plain(cuda_device, x_shape, body):
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    x = torch.randn(x_shape, generator=gen, device=cuda_device).bfloat16()
+    w = (0.1 * torch.randn((3, 3, 3, x_shape[-1], 1), generator=gen,
+                           device=cuda_device)).bfloat16()
+    assert conv3d_to1_body(x) == body
+    assert conv3d_to1_body(x.float()) == "fma"  # TF32 would not hold the fp32 tolerance
+    got = conv3d_to1(x, w)
+    torch.cuda.synchronize()
+    want = conv3d_to1_plain(x, w).float()
+    assert got.shape == want.shape
+    assert (got.float() - want).abs().max().item() <= TOL[torch.bfloat16] * max(
+        1.0, want.abs().max().item())
 
 
 # x shape, Co: the tensor-core body in bf16 inside one plane (16 * 8 = 128
@@ -103,6 +167,7 @@ def _stats_plain(x, w):
 
 GRAD_CASES = [  # differentiable wrapper, plain version, x shape, w shape
     (conv3d_same, conv3d_same_plain, (2, 6, 8, 10, 64), (3, 3, 3, 64, 128)),  # dgrad 128 -> 64
+    (conv3d_same, conv3d_same_plain, (3, 5, 7, 9, 128), (3, 3, 3, 128, 256)),  # dgrad 256 -> 128
     (conv3d_same, conv3d_same_plain, (2, 4, 5, 6, 3), (3, 3, 3, 3, 4)),
     (conv3d_to1, conv3d_to1_plain, (2, 6, 8, 10, 64), (3, 3, 3, 64, 1)),
     (conv3d_from1, conv3d_from1_plain, (2, 6, 8, 10, 1), (3, 3, 3, 1, 64)),

@@ -20,7 +20,7 @@ from sivae_tpu.kernels.conv3d_small import conv3d_to1 as jax_to1
 from sivae_torch.kernels import build
 from sivae_torch.kernels.conv3d import conv3d_same, conv3d_same_plain
 from sivae_torch.kernels.conv3d_small import (conv3d_from1, conv3d_from1_plain, conv3d_to1,
-                                              conv3d_to1_plain)
+                                              conv3d_to1_contract_first_plain, conv3d_to1_plain)
 
 torch.set_num_threads(2)
 
@@ -83,6 +83,39 @@ def test_to1_plain_matches_pallas_bf16():
     got = conv3d_to1_plain(xt, wt).float().numpy()
     want = np.asarray(jax_to1(xj, wj, True).astype(jnp.float32))
     np.testing.assert_allclose(got, want, atol=0.05, rtol=0.05)
+
+
+# the tensor-core body's algorithm (channels contracted once per voxel, then
+# 27 shifted adds), at grids no 16 x 16 patch divides
+CONTRACT_SHAPES = [((1, 5, 7, 9), 16), ((2, 3, 5, 7), 64), ((1, 4, 18, 5), 32)]
+
+
+@pytest.mark.parametrize("shape,c", CONTRACT_SHAPES)
+def test_to1_contract_first_plain_matches_pallas(shape, c):
+    x, w = _inputs(4, shape, c, 1)
+    got = conv3d_to1_contract_first_plain(torch.from_numpy(x), torch.from_numpy(w)).numpy()
+    want = np.asarray(jax_to1(jnp.asarray(x), jnp.asarray(w), True))
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=1e-4)
+
+
+@pytest.mark.parametrize("shape,c", CONTRACT_SHAPES)
+def test_to1_contract_first_plain_matches_plain(shape, c):
+    """Same function, another order of the fp32 sums: 1e-5 of the largest."""
+    x, w = _inputs(5, shape, c, 1)
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    got, want = conv3d_to1_contract_first_plain(xt, wt), conv3d_to1_plain(xt, wt)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert (got - want).abs().max().item() <= 1e-5 * max(1.0, want.abs().max().item())
+
+
+def test_to1_contract_first_plain_matches_pallas_bf16():
+    x, w = _inputs(6, (1, 5, 7, 9), 16, 1)
+    (xt, xj), (wt, wj) = _bf16(x), _bf16(w)
+    got = conv3d_to1_contract_first_plain(xt, wt)
+    assert got.dtype == torch.bfloat16
+    want = np.asarray(jax_to1(xj, wj, True).astype(jnp.float32))
+    np.testing.assert_allclose(got.float().numpy(), want, atol=0.05, rtol=0.05)
 
 
 def test_cpu_tensors_take_plain_versions_and_count_nothing():

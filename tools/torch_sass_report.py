@@ -4,9 +4,11 @@
 
 Builds the kernels if needed (needs `nvcc`), disassembles the library with
 `cuobjdump -sass` and prints, per kernel, the counts of the instructions
-that say what the compiler made of it: tensor-core MMAs (`HMMA`), shared
-memory loads (`LDS`, and `LDSM` for ldmatrix), generic loads (`LD`), async
-copies (`LDGSTS`), barriers (`BAR`), matrix moves (`MOVM`) and FMAs.
+that say what the compiler made of it: tensor-core MMAs (`HGMMA` for wgmma,
+`HMMA` for mma.sync), shared memory loads (`LDS`, and `LDSM` for ldmatrix),
+generic loads (`LD`), async copies (`LDGSTS` for cp.async, `UTMALDG` for
+TMA), mbarrier operations (`SYNCS`), wgmma fences and waits (`WARPGROUP`),
+barriers (`BAR`), matrix moves (`MOVM`) and FMAs.
 `--out` keeps the full disassembly.
 """
 
@@ -25,7 +27,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from sivae_torch.kernels import build  # noqa: E402
 
-OPS = ("HMMA", "LDSM", "LDS", "LD", "LDGSTS", "LDG", "STS", "STG", "BAR", "MOVM", "FFMA")
+OPS = ("HGMMA", "HMMA", "LDSM", "LDS", "LD", "LDGSTS", "UTMALDG", "SYNCS", "WARPGROUP", "LDG",
+       "STS", "STG", "BAR", "MOVM", "FFMA")
 _INSTR = re.compile(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]+)")
 
 
