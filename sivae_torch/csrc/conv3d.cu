@@ -43,6 +43,23 @@ int sivae_conv3d_same(const void* x, const void* w, void* y, int B, int D, int H
   return sivae::launch_conv3d<false, false, 3>(x, w, y, B, D, H, W, Ci, Co, dtype, none, s);
 }
 
+// The wgmma body's block shape, as 10 * (rows / 128) + (columns / 64): the one
+// a call on B*D*H*W voxels and Co output channels takes.
+int sivae_conv3d_same_wgmma_shape(int B, int D, int H, int W, int Co) {
+  return sivae::wgmma_block_shape(static_cast<unsigned>(B) * D * H * W, Co);
+}
+
+// The conv through the wgmma body in a given block shape (11, 21, 12 or 22),
+// for measuring the shapes against each other. No model path calls it.
+// cudaErrorInvalidValue when the operands or the shape do not fit that body.
+int sivae_conv3d_same_wgmma(const void* x, const void* w, void* y, int B, int D, int H, int W,
+                            int Ci, int Co, int dtype, int shape, void* stream) {
+  if (!sivae::wgmma_eligible(x, w, y, Ci, Co, dtype) || shape <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return sivae::launch_conv3d_wgmma(x, w, y, B, D, H, W, Ci, Co,
+                                    static_cast<cudaStream_t>(stream), shape);
+}
+
 // The same conv through the bodies of conv3d_body.cuh only (mma or fma, never
 // wgmma): the earlier tensor-core body's time beside the new one's, for
 // measurements and tests. No model path calls it.

@@ -320,11 +320,12 @@ inline int launch_wgmma(const CUtensorMap& xmap, const CUtensorMap& wmap, void* 
   return static_cast<int>(cudaGetLastError());
 }
 
-// The wgmma body on operands that wgmma_eligible() takes. The two tensor maps
-// are encoded per call on the host (about a microsecond; nothing is cached, so
-// nothing outlives the call).
+// The wgmma body on operands that wgmma_eligible() takes, in the block shape
+// wgmma_block_shape() picks (shape == 0) or in a given one (for measurements;
+// it must divide Co). The two tensor maps are encoded per call on the host
+// (about a microsecond; nothing is cached, so nothing outlives the call).
 inline int launch_conv3d_wgmma(const void* x, const void* w, void* y, int B, int D, int H, int W,
-                               int Ci, int Co, cudaStream_t s) {
+                               int Ci, int Co, cudaStream_t s, int shape = 0) {
   const unsigned n_vox = static_cast<unsigned>(B) * D * H * W;
   CUtensorMap xmap, wmap;
   const cuuint64_t xdims[2] = {static_cast<cuuint64_t>(Ci), n_vox};
@@ -336,7 +337,9 @@ inline int launch_conv3d_wgmma(const void* x, const void* w, void* y, int B, int
   if (!encode_bf16_map(&xmap, x, 2, xdims, xstr, xbox, CU_TENSOR_MAP_SWIZZLE_128B) ||
       !encode_bf16_map(&wmap, w, 2, wdims, wstr, wbox, CU_TENSOR_MAP_SWIZZLE_128B))
     return static_cast<int>(cudaErrorInvalidValue);
-  switch (wgmma_block_shape(n_vox, Co)) {
+  if (shape == 0) shape = wgmma_block_shape(n_vox, Co);
+  if (Co % (GN * (shape % 10)) != 0) return static_cast<int>(cudaErrorInvalidValue);
+  switch (shape) {
     case 21: return launch_wgmma<2, 1>(xmap, wmap, y, B, D, H, W, Ci, Co, n_vox, s);
     case 12: return launch_wgmma<1, 2>(xmap, wmap, y, B, D, H, W, Ci, Co, n_vox, s);
     case 22: return launch_wgmma<2, 2>(xmap, wmap, y, B, D, H, W, Ci, Co, n_vox, s);

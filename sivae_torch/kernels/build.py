@@ -42,6 +42,8 @@ _F = ctypes.c_float
 SIGNATURES = {
     "sivae_conv3d_same": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "sivae_conv3d_same_mma": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "sivae_conv3d_same_wgmma": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "sivae_conv3d_same_wgmma_shape": [_I, _I, _I, _I, _I],
     "sivae_conv3d_same_body": [_P, _P, _P, _I, _I, _I],
     "sivae_conv3d_to1_body": [_P, _I, _I],
     "sivae_conv3d_to1": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],

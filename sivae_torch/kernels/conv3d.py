@@ -125,7 +125,21 @@ def _check_shapes(x: torch.Tensor, w: torch.Tensor) -> None:
         raise ValueError(f"conv3d_same: bad shapes x{tuple(x.shape)} w{tuple(w.shape)}")
 
 
-def _launch(entry: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def conv3d_same_wgmma_blocks(x: torch.Tensor, w: torch.Tensor, shape: int) -> torch.Tensor:
+    """The conv on CUDA tensors the wgmma body takes, in a given block shape:
+    10 * (rows / 128) + (columns / 64), one of `WGMMA_SHAPES`. For measuring the
+    shapes against each other (`tools/torch_conv_blocks.py`) and for the card
+    tests; no model path calls it and it counts no launch."""
+    return _launch("sivae_conv3d_same_wgmma", x, w, shape)
+
+
+def conv3d_same_wgmma_shape(x: torch.Tensor, co: int) -> int:
+    """The block shape the wgmma body takes for a call on x with co output channels."""
+    b, d, h, wd, _ = x.shape
+    return build.library().sivae_conv3d_same_wgmma_shape(b, d, h, wd, co)
+
+
+def _launch(entry: str, x: torch.Tensor, w: torch.Tensor, *more: int) -> torch.Tensor:
     _check_shapes(x, w)
     build.require_cuda(x, w)
     b, d, h, wd, ci = x.shape
@@ -135,12 +149,13 @@ def _launch(entry: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     lib = build.library()
     with torch.cuda.device(x.device):
         rc = getattr(lib, entry)(x.data_ptr(), w.data_ptr(), y.data_ptr(), b, d, h, wd, ci, co,
-                                 build.dtype_code(x), build.stream_of(x))
+                                 build.dtype_code(x), *more, build.stream_of(x))
     build.check(rc, entry)
     return y
 
 
 BODIES = ("fma", "mma", "wgmma")
+WGMMA_SHAPES = (11, 21, 12, 22)   # 128x64, 256x64, 128x128, 256x128 outputs a block
 
 
 def conv3d_same_body(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor) -> str:
