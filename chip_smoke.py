@@ -13,8 +13,11 @@ failure exits non-zero and prints no result):
    (conv 3->4 and 1->5, stencils with 5 channels), in fp32 (TF32 off) and
    bf16: the body the dispatch chose, max error, kernel / plain / library
    (`library_ms`, a yardstick only) times, and the roofline bound; for
-   `conv3d_same` rows that the wgmma body takes, the earlier mma.sync body's
-   error and time on the same operands. The flagship sites of `conv3d_same`
+   `conv3d_same` rows that the wgmma body takes, its block shape and the
+   earlier mma.sync body's error and time on the same operands. Times are
+   device times: the timed calls wait on the card behind other queued work,
+   so a kernel shorter than its launch path is not timed by that path. The
+   flagship sites of `conv3d_same`
    and `conv3d_to1` are also run at batch 8, the batch both main paths run,
    and `conv3d_to1` at C = 16 and 32. The fused conv + statistics kernel
    runs with and without its prologue at the flagship site and at two shapes
@@ -53,7 +56,8 @@ failure exits non-zero and prints no result):
    fp32 parameters, dropout on, default loss config, the first 8 synthetic
    volumes. One warm-up step; one step with the counters at 0 (155
    conv3d_same, 10 conv3d_to1, 12 conv3d_from1 launches expected, forward
-   and backward together; conv3d_same's are also printed by site); 5 timed steps (median, min, max s/step, vol/s);
+   and backward together; conv3d_same's are also printed by site); 5 timed
+   steps (median, min, max s/step, vol/s);
    the last step's metrics must be finite and `nan` unset; encoder and
    decoder parameters and both halves' BN running statistics must have
    moved; peak memory; one validation step with finite metrics; a
@@ -138,12 +142,41 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+_BUSY_MS: list = []   # measured once: the time of one of the matrix products below
+
+
+def _keep_device_busy(ms: float) -> None:
+    """Queue about `ms` of unrelated device work (matrix products); their
+    operand lives only for the call, so no phase's peak memory holds it."""
+    a = torch.ones((4096, 4096), device="cuda", dtype=torch.bfloat16)
+    if not _BUSY_MS:
+        torch.mm(a, a)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(10):
+            torch.mm(a, a)
+        end.record()
+        torch.cuda.synchronize()
+        _BUSY_MS.append(start.elapsed_time(end) / 10)
+    for _ in range(int(ms / _BUSY_MS[0]) + 1):
+        torch.mm(a, a)
+
+
 def time_ms(fn, reps: int) -> float:
+    """Device time of one call. The timed calls are queued behind other device
+    work that lasts longer than the host needs to queue them, so a kernel that
+    is shorter than its launch path (Python wrapper, tensor maps, the launch) is
+    timed on the card and not by that path."""
     fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     fn()
+    host_ms = (time.perf_counter() - t0) * 1e3   # to queue one call
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    _keep_device_busy(1.5 * reps * host_ms + 0.5)
     start.record()
     for _ in range(reps):
         fn()
@@ -231,7 +264,8 @@ def unfused_stage(x, w_cl, in_a, in_b, slope):
 def phase_kernels(dev) -> dict:
     from sivae_torch.kernels import build
     from sivae_torch.kernels.conv3d import (conv3d_same, conv3d_same_body,
-                                            conv3d_same_earlier_body, conv3d_same_plain)
+                                            conv3d_same_earlier_body, conv3d_same_plain,
+                                            conv3d_same_wgmma_shape)
     from sivae_torch.kernels.conv3d_fused import conv3d_fused_stats, conv3d_fused_stats_plain
     from sivae_torch.kernels.conv3d_small import (conv3d_from1, conv3d_from1_plain, conv3d_to1,
                                                   conv3d_to1_body, conv3d_to1_plain)
@@ -239,7 +273,8 @@ def phase_kernels(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     failures, rows = [], {}
 
-    def run(name, site, dtype, kern, plain, lib_fn, nbytes, flops, numel, body="", earlier=None):
+    def run(name, site, dtype, kern, plain, lib_fn, nbytes, flops, numel, body="", earlier=None,
+            note=""):
         """kern / plain return a tensor or a tuple (y, sums...); `earlier` is
         the body the dispatch's choice superseded, held to the same plain."""
         k = kern()
@@ -261,9 +296,9 @@ def phase_kernels(dev) -> dict:
         plain_ms = time_ms(plain, max(2, reps // 5))
         lib_ms = time_ms(lib_fn, reps)
         b_ms, b_by = bound(nbytes, flops, PEAK_FLOPS[dtype])
-        old = ""
+        old = note
         if earlier is not None:
-            old = f" | earlier body max_rel {e_rel:.3e} {time_ms(earlier, reps):.3f} ms"
+            old += f" | earlier body max_rel {e_rel:.3e} {time_ms(earlier, reps):.3f} ms"
         tag = f"{name} {site} {dtype_name(dtype)}"
         log(f"[kernel] {tag:52s} {body:5s} max_abs {err:.3e} max_rel {rel:.3e}{sums} "
             f"{'ok' if ok else 'FAIL'} | kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
@@ -283,12 +318,16 @@ def phase_kernels(dev) -> dict:
             w_cl = w.permute(4, 3, 0, 1, 2).contiguous(memory_format=torch.channels_last_3d)
             n_vox = b * sp[0] * sp[1] * sp[2]
             body = conv3d_same_body(x, w, torch.empty((b,) + sp + (co,), dtype=dtype, device=dev))
+            blocks = ""
+            if body == "wgmma":
+                shape = conv3d_same_wgmma_shape(x, co)
+                blocks = f" | blocks {128 * (shape // 10)}x{64 * (shape % 10)}"
             run("conv3d_same", f"{ci}->{co}@{grid_name(sp)}" + _batch_tag(b), dtype,
                 lambda: conv3d_same(x, w), lambda: conv3d_same_plain(x, w),
                 lambda: F.conv3d(x_cl, w_cl, padding=1),
                 (x.numel() + w.numel() + n_vox * co) * isz, 2.0 * n_vox * 27 * ci * co,
                 x.numel(), body,
-                (lambda: conv3d_same_earlier_body(x, w)) if body == "wgmma" else None)
+                (lambda: conv3d_same_earlier_body(x, w)) if body == "wgmma" else None, blocks)
 
         to1_more = TO1_BF16_SITES if dtype == torch.bfloat16 else []
         for b, c, sp in [(2,) + site for site in SMALL_SITES] + to1_more:
@@ -557,7 +596,10 @@ def profile_window(what: str, fn, top: int = 10) -> None:
             f"{100 * e.self_device_time_total / busy_us:5.1f}%  {e.key[:110]}")
     marks = ("cudnn", "xmma", "cutlass", "wgrad", "dgrad", "fprop", "implicit_gemm", "convolve")
     for e in ranked[top:]:
-        if any(m in e.key.lower() for m in marks):
+        if "sivae::" in e.key:
+            log(f"[profile] (port kernel)  {e.self_device_time_total / 1e3:9.3f} ms "
+                f"{e.count:4d}x  {e.key[:110]}")
+        elif any(m in e.key.lower() for m in marks):
             log(f"[profile] (library conv) {e.self_device_time_total / 1e3:9.3f} ms "
                 f"{e.count:4d}x  {e.key[:110]}")
 

@@ -14,6 +14,19 @@ namespace sivae {
 constexpr int kFloat32 = 0;
 constexpr int kBFloat16 = 1;
 
+// Multiprocessors of the current device (asked once; an H100 SXM's 132 if
+// the query fails): how many blocks run at a time when one fits per SM.
+inline int device_sms() {
+  static const int sms = [] {
+    int dev = 0, n = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || n <= 0)
+      n = 132;
+    return n;
+  }();
+  return sms;
+}
+
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 

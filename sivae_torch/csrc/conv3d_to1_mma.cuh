@@ -77,14 +77,14 @@ conv3d_to1_mma_kernel(const __grid_constant__ CUtensorMap xmap, const __nv_bfloa
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  auto issue = [&](int it) {  // one thread: the haloed patch of input plane d0 - 1 + it
+  auto fetch = [&](int it) {  // one thread: the haloed patch of input plane d0 - 1 + it
     const uint32_t full = full0 + 8 * (it & 1);
     mbar_expect_tx(full, Cfg::kBox);
     tma_load_5d(base + (it & 1) * Cfg::kIn, &xmap, full, 0, w0 - 1, h0 - 1, d0 - 1 + it, b);
   };
   if (tid == 0) {
-    issue(0);
-    issue(1);
+    fetch(0);
+    fetch(1);
   }
 
   // B fragments of all taps: b0 = w[t = 8j + g][16kk + 2 t4, +1], b1 the same 8 channels on
@@ -137,7 +137,7 @@ conv3d_to1_mma_kernel(const __grid_constant__ CUtensorMap xmap, const __nv_bfloa
       }
     }
     __syncthreads();  // this plane's Z is written; its input buffer is free
-    if (tid == 0 && it + 2 < n_it) issue(it + 2);
+    if (tid == 0 && it + 2 < n_it) fetch(it + 2);
     if (it >= 2) {    // output plane d0 + it - 2 from the Z of input planes it - 2, it - 1, it
       float acc = 0.f;
 #pragma unroll
@@ -164,15 +164,16 @@ inline bool to1_mma_eligible(const void* x, int C, int dtype) {
 }
 
 // Planes per segment: one block per SM runs at a time, so the kernel lasts
-// (rounds of 132 blocks) x (planes a block reads, 2 of them halo); take the
+// (rounds of blocks over the SMs) x (planes a block reads, 2 of them halo); take the
 // split of D that makes that product least.
 inline int to1_seg_len(int patches, int D) {
+  const int sms = device_sms();
   int best_len = D;
   long long best = -1;
   for (int segs = 1; segs <= D; ++segs) {
     const int len = (D + segs - 1) / segs;
     const long long blocks = static_cast<long long>(patches) * ((D + len - 1) / len);
-    const long long cost = (blocks + 131) / 132 * (len + 2);
+    const long long cost = (blocks + sms - 1) / sms * (len + 2);
     if (best < 0 || cost < best) {
       best = cost;
       best_len = len;

@@ -15,7 +15,7 @@
 //   weights once for twice the voxels of the old 128-row tile, and a block of
 //   128 output channels (kNT = 2, where Co % 128 == 0) reads the input once
 //   for twice the channels, its A fragments serving both column tiles.
-// - Address arithmetic and block-wide barriers: one producer thread issues
+// - Address arithmetic and block-wide barriers: one producer thread starts
 //   TMA copies into a ring of stages; two consumer warpgroups wait on each
 //   stage's "full" mbarrier and release it through its "empty" mbarrier. No
 //   __syncthreads in the K loop.
@@ -278,17 +278,13 @@ inline bool wgmma_eligible(const void* x, const void* w, const void* y, int Ci, 
 // work, 128 kMT x 64 kNT outputs) x (the shape's cost per output): wider
 // blocks re-read less (the A fragments serve both column tiles, 256 rows
 // share one pass over the weights), smaller ones fill the card at the small
-// sites. The relative costs are measured ones (H100, 64->128 at 40x48x40,
-// batch 8: 0.544 / 0.482 / 0.415 / 0.391 ms for 128x64 / 256x64 / 128x128 /
-// 256x128 blocks).
+// sites. The relative costs are rounded from measured ones (H100, the sites
+// with many rounds of blocks at batch 8: 256 x 64 blocks are ~10% faster per
+// output than 128 x 64, the 128-wide ones another 10-20%);
+// tools/torch_conv_blocks.py times the four shapes at every site and marks
+// the pick.
 inline int wgmma_block_shape(unsigned n_vox, int Co) {
-  static const int sms = [] {
-    int dev = 0, n = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || n <= 0)
-      n = 132;
-    return n;
-  }();
+  const int sms = device_sms();
   const struct { int shape, mt, nt; double cost; } shapes[4] = {
       {11, 1, 1, 1.10}, {21, 2, 1, 1.00}, {12, 1, 2, 0.85}, {22, 2, 2, 0.80}};
   int best = 11;

@@ -138,7 +138,7 @@ typedef CUresult (*TensorMapEncodeFn)(CUtensorMap*, CUtensorMapDataType, cuuint3
                                       const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                       CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// cuTensorMapEncodeTiled from the driver the runtime already loaded
+// cuTensorMapEncodeTiled, looked up in the CUDA library the runtime already loaded
 inline TensorMapEncodeFn tensor_map_encoder() {
   static TensorMapEncodeFn fn = [] {
     void* p = nullptr;

@@ -19,8 +19,9 @@ import pytest
 import torch
 
 from sivae_torch.kernels import build
-from sivae_torch.kernels.conv3d import (conv3d_same, conv3d_same_body, conv3d_same_earlier_body,
-                                        conv3d_same_plain)
+from sivae_torch.kernels.conv3d import (WGMMA_SHAPES, conv3d_same, conv3d_same_body,
+                                        conv3d_same_earlier_body, conv3d_same_plain,
+                                        conv3d_same_wgmma_blocks, conv3d_same_wgmma_shape)
 from sivae_torch.kernels.conv3d_fused import (conv3d_fused_stats, conv3d_fused_stats_plain,
                                               conv3d_stats)
 from sivae_torch.kernels.conv3d_small import (conv3d_from1, conv3d_from1_plain, conv3d_to1,
@@ -103,6 +104,25 @@ def test_conv3d_same_bodies_match_plain(cuda_device, x_shape, co, body):
     tol = TOL[torch.bfloat16] * max(1.0, want.abs().max().item())
     assert (got.float() - want).abs().max().item() <= tol
     assert (earlier.float() - want).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", WGMMA_SHAPES)
+def test_conv3d_same_wgmma_block_shapes_agree(cuda_device, shape):
+    """The wgmma body in each block shape (the measuring entry): another shape
+    regroups whole fp32 sums only, so the outputs are bit-identical to the
+    dispatch's, which picks one of them; a 128-wide shape refuses Co = 64."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randn((3, 5, 7, 9, 128), generator=gen, device=cuda_device).bfloat16()
+    w = (0.1 * torch.randn((3, 3, 3, 128, 128), generator=gen, device=cuda_device)).bfloat16()
+    assert conv3d_same_wgmma_shape(x, 128) in WGMMA_SHAPES
+    before = dict(build.launches)
+    got = conv3d_same_wgmma_blocks(x, w, shape)
+    assert build.launches == before
+    assert torch.equal(got, conv3d_same(x, w))
+    if shape % 10 == 2:
+        with pytest.raises(RuntimeError):
+            conv3d_same_wgmma_blocks(x, w[..., :64].contiguous(), shape)
 
 
 # bf16 shapes of conv3d_to1: the mma body marches 16 x 16 patches along d, so

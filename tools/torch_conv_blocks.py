@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from chip_smoke import time_ms  # noqa: E402  (device time, also of calls shorter than their launch)
 from sivae_torch.kernels.conv3d import (WGMMA_SHAPES, conv3d_same_earlier_body,  # noqa: E402
                                         conv3d_same_forward, conv3d_same_wgmma_blocks,
                                         conv3d_same_wgmma_shape)
@@ -34,19 +35,6 @@ SITES = [
     (128, 64, (40, 48, 40)), (256, 128, (20, 24, 20)),
 ]
 NAMES = {11: "128x64", 21: "256x64", 12: "128x128", 22: "256x128"}
-
-
-def time_ms(fn, reps: int) -> float:
-    fn()
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def main() -> None:
