@@ -19,10 +19,13 @@ failure exits non-zero and prints no result):
    so a kernel shorter than its launch path is not timed by that path. The
    flagship sites of `conv3d_same`
    and `conv3d_to1` are also run at batch 8, the batch both main paths run,
-   and `conv3d_to1` at C = 16 and 32. The fused conv + statistics kernel
-   runs with and without its prologue at the flagship site and at two shapes
-   whose 128-voxel tiles straddle (b, d) planes; its library yardstick is the
-   unfused stage (elementwise prologue, cuDNN conv, two reductions).
+   and `conv3d_to1` and `conv3d_from1` at C = 16 and 32. The fused conv +
+   statistics kernel runs with and without its prologue at the flagship site
+   (with it also at batch 8) and at two shapes whose tiles straddle (b, d)
+   planes; its library yardstick is the unfused stage (elementwise prologue,
+   cuDNN conv, two reductions). `conv3d_to1`, `conv3d_from1` and
+   `conv3d_fused_stats` rows also name their body; the fused kernel's wgmma
+   rows show the earlier mma.sync body's error and time beside it.
    fp32 tolerance 1e-4 * max(1, max|plain|) (reassociation over K <= 6912);
    bf16 tolerance 1e-2 * max(1, max|plain|) (one output rounding; the plain
    version takes the same bf16 inputs and accumulates in fp32); plane sums
@@ -114,9 +117,14 @@ SMALL_SITES = [(64, (80, 96, 80)), (5, (8, 10, 12))]
 FUSED_SITES = [(64, 64, (80, 96, 80)), (64, 64, (6, 7, 9)), (3, 5, (6, 7, 9))]
 FLAGSHIP = (64, (80, 96, 80))
 FLAGSHIP_CONV = (64, 64, (80, 96, 80))
-# bf16 only, (batch, C, grid): the decoder tail at the main paths' batch, and
-# the other channel counts of its tensor-core body at a grid no patch divides
+# bf16 only, (batch, C, grid): the decoder tail / encoder stem at the main
+# paths' batch, and the other channel counts of their tensor-core bodies at a
+# grid no patch divides
 TO1_BF16_SITES = [(8, 64, (80, 96, 80)), (2, 32, (20, 23, 37)), (2, 16, (20, 23, 37))]
+FROM1_BF16_SITES = TO1_BF16_SITES
+# bf16 only, (batch, Ci, Co, grid): the fused kernel with its prologue at the
+# stage phase's batch
+FUSED_BF16_SITES = [(8, 64, 64, (80, 96, 80))]
 SLOPE = 0.2                  # the model's LeakyReLU
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 TOL_SUMS = 1e-3
@@ -266,9 +274,12 @@ def phase_kernels(dev) -> dict:
     from sivae_torch.kernels.conv3d import (conv3d_same, conv3d_same_body,
                                             conv3d_same_earlier_body, conv3d_same_plain,
                                             conv3d_same_wgmma_shape)
-    from sivae_torch.kernels.conv3d_fused import conv3d_fused_stats, conv3d_fused_stats_plain
-    from sivae_torch.kernels.conv3d_small import (conv3d_from1, conv3d_from1_plain, conv3d_to1,
-                                                  conv3d_to1_body, conv3d_to1_plain)
+    from sivae_torch.kernels.conv3d_fused import (conv3d_fused_stats, conv3d_fused_stats_body,
+                                                  conv3d_fused_stats_earlier_body,
+                                                  conv3d_fused_stats_plain)
+    from sivae_torch.kernels.conv3d_small import (conv3d_from1, conv3d_from1_body,
+                                                  conv3d_from1_plain, conv3d_to1, conv3d_to1_body,
+                                                  conv3d_to1_plain)
 
     gen = torch.Generator(device=dev).manual_seed(0)
     failures, rows = [], {}
@@ -284,8 +295,11 @@ def phase_kernels(dev) -> dict:
         err, rel, ok = _compare(k[0], p[0], TOL[dtype])
         sums = ""
         if earlier is not None:
-            e_err, e_rel, e_ok = _compare(earlier(), p[0], TOL[dtype])
-            ok = ok and e_ok
+            e = earlier()
+            e = e if isinstance(e, tuple) else (e,)
+            e_err, e_rel, e_ok = _compare(e[0], p[0], TOL[dtype])
+            ok = ok and e_ok and all(_compare(es, ps, TOL_SUMS)[2] for es, ps in zip(e[1:], p[1:]))
+            del e
         for ks, ps in zip(k[1:], p[1:]):
             s_err, s_rel, s_ok = _compare(ks, ps, TOL_SUMS)
             ok = ok and s_ok
@@ -342,19 +356,21 @@ def phase_kernels(dev) -> dict:
                 (x.numel() + w.numel() + n_vox) * isz, 2.0 * n_vox * 27 * c, x.numel(),
                 conv3d_to1_body(x))
 
-        for c, sp in SMALL_SITES:
-            b = 2
+        from1_more = FROM1_BF16_SITES if dtype == torch.bfloat16 else []
+        for b, c, sp in [(2,) + site for site in SMALL_SITES] + from1_more:
             n_vox = b * sp[0] * sp[1] * sp[2]
             x = torch.randn((b,) + sp + (1,), generator=gen, device=dev).to(dtype)
             w = _he((3, 3, 3, 1, c), 27, gen, dev, dtype)
             x_cl = x.permute(0, 4, 1, 2, 3)
             w_cl = w.permute(4, 3, 0, 1, 2).contiguous()
-            run("conv3d_from1", f"1->{c}@{grid_name(sp)}", dtype, lambda: conv3d_from1(x, w),
-                lambda: conv3d_from1_plain(x, w), lambda: F.conv3d(x_cl, w_cl, padding=1),
-                (x.numel() + w.numel() + n_vox * c) * isz, 2.0 * n_vox * 27 * c, x.numel())
+            run("conv3d_from1", f"1->{c}@{grid_name(sp)}" + _batch_tag(b), dtype,
+                lambda: conv3d_from1(x, w), lambda: conv3d_from1_plain(x, w),
+                lambda: F.conv3d(x_cl, w_cl, padding=1),
+                (x.numel() + w.numel() + n_vox * c) * isz, 2.0 * n_vox * 27 * c, x.numel(),
+                conv3d_from1_body(x, c))
 
-        for ci, co, sp in FUSED_SITES:
-            b = 2
+        fused_more = FUSED_BF16_SITES if dtype == torch.bfloat16 else []
+        for b, ci, co, sp in [(2,) + site for site in FUSED_SITES] + fused_more:
             n_vox = b * sp[0] * sp[1] * sp[2]
             x = torch.randn((b,) + sp + (ci,), generator=gen, device=dev).to(dtype)
             w = _he((3, 3, 3, ci, co), 27 * ci, gen, dev, dtype)
@@ -363,7 +379,8 @@ def phase_kernels(dev) -> dict:
             # that padding before the prologue would show
             in_a = 0.5 + torch.rand(ci, generator=gen, device=dev)
             in_b = 0.3 + 0.3 * torch.rand(ci, generator=gen, device=dev)
-            for pro in (False, True):
+            body = conv3d_fused_stats_body(x, w)
+            for pro in (False, True) if b == 2 else (True,):
                 a_, b_ = (in_a, in_b) if pro else (None, None)
                 # bytes: x, w, y once each, the two (B, D, Co) fp32 sums, a and b
                 nbytes = ((x.numel() + w.numel() + n_vox * co) * isz
@@ -373,10 +390,12 @@ def phase_kernels(dev) -> dict:
                 flops = (2.0 * n_vox * 27 * ci * co + (3.0 * x.numel() if pro else 0.0)
                          + 3.0 * n_vox * co)
                 run("conv3d_fused_stats",
-                    f"{ci}->{co}@{grid_name(sp)}{' prologue' if pro else ''}", dtype,
-                    lambda: conv3d_fused_stats(x, w, a_, b_, SLOPE),
+                    f"{ci}->{co}@{grid_name(sp)}{' prologue' if pro else ''}" + _batch_tag(b),
+                    dtype, lambda: conv3d_fused_stats(x, w, a_, b_, SLOPE),
                     lambda: conv3d_fused_stats_plain(x, w, a_, b_, SLOPE),
-                    lambda: unfused_stage(x, w_cl, a_, b_, SLOPE), nbytes, flops, x.numel())
+                    lambda: unfused_stage(x, w_cl, a_, b_, SLOPE), nbytes, flops, x.numel(),
+                    body, (lambda: conv3d_fused_stats_earlier_body(x, w, a_, b_, SLOPE))
+                    if body == "wgmma" else None)
 
     if failures:
         raise SystemExit(f"chip_smoke: kernels disagree with their plain versions: {failures}")

@@ -17,8 +17,8 @@
 // - "mma" (conv3d_body.cuh): the other bf16 shapes with Ci % 32 == 0 and
 //   Co % 64 == 0: mma.sync on ldmatrix fragments over a cp.async ring.
 // - "fma" (conv3d_body.cuh): fp32 and odd channel counts, on CUDA cores.
-// The fused conv + statistics kernel (conv3d_fused.cu) instantiates the mma
-// and fma bodies with their optional parts; the bodies here have none.
+// The fused conv + statistics kernel (conv3d_fused.cu) instantiates the same
+// bodies with their optional parts; the conv here has none.
 
 #include "conv3d_body.cuh"
 #include "conv3d_wgmma.cuh"
@@ -37,9 +37,9 @@ int sivae_conv3d_same_body(const void* x, const void* w, const void* y, int Ci, 
 int sivae_conv3d_same(const void* x, const void* w, void* y, int B, int D, int H, int W, int Ci,
                       int Co, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (sivae::wgmma_eligible(x, w, y, Ci, Co, dtype))
-    return sivae::launch_conv3d_wgmma(x, w, y, B, D, H, W, Ci, Co, s);
   const sivae::Fusion none = {nullptr, nullptr, 0.f, nullptr, nullptr};
+  if (sivae::wgmma_eligible(x, w, y, Ci, Co, dtype))
+    return sivae::launch_conv3d_wgmma<false, false>(x, w, y, B, D, H, W, Ci, Co, none, s);
   return sivae::launch_conv3d<false, false, 3>(x, w, y, B, D, H, W, Ci, Co, dtype, none, s);
 }
 
@@ -56,8 +56,9 @@ int sivae_conv3d_same_wgmma(const void* x, const void* w, void* y, int B, int D,
                             int Ci, int Co, int dtype, int shape, void* stream) {
   if (!sivae::wgmma_eligible(x, w, y, Ci, Co, dtype) || shape <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  return sivae::launch_conv3d_wgmma(x, w, y, B, D, H, W, Ci, Co,
-                                    static_cast<cudaStream_t>(stream), shape);
+  const sivae::Fusion none = {nullptr, nullptr, 0.f, nullptr, nullptr};
+  return sivae::launch_conv3d_wgmma<false, false>(x, w, y, B, D, H, W, Ci, Co, none,
+                                              static_cast<cudaStream_t>(stream), shape);
 }
 
 // The same conv through the bodies of conv3d_body.cuh only (mma or fma, never

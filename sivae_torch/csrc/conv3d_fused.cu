@@ -30,8 +30,32 @@
 // before the conv and the two reductions that re-read y after it.
 
 #include "conv3d_body.cuh"
+#include "conv3d_wgmma.cuh"
+
+namespace {
+
+sivae::Fusion fusion(const void* in_a, const void* in_b, float slope, void* psum, void* psumsq) {
+  return {static_cast<const float*>(in_a), static_cast<const float*>(in_b), slope,
+          static_cast<float*>(psum), static_cast<float*>(psumsq)};
+}
+
+int launch_fused_wgmma(const void* x, const void* w, void* y, int B, int D, int H, int W, int Ci,
+                       int Co, const sivae::Fusion& f, cudaStream_t s, int shape = 0) {
+  if (f.in_a != nullptr)
+    return sivae::launch_conv3d_wgmma<true, true>(x, w, y, B, D, H, W, Ci, Co, f, s, shape);
+  return sivae::launch_conv3d_wgmma<false, true>(x, w, y, B, D, H, W, Ci, Co, f, s, shape);
+}
+
+}  // namespace
 
 extern "C" {
+
+// Which body a call with these operands runs (its y freshly allocated, so
+// aligned): 2 = wgmma, 1 = mma, 0 = fma.
+int sivae_conv3d_fused_stats_body(const void* x, const void* w, int Ci, int Co, int dtype) {
+  if (sivae::wgmma_eligible(x, w, nullptr, Ci, Co, dtype)) return 2;
+  return sivae::mma_eligible(x, w, nullptr, Ci, Co, dtype) ? 1 : 0;
+}
 
 // x (B,D,H,W,Ci), w (3,3,3,Ci,Co), y (B,D,H,W,Co) contiguous, one dtype;
 // in_a, in_b (Ci) fp32 or both null (no prologue); psum, psumsq (B*D, Co)
@@ -40,12 +64,45 @@ extern "C" {
 int sivae_conv3d_fused_stats(const void* x, const void* w, const void* in_a, const void* in_b,
                              float slope, void* y, void* psum, void* psumsq, int B, int D, int H,
                              int W, int Ci, int Co, int dtype, void* stream) {
-  const sivae::Fusion f = {static_cast<const float*>(in_a), static_cast<const float*>(in_b), slope,
-                           static_cast<float*>(psum), static_cast<float*>(psumsq)};
+  const sivae::Fusion f = fusion(in_a, in_b, slope, psum, psumsq);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (sivae::wgmma_eligible(x, w, y, Ci, Co, dtype))
+    return launch_fused_wgmma(x, w, y, B, D, H, W, Ci, Co, f, s);
+  if (in_a != nullptr)
+    return sivae::launch_conv3d<true, true, 2>(x, w, y, B, D, H, W, Ci, Co, dtype, f, s);
+  return sivae::launch_conv3d<false, true, 2>(x, w, y, B, D, H, W, Ci, Co, dtype, f, s);
+}
+
+// The same through the bodies of conv3d_body.cuh only (mma or fma, never
+// wgmma): the earlier tensor-core body beside the new one, for measurements
+// and tests. No model path calls it.
+int sivae_conv3d_fused_stats_mma(const void* x, const void* w, const void* in_a, const void* in_b,
+                                 float slope, void* y, void* psum, void* psumsq, int B, int D,
+                                 int H, int W, int Ci, int Co, int dtype, void* stream) {
+  const sivae::Fusion f = fusion(in_a, in_b, slope, psum, psumsq);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (in_a != nullptr)
     return sivae::launch_conv3d<true, true, 2>(x, w, y, B, D, H, W, Ci, Co, dtype, f, s);
   return sivae::launch_conv3d<false, true, 2>(x, w, y, B, D, H, W, Ci, Co, dtype, f, s);
+}
+
+// The fused kernel's wgmma block shape for B*D*H*W voxels and Co output
+// channels, as 10 * (rows / 128) + (columns / 64).
+int sivae_conv3d_fused_stats_wgmma_shape(int B, int D, int H, int W, int Co) {
+  return sivae::wgmma_block_shape(static_cast<unsigned>(B) * D * H * W, Co, true);
+}
+
+// The fused kernel through the wgmma body in a given block shape (11, 21, 12
+// or 22), for measuring the shapes against each other. No model path calls
+// it. cudaErrorInvalidValue when the operands or the shape do not fit that body.
+int sivae_conv3d_fused_stats_wgmma(const void* x, const void* w, const void* in_a,
+                                   const void* in_b, float slope, void* y, void* psum,
+                                   void* psumsq, int B, int D, int H, int W, int Ci, int Co,
+                                   int dtype, int shape, void* stream) {
+  if (!sivae::wgmma_eligible(x, w, y, Ci, Co, dtype) || shape <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_fused_wgmma(x, w, y, B, D, H, W, Ci, Co, fusion(in_a, in_b, slope, psum, psumsq),
+                            static_cast<cudaStream_t>(stream), shape);
 }
 
 }  // extern "C"

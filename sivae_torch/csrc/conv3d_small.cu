@@ -4,9 +4,9 @@
 // channel reduction (C -> 1) or a channel broadcast (1 -> C). Both are bound
 // by the bytes of their C-wide side: at the flagship sites (64 channels at
 // 80x96x80, batch 8, bf16) that side is ~629 MB, 0.19 ms at 3.35 TB/s, while
-// the 1.7e10 multiply-adds are 0.03 ms of tensor-core time (C -> 1 only: its
-// channel contraction is a matrix product per input voxel) or 0.5 ms of
-// CUDA-core time.
+// the 1.7e10 multiply-adds are 0.03 ms of tensor-core time (both have a
+// matrix product inside: the channel contraction per input voxel, the tap
+// sum per output voxel) or 0.5 ms of CUDA-core time.
 //
 // - C -> 1 replaces sivae_tpu/kernels/conv3d_small.py:_small_out_impl
 //   (_small_out_kernel). Two bodies:
@@ -18,16 +18,25 @@
 //   owning 16-byte chunks of the C contiguous channels; fp32 FMAs against the
 //   27xC weights held in shared memory, then a shuffle reduce. The 27x
 //   re-reads of overlapping windows hit L1/L2, which is what bounds it.
-// - conv3d_from1_kernel replaces _small_in_impl (_small_in_kernel). One thread
-//   per (voxel, group of 8 channels): the 27 input scalars of the window are
-//   loaded once into registers and reused across the group's channels, the
-//   27xC weights sit in shared memory, and the group's outputs leave as
-//   16-byte stores, consecutive threads on consecutive addresses, so the
-//   output stream, its bound, is written contiguously.
+// - 1 -> C replaces _small_in_impl (_small_in_kernel). Two bodies:
+//   "mma" (conv3d_from1_mma.cuh; bf16, C = 16, 32 or 64, a 16-byte aligned
+//   output): the 27-tap window sum is a matrix product per voxel,
+//   y[v, c] = sum_t x[v + off_t] w[t, c] with K = 27 padded to 32, on the
+//   tensor cores, the weights resident in registers and the output leaving
+//   as 16-byte stores of staged tiles; what is left is the output stream.
+//   "fma" (conv3d_from1_kernel below; fp32, where TF32 would not hold the
+//   fp32 tolerance, and every other C): one thread per (voxel, group of 8
+//   channels), the 27 input scalars in registers, the 27xC weights in
+//   shared memory. Every FMA reads its weight from shared memory (the 8
+//   threads of a voxel 8 floats apart: groups g and g + 4 share a bank), and
+//   those reads bound it, not its output stream: at 1 -> 64, 80x96x80,
+//   batch 2, 2.1e9 4-byte reads, twice over for the conflict, are ~0.57 ms
+//   at 128 B/clk per SM.
 // All accumulate in fp32 and round once. Odd channel counts (C not a
 // multiple of the 16-byte vector) take the same walk with scalar accesses.
 
 #include "common.cuh"
+#include "conv3d_from1_mma.cuh"
 #include "conv3d_to1_mma.cuh"
 
 namespace sivae {
@@ -194,10 +203,18 @@ int sivae_conv3d_to1(const void* x, const void* w, void* y, int B, int D, int H,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Which body a 1 -> C call writing into y runs: 1 = mma (tensor-core tap
+// product), 0 = fma.
+int sivae_conv3d_from1_body(const void* y, int C, int dtype) {
+  return sivae::from1_mma_eligible(y, C, dtype) ? 1 : 0;
+}
+
 // x (B,D,H,W), w (3,3,3,C), y (B,D,H,W,C); contiguous, one dtype, B*D*H*W < 2^31.
 int sivae_conv3d_from1(const void* x, const void* w, void* y, int B, int D, int H, int W, int C,
                        int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (sivae::from1_mma_eligible(y, C, dtype))
+    return sivae::launch_from1_mma(x, w, y, B, D, H, W, C, s);
   if (dtype == sivae::kFloat32)
     sivae::launch_from1<float>(x, w, y, B, D, H, W, C, s);
   else

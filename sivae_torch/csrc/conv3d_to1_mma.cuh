@@ -163,11 +163,12 @@ inline bool to1_mma_eligible(const void* x, int C, int dtype) {
          (reinterpret_cast<uintptr_t>(x) & 15) == 0;
 }
 
-// Planes per segment: one block per SM runs at a time, so the kernel lasts
+// Planes per segment of a block that marches along d (this body and the
+// 1 -> C one): per_sm blocks run on an SM at a time, so the kernel lasts
 // (rounds of blocks over the SMs) x (planes a block reads, 2 of them halo); take the
 // split of D that makes that product least.
-inline int to1_seg_len(int patches, int D) {
-  const int sms = device_sms();
+inline int plane_seg_len(int patches, int D, int per_sm) {
+  const int sms = device_sms() * per_sm;
   int best_len = D;
   long long best = -1;
   for (int segs = 1; segs <= D; ++segs) {
@@ -191,7 +192,7 @@ inline int launch_to1_mma_c(const CUtensorMap& xmap, const void* w, void* y, int
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::kSmem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const int patches = ((W + kPatch - 1) / kPatch) * ((H + kPatch - 1) / kPatch);
-  const int seg_len = to1_seg_len(patches * B, D);
+  const int seg_len = plane_seg_len(patches * B, D, 1);
   const dim3 grid(patches * B, (D + seg_len - 1) / seg_len);
   kernel<<<grid, 256, Cfg::kSmem, s>>>(xmap, static_cast<const __nv_bfloat16*>(w),
                                        static_cast<__nv_bfloat16*>(y), D, H, W, seg_len);

@@ -69,8 +69,11 @@ struct WgmmaCfg {
   static constexpr int kEpiOff = kStages * kStage;
   static constexpr int kBarOff = kEpiOff + kConsumerWarps * kEpiWarp;
   static constexpr int kSmem = kStages * kStage + kFixed;  // with room to align the base
+  static constexpr int kSlots = kM / 16;  // warp tiles of 16 rows: the plane sums' slots
+  static constexpr int kRewritePasses = (kM + 2 + 31) / 32;  // line-buffer rows / 32
   static_assert(kStage % 1024 == 0 && kABytes % 1024 == 0, "swizzle atoms are 1024 B");
   static_assert(kStages >= 2 && 2 * kStages * 8 <= 128, "ring depth");
+  static_assert(kSlots * (2 * kN + 1) * 4 <= kStages * kStage, "the slots fit in the ring");
 };
 
 // 27-bit mask of the taps of output voxel m that lie inside the volume
@@ -83,17 +86,49 @@ __device__ __forceinline__ uint32_t tap_mask(unsigned m, unsigned n_vox, int D, 
   return (v.d > 0 ? okh : 0u) | (okh << 9) | (v.d < D - 1 ? okh << 18 : 0u);
 }
 
+// g (prologue_act, rounded once) on the two bf16 of a packed pair, channels
+// with scales a0, a1 and shifts b0, b1
+__device__ __forceinline__ unsigned prologue_bf16x2(unsigned v, float a0, float a1, float b0,
+                                                    float b1, float slope) {
+  const __nv_bfloat162 r =
+      __floats2bfloat162_rn(prologue_act(__uint_as_float(v << 16), a0, b0, slope),
+                            prologue_act(__uint_as_float(v & 0xffff0000u), a1, b1, slope));
+  return *reinterpret_cast<const unsigned*>(&r);
+}
+
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+// the 256 consumer threads only (the producer warpgroup has left)
+__device__ __forceinline__ void consumer_sync() { asm volatile("bar.sync 1, 256;\n" ::: "memory"); }
+
 // --- the kernel --------------------------------------------------------------
 //
 // 384 threads: warpgroups 0 and 1 consume (each kMT m64 tiles of the block's
 // rows), warpgroup 2 produces (one thread; the rest leave). xmap: the input as
 // (n_vox, Ci) bf16, box 136 x 64, 128-byte swizzle. wmap: the weight as
 // (27 * Ci, Co), box 64 x 64, 128-byte swizzle.
-template <int kMT, int kNT>
+//
+// The fused form's two optional parts (conv3d_body.cuh says what they
+// compute; kernel 1 runs with neither):
+// - kPrologue, the input prologue g: the consumers apply it once per stage to
+//   the next stage's line buffer in shared memory, a third of its rows after
+//   each kw group's wgmmas are issued, so that it runs while they do; a named
+//   barrier among the consumers orders it before the next stage's ldmatrix.
+//   The tap masks then zero every out-of-volume tap, the rows TMA filled with
+//   zeros (g(0) != 0) included.
+// - kStats: plane sums of the rounded output, from each warp's staged 16-row
+//   tile (the rounded values the epilogue stores), each lane summing two
+//   columns over the rows. A tile in one plane goes to its own slot (shared
+//   memory, the drained ring); the block then adds the slots of each plane
+//   and issues one atomicAdd per (plane, column, sum). A tile that straddles
+//   planes adds each plane's part to psum / psumsq directly.
+template <int kMT, int kNT, bool kPrologue, bool kStats>
 __global__ void __launch_bounds__(384, 1)
 conv3d_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                     const __grid_constant__ CUtensorMap wmap, __nv_bfloat16* __restrict__ y, int B,
-                    int D, int H, int W, int Ci, int Co) {
+                    int D, int H, int W, int Ci, int Co, Fusion f) {
   using Cfg = WgmmaCfg<kMT, kNT>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;  // swizzle atoms: 1024-aligned
@@ -116,6 +151,34 @@ conv3d_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+
+  // g on the rows of stage st's line buffer that feed this block (kM + 2),
+  // for channel chunk c: consumer thread tid takes the 16-byte piece tid & 7
+  // of rows tid / 8 + 32 p, for the passes p0 <= p < p1
+  auto rewrite = [&](int st, int c, int p0, int p1) {
+    const int piece = tid & 7;
+    float a8[8], b8[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      a8[e] = __ldg(f.in_a + c * GK + piece * 8 + e);
+      b8[e] = __ldg(f.in_b + c * GK + piece * 8 + e);
+    }
+    unsigned char* buf = smem + st * Cfg::kStage;
+#pragma unroll 3
+    for (int p = p0; p < p1; ++p) {
+      const int r = (tid >> 3) + 32 * p;
+      if (r >= Cfg::kM + 2) break;
+      uint4* q = reinterpret_cast<uint4*>(buf + r * (GK * 2) + ((piece ^ (r & 7)) << 4));
+      uint4 v = *q;
+      v.x = prologue_bf16x2(v.x, a8[0], a8[1], b8[0], b8[1], f.slope);
+      v.y = prologue_bf16x2(v.y, a8[2], a8[3], b8[2], b8[3], f.slope);
+      v.z = prologue_bf16x2(v.z, a8[4], a8[5], b8[4], b8[5], f.slope);
+      v.w = prologue_bf16x2(v.w, a8[6], a8[7], b8[6], b8[7], f.slope);
+      *q = v;
+    }
+    // generic-proxy writes to a buffer that TMA (the async proxy) refills
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  };
 
   if (wg == 2) {
     // ---- producer -----------------------------------------------------------
@@ -176,8 +239,14 @@ conv3d_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
 
     int stage = 0, lp = 0, lc = 0;
     uint32_t parity = 0;
+    if constexpr (kPrologue) {
+      mbar_wait(full0, 0);
+      rewrite(0, 0, 0, Cfg::kRewritePasses);
+      consumer_sync();
+    }
     for (int step = 0; step < steps; ++step) {
-      mbar_wait(full0 + 8 * stage, parity);
+      if constexpr (!kPrologue) mbar_wait(full0 + 8 * stage, parity);  // else waited for below
+      const int ns = stage + 1 == Cfg::kStages ? 0 : stage + 1;  // the next stage
       const uint32_t a_base = base + stage * Cfg::kStage;
       const uint32_t b_base = a_base + Cfg::kABytes;
       uint32_t ok[kMT][2];  // this (kd, kh)'s three kw bits of each owned row
@@ -195,13 +264,13 @@ conv3d_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
           const uint32_t row_addr = a_base + slot * (GK * 2);
 #pragma unroll
           for (int kk = 0; kk < GK / 16; ++kk) {
-            unsigned(&f)[4] = fa[set][t][kk];
+            unsigned(&fr)[4] = fa[set][t][kk];
             const uint32_t piece = static_cast<uint32_t>((kk * 2 + l_hi) ^ (slot & 7));
             asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                         : "=r"(f[0]), "=r"(f[1]), "=r"(f[2]), "=r"(f[3])
+                         : "=r"(fr[0]), "=r"(fr[1]), "=r"(fr[2]), "=r"(fr[3])
                          : "r"(row_addr + (piece << 4)));
-            if (!((ok[t][0] >> kw) & 1u)) f[0] = f[2] = 0u;  // row g
-            if (!((ok[t][1] >> kw) & 1u)) f[1] = f[3] = 0u;  // row g + 8
+            if (!((ok[t][0] >> kw) & 1u)) fr[0] = fr[2] = 0u;  // row g
+            if (!((ok[t][1] >> kw) & 1u)) fr[1] = fr[3] = 0u;  // row g + 8
           }
         }
         wgmma_fence();
@@ -215,10 +284,18 @@ conv3d_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                   acc[t][nt], fa[set][t][kk],
                   smem_desc(b_base + (kw * kNT + nt) * kBTile + kk * (16 * GN * 2)));
         wgmma_commit();
+        if constexpr (kPrologue) {  // a third of the next stage, while this group's wgmmas run
+          if (step + 1 < steps) {
+            if (kw == 0) mbar_wait(full0 + 8 * ns, ns == 0 ? parity ^ 1u : parity);
+            rewrite(ns, lc + 1 == chunks ? 0 : lc + 1, kw * Cfg::kRewritePasses / 3,
+                    (kw + 1) * Cfg::kRewritePasses / 3);
+          }
+        }
       }
       wgmma_wait<0>();  // the stage's weight tiles have been read
       __syncwarp();
       if (lane == 0) mbar_arrive(empty0 + 8 * stage);
+      if constexpr (kPrologue) consumer_sync();  // the next stage is rewritten
       if (++stage == Cfg::kStages) {
         stage = 0;
         parity ^= 1u;
@@ -239,6 +316,15 @@ conv3d_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
     // accumulator layout: registers 4j .. 4j+3 are columns 8j + 2 t4, + 1 of
     // row g (first two) and row g + 8 (last two)
     unsigned char* epi = smem + Cfg::kEpiOff + (wg * 4 + wq) * kEpiWarp;
+
+    // kStats: the slots of the warp tiles, [tile row / 16][s1, s2][kN] fp32,
+    // and each slot's plane (~0 for a tile that straddles planes), in the ring
+    // (every stage has been read)
+    const unsigned HW = static_cast<unsigned>(H) * W;
+    float* slots = reinterpret_cast<float*>(smem);
+    unsigned* slot_plane = reinterpret_cast<unsigned*>(slots + Cfg::kSlots * 2 * Cfg::kN);
+    if constexpr (kStats) consumer_sync();  // both warpgroups are done with the ring
+
 #pragma unroll
     for (int t = 0; t < kMT; ++t) {
 #pragma unroll
@@ -262,6 +348,64 @@ conv3d_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                 *reinterpret_cast<const uint4*>(epi + row * kEpiRow + piece * 16);
         }
         __syncwarp();
+        if constexpr (kStats) {  // of the staged, rounded tile: lane owns columns 2 lane, + 1
+          const unsigned ma = m0 + row_wg + t * 64;  // the tile's first row
+          unsigned plane = ma / HW, rem = ma - plane * HW;
+          const bool whole = ma + 15 < n_vox && rem + 15 < HW;  // 16 real rows, one plane
+          float s1a = 0.f, s1b = 0.f, s2a = 0.f, s2b = 0.f;
+          float* sums = f.psum + n0 + nt * GN + 2 * lane;
+          float* sqs = f.psumsq + n0 + nt * GN + 2 * lane;
+#pragma unroll
+          for (int r = 0; r < 16; ++r) {
+            if (!whole && ma + r >= n_vox) break;
+            const unsigned v = *reinterpret_cast<const unsigned*>(epi + r * kEpiRow + 4 * lane);
+            const float lo = __uint_as_float(v << 16), hi = __uint_as_float(v & 0xffff0000u);
+            s1a += lo;
+            s1b += hi;
+            s2a = fmaf(lo, lo, s2a);
+            s2b = fmaf(hi, hi, s2b);
+            if (!whole && (++rem == HW || r == 15 || ma + r + 1 == n_vox)) {  // a plane's part ends
+              const size_t at = static_cast<size_t>(plane) * Co;
+              atomicAdd(sums + at, s1a);
+              atomicAdd(sums + at + 1, s1b);
+              atomicAdd(sqs + at, s2a);
+              atomicAdd(sqs + at + 1, s2b);
+              s1a = s1b = s2a = s2b = 0.f;
+              if (rem == HW) {
+                rem = 0;
+                ++plane;
+              }
+            }
+          }
+          const int sl = (ma - m0) >> 4;
+          if (whole) {
+            float* slot = slots + sl * 2 * Cfg::kN + nt * GN + 2 * lane;
+            *reinterpret_cast<float2*>(slot) = make_float2(s1a, s1b);
+            *reinterpret_cast<float2*>(slot + Cfg::kN) = make_float2(s2a, s2b);
+          }
+          if (lane == 0 && nt == 0) slot_plane[sl] = whole ? plane : ~0u;
+          __syncwarp();  // the next tile is staged over this one
+        }
+      }
+    }
+    if constexpr (kStats) {  // one atomicAdd per (plane, column, sum) of the block
+      consumer_sync();
+      if (tid < 2 * Cfg::kN) {
+        const int col = tid % Cfg::kN, k = tid / Cfg::kN;
+        float* sums = (k ? f.psumsq : f.psum) + n0 + col;
+        unsigned plane = ~0u;
+        float run = 0.f;
+        for (int sl = 0; sl < Cfg::kSlots; ++sl) {  // in row order: one plane's slots are adjacent
+          const unsigned p = slot_plane[sl];
+          if (p == ~0u) continue;
+          if (p != plane) {
+            if (plane != ~0u) atomicAdd(sums + static_cast<size_t>(plane) * Co, run);
+            plane = p;
+            run = 0.f;
+          }
+          run += slots[(sl * 2 + k) * Cfg::kN + col];
+        }
+        if (plane != ~0u) atomicAdd(sums + static_cast<size_t>(plane) * Co, run);
       }
     }
   }
@@ -283,14 +427,17 @@ inline bool wgmma_eligible(const void* x, const void* w, const void* y, int Ci, 
 // output than 128 x 64, the 128-wide ones another 10-20%);
 // tools/torch_conv_blocks.py times the four shapes at every site and marks
 // the pick.
-inline int wgmma_block_shape(unsigned n_vox, int Co) {
+//
+// The fused forms (`fused`) leave out 256 x 128: with the statistics
+// epilogue that shape no longer fits the registers (ptxas spills).
+inline int wgmma_block_shape(unsigned n_vox, int Co, bool fused = false) {
   const int sms = device_sms();
   const struct { int shape, mt, nt; double cost; } shapes[4] = {
       {11, 1, 1, 1.10}, {21, 2, 1, 1.00}, {12, 1, 2, 0.85}, {22, 2, 2, 0.80}};
   int best = 11;
   double best_t = -1.0;
   for (const auto& c : shapes) {
-    if (Co % (GN * c.nt) != 0) continue;
+    if (Co % (GN * c.nt) != 0 || (fused && c.shape == 22)) continue;
     const long long blocks =
         (static_cast<long long>(n_vox) + 128 * c.mt - 1) / (128 * c.mt) * (Co / (GN * c.nt));
     const double t = static_cast<double>((blocks + sms - 1) / sms) * c.mt * c.nt * c.cost;
@@ -302,26 +449,29 @@ inline int wgmma_block_shape(unsigned n_vox, int Co) {
   return best;
 }
 
-template <int kMT, int kNT>
+template <int kMT, int kNT, bool kPrologue, bool kStats>
 inline int launch_wgmma(const CUtensorMap& xmap, const CUtensorMap& wmap, void* y, int B, int D,
-                        int H, int W, int Ci, int Co, unsigned n_vox, cudaStream_t s) {
+                        int H, int W, int Ci, int Co, unsigned n_vox, const Fusion& f,
+                        cudaStream_t s) {
   using Cfg = WgmmaCfg<kMT, kNT>;
-  auto kernel = conv3d_wgmma_kernel<kMT, kNT>;
+  auto kernel = conv3d_wgmma_kernel<kMT, kNT, kPrologue, kStats>;
   const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::kSmem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid((n_vox + Cfg::kM - 1) / Cfg::kM, Co / Cfg::kN);
   kernel<<<grid, 384, Cfg::kSmem, s>>>(xmap, wmap, static_cast<__nv_bfloat16*>(y), B, D, H, W, Ci,
-                                       Co);
+                                       Co, f);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The wgmma body on operands that wgmma_eligible() takes, in the block shape
+// The wgmma body on operands that wgmma_eligible() takes, with the optional
+// parts kPrologue / kStats (the conv alone: <false, false>), in the block shape
 // wgmma_block_shape() picks (shape == 0) or in a given one (for measurements;
 // it must divide Co). The two tensor maps are encoded per call on the host
 // (about a microsecond; nothing is cached, so nothing outlives the call).
+template <bool kPrologue, bool kStats>
 inline int launch_conv3d_wgmma(const void* x, const void* w, void* y, int B, int D, int H, int W,
-                               int Ci, int Co, cudaStream_t s, int shape = 0) {
+                               int Ci, int Co, const Fusion& f, cudaStream_t s, int shape = 0) {
   const unsigned n_vox = static_cast<unsigned>(B) * D * H * W;
   CUtensorMap xmap, wmap;
   const cuuint64_t xdims[2] = {static_cast<cuuint64_t>(Ci), n_vox};
@@ -333,13 +483,13 @@ inline int launch_conv3d_wgmma(const void* x, const void* w, void* y, int B, int
   if (!encode_bf16_map(&xmap, x, 2, xdims, xstr, xbox, CU_TENSOR_MAP_SWIZZLE_128B) ||
       !encode_bf16_map(&wmap, w, 2, wdims, wstr, wbox, CU_TENSOR_MAP_SWIZZLE_128B))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (shape == 0) shape = wgmma_block_shape(n_vox, Co);
+  if (shape == 0) shape = wgmma_block_shape(n_vox, Co, kStats);
   if (Co % (GN * (shape % 10)) != 0) return static_cast<int>(cudaErrorInvalidValue);
   switch (shape) {
-    case 21: return launch_wgmma<2, 1>(xmap, wmap, y, B, D, H, W, Ci, Co, n_vox, s);
-    case 12: return launch_wgmma<1, 2>(xmap, wmap, y, B, D, H, W, Ci, Co, n_vox, s);
-    case 22: return launch_wgmma<2, 2>(xmap, wmap, y, B, D, H, W, Ci, Co, n_vox, s);
-    default: return launch_wgmma<1, 1>(xmap, wmap, y, B, D, H, W, Ci, Co, n_vox, s);
+    case 21: return launch_wgmma<2, 1, kPrologue, kStats>(xmap, wmap, y, B, D, H, W, Ci, Co, n_vox, f, s);
+    case 12: return launch_wgmma<1, 2, kPrologue, kStats>(xmap, wmap, y, B, D, H, W, Ci, Co, n_vox, f, s);
+    case 22: return launch_wgmma<2, 2, kPrologue, kStats>(xmap, wmap, y, B, D, H, W, Ci, Co, n_vox, f, s);
+    default: return launch_wgmma<1, 1, kPrologue, kStats>(xmap, wmap, y, B, D, H, W, Ci, Co, n_vox, f, s);
   }
 }
 

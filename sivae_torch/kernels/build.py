@@ -47,8 +47,15 @@ SIGNATURES = {
     "sivae_conv3d_same_body": [_P, _P, _P, _I, _I, _I],
     "sivae_conv3d_to1_body": [_P, _I, _I],
     "sivae_conv3d_to1": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "sivae_conv3d_from1_body": [_P, _I, _I],
     "sivae_conv3d_from1": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "sivae_conv3d_fused_stats_body": [_P, _P, _I, _I, _I],
     "sivae_conv3d_fused_stats": [_P, _P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "sivae_conv3d_fused_stats_mma": [_P, _P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                     _P],
+    "sivae_conv3d_fused_stats_wgmma": [_P, _P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                       _I, _I, _P],
+    "sivae_conv3d_fused_stats_wgmma_shape": [_I, _I, _I, _I, _I],
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

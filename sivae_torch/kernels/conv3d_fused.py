@@ -64,6 +64,16 @@ def conv3d_fused_stats(x: torch.Tensor, w: torch.Tensor, in_a: Optional[torch.Te
     """x (B, D, H, W, C), w (3, 3, 3, C, Co), in_a / in_b (C,) fp32 or None ->
     (y (B, D, H, W, Co), psum (B, D, Co) fp32, psumsq (B, D, Co) fp32).
     Not differentiable; `conv3d_stats` is."""
+    _check(x, w, in_a, in_b)
+    if x.device.type == "cpu":
+        return conv3d_fused_stats_plain(x, w, in_a, in_b, slope)
+    out = _launch("sivae_conv3d_fused_stats", x, w, in_a, in_b, slope)
+    build.launches["conv3d_fused_stats"] += 1
+    return out
+
+
+def _check(x: torch.Tensor, w: torch.Tensor, in_a: Optional[torch.Tensor],
+           in_b: Optional[torch.Tensor]) -> None:
     if x.dim() != 5 or w.dim() != 5 or w.shape[:3] != (3, 3, 3) or w.shape[3] != x.shape[-1]:
         raise ValueError(f"conv3d_fused_stats: bad shapes x{tuple(x.shape)} w{tuple(w.shape)}")
     if (in_a is None) != (in_b is None):
@@ -72,10 +82,54 @@ def conv3d_fused_stats(x: torch.Tensor, w: torch.Tensor, in_a: Optional[torch.Te
     if in_a is not None and (tuple(in_a.shape) != (c,) or tuple(in_b.shape) != (c,)):
         raise ValueError(f"conv3d_fused_stats: in_a / in_b must be ({c},), got "
                          f"{tuple(in_a.shape)} / {tuple(in_b.shape)}")
-    if x.device.type == "cpu":
-        return conv3d_fused_stats_plain(x, w, in_a, in_b, slope)
-    build.require_cuda(x, w)
+
+
+def conv3d_fused_stats_earlier_body(x: torch.Tensor, w: torch.Tensor,
+                                    in_a: Optional[torch.Tensor] = None,
+                                    in_b: Optional[torch.Tensor] = None,
+                                    slope: float = 0.01) -> Stats:
+    """`conv3d_fused_stats` on CUDA tensors through the bodies that preceded
+    the wgmma one ("mma" or "fma"), whatever the dispatch would choose: for
+    timing the two tensor-core bodies side by side and for the card tests.
+    No model path calls it and it counts no launch."""
+    _check(x, w, in_a, in_b)
+    return _launch("sivae_conv3d_fused_stats_mma", x, w, in_a, in_b, slope)
+
+
+def conv3d_fused_stats_wgmma_blocks(x: torch.Tensor, w: torch.Tensor,
+                                    in_a: Optional[torch.Tensor] = None,
+                                    in_b: Optional[torch.Tensor] = None, slope: float = 0.01, *,
+                                    shape: int) -> Stats:
+    """`conv3d_fused_stats` on CUDA tensors the wgmma body takes, in a given
+    block shape (one of `conv3d.WGMMA_SHAPES`). For measuring the shapes
+    against each other (`tools/torch_conv_blocks.py --fused`) and for the card
+    tests; no model path calls it and it counts no launch."""
+    _check(x, w, in_a, in_b)
+    return _launch("sivae_conv3d_fused_stats_wgmma", x, w, in_a, in_b, slope, shape)
+
+
+def conv3d_fused_stats_wgmma_shape(x: torch.Tensor, co: int) -> int:
+    """The block shape the fused kernel's wgmma body takes for a call on x with
+    co output channels."""
     b, d, h, wd, _ = x.shape
+    return build.library().sivae_conv3d_fused_stats_wgmma_shape(b, d, h, wd, co)
+
+
+BODIES = ("fma", "mma", "wgmma")
+
+
+def conv3d_fused_stats_body(x: torch.Tensor, w: torch.Tensor) -> str:
+    """Which kernel body a CUDA `conv3d_fused_stats` call on x and w runs:
+    "wgmma", "mma" or "fma" (the same choice with and without the prologue)."""
+    used = build.library().sivae_conv3d_fused_stats_body(
+        x.data_ptr(), w.data_ptr(), x.shape[-1], w.shape[-1], build.dtype_code(x))
+    return BODIES[used]
+
+
+def _launch(entry: str, x: torch.Tensor, w: torch.Tensor, in_a: Optional[torch.Tensor],
+            in_b: Optional[torch.Tensor], slope: float, *more: int) -> Stats:
+    build.require_cuda(x, w)
+    b, d, h, wd, c = x.shape
     co = w.shape[-1]
     build.require_voxels(b, d, h, wd)
     ab = None
@@ -85,13 +139,12 @@ def conv3d_fused_stats(x: torch.Tensor, w: torch.Tensor, in_a: Optional[torch.Te
     sums = torch.zeros((2, b, d, co), dtype=torch.float32, device=x.device)  # the kernel adds
     lib = build.library()
     with torch.cuda.device(x.device):
-        rc = lib.sivae_conv3d_fused_stats(
+        rc = getattr(lib, entry)(
             x.data_ptr(), w.data_ptr(), None if ab is None else ab[0].data_ptr(),
             None if ab is None else ab[1].data_ptr(), float(slope), y.data_ptr(),
             sums[0].data_ptr(), sums[1].data_ptr(), b, d, h, wd, c, co, build.dtype_code(x),
-            build.stream_of(x))
-    build.check(rc, "conv3d_fused_stats")
-    build.launches["conv3d_fused_stats"] += 1
+            *more, build.stream_of(x))
+    build.check(rc, entry)
     return y, sums[0], sums[1]
 
 

@@ -19,12 +19,15 @@ A 1-channel side makes the conv a 27-tap stencil with a channel reduction or
 broadcast. Both are bound by the bytes of their C-wide side: at 64 channels,
 80x96x80, batch 8, bf16 that side is ~629 MB, ~0.19 ms at 3.35 TB/s on an
 H100 SXM (`chip_smoke.py` computes the same bound from each call's shapes).
-`conv3d_to1` in bf16 with C = 16, 32 or 64 meets it by contracting the
-channels once per input voxel on the tensor cores and summing the 27 taps
-from shared memory (`conv3d_to1_contract_first_plain` is that algorithm in
-PyTorch); its fp32 and odd-C body and `conv3d_from1` do their multiply-adds
-on CUDA cores (~1.7e10 of them, ~0.5 ms at 67 TF/s counting 2 per FMA) behind
-L1-served window reads; `csrc/conv3d_small.cu` says how each body is laid
+In bf16 with C = 16, 32 or 64 both run on the tensor cores ("mma" bodies):
+`conv3d_to1` contracts the channels once per input voxel and sums the 27
+taps from shared memory (`conv3d_to1_contract_first_plain` is that algorithm
+in PyTorch); `conv3d_from1` multiplies each output voxel's 27-tap window
+(padded to 32) by the 32 x C weights held in registers, so its own output
+stream is what is left (`conv3d_from1_gemm_plain`). Their fp32 and odd-C
+bodies ("fma") do the ~1.7e10 multiply-adds on CUDA cores (~0.5 ms at 67
+TF/s counting 2 per FMA); the 1 -> C one is held there by its shared-memory
+weight reads, one per FMA. `csrc/conv3d_small.cu` says how each body is laid
 out. All accumulate in fp32 and round once.
 
 The wrappers take the plain version for a CPU tensor and launch the kernel
@@ -78,6 +81,18 @@ def conv3d_from1_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         sl = xp[:, kd:kd + d, kh:kh + h, kw:kw + wd].float()
         acc += sl[..., None] * w[kd, kh, kw, 0].float()
     return acc.to(x.dtype)
+
+
+def conv3d_from1_gemm_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The tensor-core body's algorithm in PyTorch, for the tests: each output
+    voxel's 27-tap window of the 1-channel input, padded to 32 columns, times
+    the (32, C) weights (rows 27-31 zero) in fp32, rounded once. Same
+    function as `conv3d_from1_plain`, another order of the fp32 sums."""
+    c = w.shape[-1]
+    cols = _unfold27(x[..., 0].float())                             # (N, 32)
+    w32 = torch.zeros((32, c), dtype=torch.float32, device=x.device)
+    w32[:27] = w[:, :, :, 0, :].reshape(27, c).float()
+    return (cols @ w32).reshape(x.shape[:4] + (c,)).to(x.dtype)
 
 
 def _unfold27(v: torch.Tensor, flip: bool = False) -> torch.Tensor:
@@ -206,6 +221,14 @@ def conv3d_from1_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     y = torch.empty(x.shape[:4] + (c,), dtype=x.dtype, device=x.device)
     _launch("conv3d_from1", x, w27, y, c)
     return y
+
+
+def conv3d_from1_body(x: torch.Tensor, c: int) -> str:
+    """Which kernel body a CUDA `conv3d_from1` call on x with c output
+    channels runs (into the output it allocates, which is aligned): "mma"
+    (tensor-core tap product) or "fma"."""
+    used = build.library().sivae_conv3d_from1_body(None, c, build.dtype_code(x))
+    return "mma" if used else "fma"
 
 
 def conv3d_to1_body(x: torch.Tensor) -> str:

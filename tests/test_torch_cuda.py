@@ -22,10 +22,14 @@ from sivae_torch.kernels import build
 from sivae_torch.kernels.conv3d import (WGMMA_SHAPES, conv3d_same, conv3d_same_body,
                                         conv3d_same_earlier_body, conv3d_same_plain,
                                         conv3d_same_wgmma_blocks, conv3d_same_wgmma_shape)
-from sivae_torch.kernels.conv3d_fused import (conv3d_fused_stats, conv3d_fused_stats_plain,
-                                              conv3d_stats)
-from sivae_torch.kernels.conv3d_small import (conv3d_from1, conv3d_from1_plain, conv3d_to1,
-                                              conv3d_to1_body, conv3d_to1_plain)
+from sivae_torch.kernels.conv3d_fused import (conv3d_fused_stats, conv3d_fused_stats_body,
+                                              conv3d_fused_stats_earlier_body,
+                                              conv3d_fused_stats_plain,
+                                              conv3d_fused_stats_wgmma_blocks,
+                                              conv3d_fused_stats_wgmma_shape, conv3d_stats)
+from sivae_torch.kernels.conv3d_small import (conv3d_from1, conv3d_from1_body,
+                                              conv3d_from1_gemm_plain, conv3d_from1_plain,
+                                              conv3d_to1, conv3d_to1_body, conv3d_to1_plain)
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 CASES = [  # kernel, plain version, x shape, w shape
@@ -98,8 +102,11 @@ def test_conv3d_same_bodies_match_plain(cuda_device, x_shape, co, body):
     assert conv3d_same_body(x, w, got) == body
     before = dict(build.launches)
     earlier = conv3d_same_earlier_body(x, w)
+    if body == "wgmma":  # the dispatch runs the body in the shape it names, bit for bit
+        shape = conv3d_same_wgmma_shape(x, co)
+        assert torch.equal(got, conv3d_same_wgmma_blocks(x, w, shape))
     torch.cuda.synchronize()
-    assert build.launches == before  # the measuring entry counts nothing
+    assert build.launches == before  # the measuring entries count nothing
     want = conv3d_same_plain(x, w).float()
     tol = TOL[torch.bfloat16] * max(1.0, want.abs().max().item())
     assert (got.float() - want).abs().max().item() <= tol
@@ -150,6 +157,32 @@ def test_conv3d_to1_bodies_match_plain(cuda_device, x_shape, body):
         1.0, want.abs().max().item())
 
 
+# (B, D, H, W) and C of conv3d_from1 in bf16: the mma body marches 16 x 16
+# patches along d, so H and W below, at and above one patch, D = 1, B = 1
+# and 3, every C it takes; C = 5 and 48 fall to the CUDA-core body
+FROM1_CASES = [((1, 1, 3, 4), 64, "mma"), ((3, 5, 7, 9), 64, "mma"), ((1, 9, 16, 16), 64, "mma"),
+               ((2, 3, 17, 33), 64, "mma"), ((1, 90, 18, 20), 16, "mma"),
+               ((2, 4, 35, 6), 32, "mma"), ((2, 4, 5, 6), 5, "fma"), ((1, 4, 5, 6), 48, "fma")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,c,body", FROM1_CASES)
+def test_conv3d_from1_bodies_match_plain(cuda_device, shape, c, body):
+    """Each body against the plain version and against the tensor-core
+    body's algorithm in PyTorch (the same bf16 inputs, fp32 sums)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    x = torch.randn(shape + (1,), generator=gen, device=cuda_device).bfloat16()
+    w = (0.3 * torch.randn((3, 3, 3, 1, c), generator=gen, device=cuda_device)).bfloat16()
+    assert conv3d_from1_body(x, c) == body
+    assert conv3d_from1_body(x.float(), c) == "fma"  # TF32 would not hold the fp32 tolerance
+    got = conv3d_from1(x, w)
+    torch.cuda.synchronize()
+    for want in (conv3d_from1_plain(x, w).float(), conv3d_from1_gemm_plain(x, w).float()):
+        assert got.shape == want.shape
+        assert (got.float() - want).abs().max().item() <= TOL[torch.bfloat16] * max(
+            1.0, want.abs().max().item())
+
+
 # x shape, Co: the tensor-core body in bf16 inside one plane (16 * 8 = 128
 # voxels a plane) and straddling planes (7 * 9 = 63), and the FMA body
 FUSED_CASES = [((2, 3, 16, 8, 64), 64), ((2, 6, 7, 9, 64), 128), ((2, 6, 7, 9, 3), 5)]
@@ -178,6 +211,78 @@ def test_fused_stats_kernel_matches_plain(cuda_device, dtype, prologue, x_shape,
         assert g.shape == p.shape
         err = (g.float() - p.float()).abs().max().item()
         assert err <= tol * max(1.0, p.float().abs().max().item())
+
+
+# x shape, Co of conv3d_fused_stats in bf16 that the wgmma body takes: its
+# plane sums come from warps whose 16 rows lie in one plane (summed in the
+# block) or straddle planes (added row by row)
+FUSED_WGMMA_CASES = [
+    ((2, 3, 16, 8, 64), 64),      # 128 voxels a plane: every warp's rows in one plane
+    ((2, 6, 7, 9, 64), 128),      # 63 a plane: warps straddle planes; a ragged last tile
+    ((2, 5, 3, 4, 64), 64),       # 12 a plane: fewer than a warp's 16 rows
+    ((1, 300, 1, 1, 64), 64),     # 1 a plane: every row its own plane
+    ((2, 4, 6, 5, 128), 64),      # Ci = 128: two 64-channel chunks a (kd, kh)
+    ((3, 5, 7, 9, 64), 64),       # B = 3, a ragged last tile
+    ((1, 32, 36, 32, 64), 128),   # several rounds of blocks over the SMs
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prologue", [False, True])
+@pytest.mark.parametrize("x_shape,co", FUSED_WGMMA_CASES)
+def test_fused_stats_wgmma_body_matches_plain_and_the_earlier_body(cuda_device, prologue,
+                                                                   x_shape, co):
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    ci = x_shape[-1]
+    x = torch.randn(x_shape, generator=gen, device=cuda_device).bfloat16()
+    w = (0.1 * torch.randn((3, 3, 3, ci, co), generator=gen, device=cuda_device)).bfloat16()
+    ab = ()
+    if prologue:  # a shift well off 0: padding before the prologue would show
+        ab = (0.5 + torch.rand(ci, generator=gen, device=cuda_device),
+              0.3 + 0.3 * torch.rand(ci, generator=gen, device=cuda_device), 0.2)
+    assert conv3d_fused_stats_body(x, w) == "wgmma"
+    before = dict(build.launches)
+    earlier = conv3d_fused_stats_earlier_body(x, w, *ab)
+    torch.cuda.synchronize()
+    assert build.launches == before  # the measuring entry counts nothing
+    got = conv3d_fused_stats(x, w, *ab)
+    torch.cuda.synchronize()
+    assert build.launches["conv3d_fused_stats"] == before["conv3d_fused_stats"] + 1
+    want = conv3d_fused_stats_plain(x, w, *ab)
+    # a plane of one voxel sums one rounded value, whose last bit (4e-3 of it)
+    # may differ from the plain version's: there the sums are held to y's tolerance
+    tol_sums = 1e-3 if x_shape[2] * x_shape[3] > 1 else TOL[torch.bfloat16]
+    for out in (got, earlier):
+        for g, p, tol in zip(out, want, (TOL[torch.bfloat16], tol_sums, tol_sums)):
+            assert g.shape == p.shape and g.dtype == p.dtype
+            err = (g.float() - p.float()).abs().max().item()
+            assert err <= tol * max(1.0, p.float().abs().max().item())
+        # and exactly the sums of the y that came out, up to the order of fp32 additions
+        yf = out[0].float()
+        for g, p in zip(out[1:], (yf.sum(dim=(2, 3)), (yf * yf).sum(dim=(2, 3)))):
+            assert (g - p).abs().max().item() <= 1e-5 * max(1.0, p.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", WGMMA_SHAPES)
+def test_fused_stats_wgmma_block_shapes_agree(cuda_device, shape):
+    """The fused kernel's wgmma body in each block shape (the measuring
+    entry), with the prologue: the same y bit for bit as the dispatch's
+    shape, which never takes 256 x 128, and the same sums up to the order of
+    the fp32 additions."""
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    x = torch.randn((2, 5, 7, 9, 128), generator=gen, device=cuda_device).bfloat16()
+    w = (0.1 * torch.randn((3, 3, 3, 128, 128), generator=gen, device=cuda_device)).bfloat16()
+    ab = (0.5 + torch.rand(128, generator=gen, device=cuda_device),
+          0.3 + 0.3 * torch.rand(128, generator=gen, device=cuda_device), 0.2)
+    assert conv3d_fused_stats_wgmma_shape(x, 128) in (11, 21, 12)
+    before = dict(build.launches)
+    got = conv3d_fused_stats_wgmma_blocks(x, w, *ab, shape=shape)
+    assert build.launches == before
+    want = conv3d_fused_stats(x, w, *ab)
+    assert torch.equal(got[0], want[0])
+    for g, p in zip(got[1:], want[1:]):
+        assert (g - p).abs().max().item() <= 1e-5 * max(1.0, p.abs().max().item())
 
 
 def _stats_plain(x, w):

@@ -22,8 +22,10 @@ import torch
 from sivae_tpu.kernels.conv3d_fused import conv3d_fused_stats as jax_fused_stats
 from sivae_tpu.kernels.conv3d_fused import conv3d_stats as jax_conv3d_stats
 from sivae_torch.kernels import build
-from sivae_torch.kernels.conv3d_fused import (conv3d_fused_stats, conv3d_fused_stats_plain,
-                                              conv3d_stats, conv3d_v2, prologue_plain)
+from sivae_torch.kernels.conv3d_fused import (conv3d_fused_stats,
+                                              conv3d_fused_stats_earlier_body,
+                                              conv3d_fused_stats_plain, conv3d_stats, conv3d_v2,
+                                              prologue_plain)
 from sivae_torch.kernels.conv3d import conv3d_same_plain
 
 torch.set_num_threads(2)
@@ -111,16 +113,27 @@ def test_padding_is_zero_after_the_prologue():
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_nothing():
+    """Every wrapper of the fused kernel, with and without the prologue and
+    in both types (the card's bf16 64-channel calls take its wgmma body):
+    on CPU tensors the plain version, no launch counted; the measuring entry
+    of the earlier body takes CUDA tensors only."""
     shape, ci, co = SHAPES[1]
     a = _inputs(3, shape, ci, co)
-    x, w = torch.from_numpy(a["x"]), torch.from_numpy(a["w"])
     ia, ib = torch.from_numpy(a["a"]), torch.from_numpy(a["b"])
     build.reset_launches()
-    for got, want in zip(conv3d_fused_stats(x, w, ia, ib, 0.2),
-                         conv3d_fused_stats_plain(x, w, ia, ib, 0.2)):
-        assert torch.equal(got, want)
-    assert torch.equal(conv3d_v2(x, w), conv3d_same_plain(x, w))
-    assert build.launches["conv3d_fused_stats"] == 0
+    for dtype in (torch.float32, torch.bfloat16):
+        x, w = torch.from_numpy(a["x"]).to(dtype), torch.from_numpy(a["w"]).to(dtype)
+        for ab in ((ia, ib, 0.2), ()):
+            for got, want in zip(conv3d_fused_stats(x, w, *ab),
+                                 conv3d_fused_stats_plain(x, w, *ab)):
+                assert torch.equal(got, want)
+        assert torch.equal(conv3d_v2(x, w), conv3d_same_plain(x, w))
+        for got, want in zip(conv3d_stats(x, w), conv3d_fused_stats_plain(x, w)):
+            assert torch.equal(got, want)
+        with pytest.raises(ValueError):
+            conv3d_fused_stats_earlier_body(x, w, ia, ib, 0.2)
+    assert build.launches == {"conv3d_same": 0, "conv3d_to1": 0, "conv3d_from1": 0,
+                              "conv3d_fused_stats": 0}
 
 
 @pytest.mark.parametrize("bad", ["one_of_a_b", "a_shape", "w_shape", "x_rank"])

@@ -19,7 +19,8 @@ from sivae_tpu.kernels.conv3d_small import conv3d_from1 as jax_from1
 from sivae_tpu.kernels.conv3d_small import conv3d_to1 as jax_to1
 from sivae_torch.kernels import build
 from sivae_torch.kernels.conv3d import conv3d_same, conv3d_same_plain
-from sivae_torch.kernels.conv3d_small import (conv3d_from1, conv3d_from1_plain, conv3d_to1,
+from sivae_torch.kernels.conv3d_small import (conv3d_from1, conv3d_from1_gemm_plain,
+                                              conv3d_from1_plain, conv3d_to1,
                                               conv3d_to1_contract_first_plain, conv3d_to1_plain)
 
 torch.set_num_threads(2)
@@ -115,6 +116,37 @@ def test_to1_contract_first_plain_matches_pallas_bf16():
     got = conv3d_to1_contract_first_plain(xt, wt)
     assert got.dtype == torch.bfloat16
     want = np.asarray(jax_to1(xj, wj, True).astype(jnp.float32))
+    np.testing.assert_allclose(got.float().numpy(), want, atol=0.05, rtol=0.05)
+
+
+# the 1 -> C tensor-core body's algorithm (each voxel's 27-tap window,
+# padded to 32, times the 32 x C weights), at the same grids and every C it
+# takes
+@pytest.mark.parametrize("shape,c", CONTRACT_SHAPES)
+def test_from1_gemm_plain_matches_pallas(shape, c):
+    x, w = _inputs(11, shape, 1, c)
+    got = conv3d_from1_gemm_plain(torch.from_numpy(x), torch.from_numpy(w)).numpy()
+    want = np.asarray(jax_from1(jnp.asarray(x), jnp.asarray(w), True))
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=1e-4)
+
+
+@pytest.mark.parametrize("shape,c", CONTRACT_SHAPES)
+def test_from1_gemm_plain_matches_plain(shape, c):
+    """Same function, another order of the fp32 sums: 1e-5 of the largest."""
+    x, w = _inputs(12, shape, 1, c)
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    got, want = conv3d_from1_gemm_plain(xt, wt), conv3d_from1_plain(xt, wt)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert (got - want).abs().max().item() <= 1e-5 * max(1.0, want.abs().max().item())
+
+
+def test_from1_gemm_plain_matches_pallas_bf16():
+    x, w = _inputs(13, (1, 5, 7, 9), 1, 16)
+    (xt, xj), (wt, wj) = _bf16(x), _bf16(w)
+    got = conv3d_from1_gemm_plain(xt, wt)
+    assert got.dtype == torch.bfloat16
+    want = np.asarray(jax_from1(xj, wj, True).astype(jnp.float32))
     np.testing.assert_allclose(got.float().numpy(), want, atol=0.05, rtol=0.05)
 
 

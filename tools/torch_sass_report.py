@@ -29,7 +29,7 @@ from sivae_torch.kernels import build  # noqa: E402
 
 OPS = ("HGMMA", "HMMA", "LDSM", "LDS", "LD", "LDGSTS", "UTMALDG", "SYNCS", "WARPGROUP", "LDG",
        "STS", "STG", "BAR", "MOVM", "FFMA")
-_INSTR = re.compile(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]+)")
+_INSTR = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]+)")
 
 
 def _cuobjdump() -> str:
