@@ -17,9 +17,9 @@ failure exits non-zero and prints no result):
    earlier mma.sync body's error and time on the same operands. Times are
    device times: the timed calls wait on the card behind other queued work,
    so a kernel shorter than its launch path is not timed by that path. The
-   flagship sites of `conv3d_same`
-   and `conv3d_to1` are also run at batch 8, the batch both main paths run,
-   and `conv3d_to1` and `conv3d_from1` at C = 16 and 32. The fused conv +
+   flagship sites of `conv3d_same`, `conv3d_to1` and `conv3d_from1` are also
+   run at batch 8, the batch both main paths run, and the two stencils at
+   C = 16 and 32. The fused conv +
    statistics kernel runs with and without its prologue at the flagship site
    (with it also at batch 8) and at two shapes whose tiles straddle (b, d)
    planes; its library yardstick is the unfused stage (elementwise prologue,
@@ -117,11 +117,10 @@ SMALL_SITES = [(64, (80, 96, 80)), (5, (8, 10, 12))]
 FUSED_SITES = [(64, 64, (80, 96, 80)), (64, 64, (6, 7, 9)), (3, 5, (6, 7, 9))]
 FLAGSHIP = (64, (80, 96, 80))
 FLAGSHIP_CONV = (64, 64, (80, 96, 80))
-# bf16 only, (batch, C, grid): the decoder tail / encoder stem at the main
-# paths' batch, and the other channel counts of their tensor-core bodies at a
-# grid no patch divides
-TO1_BF16_SITES = [(8, 64, (80, 96, 80)), (2, 32, (20, 23, 37)), (2, 16, (20, 23, 37))]
-FROM1_BF16_SITES = TO1_BF16_SITES
+# bf16 only, (batch, C, grid), for both stencils: the decoder tail / encoder
+# stem at the main paths' batch, and the other channel counts of their
+# tensor-core bodies at a grid no patch divides
+STENCIL_BF16_SITES = [(8, 64, (80, 96, 80)), (2, 32, (20, 23, 37)), (2, 16, (20, 23, 37))]
 # bf16 only, (batch, Ci, Co, grid): the fused kernel with its prologue at the
 # stage phase's batch
 FUSED_BF16_SITES = [(8, 64, 64, (80, 96, 80))]
@@ -343,7 +342,7 @@ def phase_kernels(dev) -> dict:
                 x.numel(), body,
                 (lambda: conv3d_same_earlier_body(x, w)) if body == "wgmma" else None, blocks)
 
-        to1_more = TO1_BF16_SITES if dtype == torch.bfloat16 else []
+        to1_more = STENCIL_BF16_SITES if dtype == torch.bfloat16 else []
         for b, c, sp in [(2,) + site for site in SMALL_SITES] + to1_more:
             n_vox = b * sp[0] * sp[1] * sp[2]
             x = torch.randn((b,) + sp + (c,), generator=gen, device=dev).to(dtype)
@@ -356,7 +355,7 @@ def phase_kernels(dev) -> dict:
                 (x.numel() + w.numel() + n_vox) * isz, 2.0 * n_vox * 27 * c, x.numel(),
                 conv3d_to1_body(x))
 
-        from1_more = FROM1_BF16_SITES if dtype == torch.bfloat16 else []
+        from1_more = STENCIL_BF16_SITES if dtype == torch.bfloat16 else []
         for b, c, sp in [(2,) + site for site in SMALL_SITES] + from1_more:
             n_vox = b * sp[0] * sp[1] * sp[2]
             x = torch.randn((b,) + sp + (1,), generator=gen, device=dev).to(dtype)

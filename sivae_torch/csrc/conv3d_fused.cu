@@ -12,22 +12,33 @@
 // It is not the Pallas kernel carried over. That one walks a (b, d, h-block,
 // k) grid in order and keeps the statistics in an output block that stays
 // resident across grid steps, and it stacks kh into the matrix unit's N;
-// blocks on this card run in no order and mma.sync has no use for the
-// stacking. Here the implicit GEMM of conv3d_body.cuh runs with its two
-// optional parts switched on: the prologue is applied in shared memory to
-// the line buffer after cp.async has delivered it (by registers in the FMA
-// body), and the statistics are taken from the fp32 tile that the epilogue
-// stages through shared memory anyway, then added with atomicAdd into
-// (B*D, Co) buffers that the caller zeroes. Atomics, not a second reduction
-// kernel: the additions' order changes from run to run, so the sums agree
-// with a fixed-order fp32 sum of the same H*W values to ~1e-6 relative (the
-// smoke run allows 1e-3 of the largest sum).
+// blocks on this card run in no order. Here the implicit GEMM of conv3d.cu
+// runs with its two optional parts switched on. Bodies, chosen in C by shape,
+// type and alignment:
+// - "wgmma" (conv3d_wgmma.cuh; bf16 with Ci % 64 == 0 and Co % 64 == 0):
+//   conv3d_same's warp-specialised mainloop. The consumers apply g once per
+//   stage to the TMA-written line buffer in shared memory, a third of its rows
+//   after each kw group's wgmmas are issued (the tap masks zero the padding
+//   afterwards, so it stays 0); the plane sums come from each warp's staged,
+//   rounded output tile, one slot per 16-row tile in the drained ring, and
+//   the block adds them with one atomicAdd per (plane, column, sum). The
+//   256 x 128 block shape is left out: with the epilogue it spills.
+// - "mma" / "fma" (conv3d_body.cuh): the other shapes. The prologue is
+//   applied in shared memory after cp.async (by registers in the FMA body);
+//   the statistics come from the fp32 tile the epilogue stages.
+// Atomics, not a second reduction kernel: the additions' order changes from
+// run to run, so the sums agree with a fixed-order fp32 sum of the same H*W
+// values to ~1e-6 relative (the smoke run allows 1e-3 of the largest sum).
 //
 // Bound on an H100 SXM at the flagship site (64->64 at 80x96x80, batch 8,
 // bf16): the conv's 1.09 TFLOP at the tensor-core rate, as for conv3d.cu;
 // the prologue and the statistics add no device-memory bytes beyond the
 // (B*D, Co) sums. What the fusion saves is the separate elementwise pass
-// before the conv and the two reductions that re-read y after it.
+// before the conv and the two reductions that re-read y after it. What the
+// wgmma body pays for it: the prologue's shared-memory rewrite (a quarter
+// more shared-memory traffic in a mainloop that shared-memory reads already
+// hold) and the statistics epilogue, which no other block overlaps (one
+// block runs per SM).
 
 #include "conv3d_body.cuh"
 #include "conv3d_wgmma.cuh"
@@ -57,25 +68,9 @@ int sivae_conv3d_fused_stats_body(const void* x, const void* w, int Ci, int Co, 
   return sivae::mma_eligible(x, w, nullptr, Ci, Co, dtype) ? 1 : 0;
 }
 
-// x (B,D,H,W,Ci), w (3,3,3,Ci,Co), y (B,D,H,W,Co) contiguous, one dtype;
-// in_a, in_b (Ci) fp32 or both null (no prologue); psum, psumsq (B*D, Co)
-// fp32, zeroed by the caller. B*D*H*W < 2^31.
-// Returns cudaGetLastError() after the launch.
-int sivae_conv3d_fused_stats(const void* x, const void* w, const void* in_a, const void* in_b,
-                             float slope, void* y, void* psum, void* psumsq, int B, int D, int H,
-                             int W, int Ci, int Co, int dtype, void* stream) {
-  const sivae::Fusion f = fusion(in_a, in_b, slope, psum, psumsq);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (sivae::wgmma_eligible(x, w, y, Ci, Co, dtype))
-    return launch_fused_wgmma(x, w, y, B, D, H, W, Ci, Co, f, s);
-  if (in_a != nullptr)
-    return sivae::launch_conv3d<true, true, 2>(x, w, y, B, D, H, W, Ci, Co, dtype, f, s);
-  return sivae::launch_conv3d<false, true, 2>(x, w, y, B, D, H, W, Ci, Co, dtype, f, s);
-}
-
-// The same through the bodies of conv3d_body.cuh only (mma or fma, never
-// wgmma): the earlier tensor-core body beside the new one, for measurements
-// and tests. No model path calls it.
+// The fused kernel through the bodies of conv3d_body.cuh only (mma or fma,
+// never wgmma): the dispatch for what the wgmma body does not take, and the
+// earlier tensor-core body beside the new one, for measurements and tests.
 int sivae_conv3d_fused_stats_mma(const void* x, const void* w, const void* in_a, const void* in_b,
                                  float slope, void* y, void* psum, void* psumsq, int B, int D,
                                  int H, int W, int Ci, int Co, int dtype, void* stream) {
@@ -84,6 +79,20 @@ int sivae_conv3d_fused_stats_mma(const void* x, const void* w, const void* in_a,
   if (in_a != nullptr)
     return sivae::launch_conv3d<true, true, 2>(x, w, y, B, D, H, W, Ci, Co, dtype, f, s);
   return sivae::launch_conv3d<false, true, 2>(x, w, y, B, D, H, W, Ci, Co, dtype, f, s);
+}
+
+// x (B,D,H,W,Ci), w (3,3,3,Ci,Co), y (B,D,H,W,Co) contiguous, one dtype;
+// in_a, in_b (Ci) fp32 or both null (no prologue); psum, psumsq (B*D, Co)
+// fp32, zeroed by the caller. B*D*H*W < 2^31.
+// Returns cudaGetLastError() after the launch.
+int sivae_conv3d_fused_stats(const void* x, const void* w, const void* in_a, const void* in_b,
+                             float slope, void* y, void* psum, void* psumsq, int B, int D, int H,
+                             int W, int Ci, int Co, int dtype, void* stream) {
+  if (sivae::wgmma_eligible(x, w, y, Ci, Co, dtype))
+    return launch_fused_wgmma(x, w, y, B, D, H, W, Ci, Co, fusion(in_a, in_b, slope, psum, psumsq),
+                              static_cast<cudaStream_t>(stream));
+  return sivae_conv3d_fused_stats_mma(x, w, in_a, in_b, slope, y, psum, psumsq, B, D, H, W, Ci,
+                                      Co, dtype, stream);
 }
 
 // The fused kernel's wgmma block shape for B*D*H*W voxels and Co output

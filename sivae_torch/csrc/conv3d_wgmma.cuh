@@ -3,6 +3,8 @@
 // setmaxnreg). Same implicit GEMM and numerics as the mma.sync body of
 // conv3d_body.cuh (M = B*D*H*W voxels, N = Co, K = 27*Ci, all taps summed in
 // fp32, one rounding); what changes is how the operands reach the tensor cores.
+// conv3d.cu runs it plain; conv3d_fused.cu with its prologue and plane sums
+// (the kernel's template parts, below).
 //
 // What bounded the mma.sync body on this card, and what this one does:
 // - Shared-memory bandwidth: 8 warps each re-read the weight tile with
@@ -152,34 +154,6 @@ conv3d_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
   }
   __syncthreads();
 
-  // g on the rows of stage st's line buffer that feed this block (kM + 2),
-  // for channel chunk c: consumer thread tid takes the 16-byte piece tid & 7
-  // of rows tid / 8 + 32 p, for the passes p0 <= p < p1
-  auto rewrite = [&](int st, int c, int p0, int p1) {
-    const int piece = tid & 7;
-    float a8[8], b8[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      a8[e] = __ldg(f.in_a + c * GK + piece * 8 + e);
-      b8[e] = __ldg(f.in_b + c * GK + piece * 8 + e);
-    }
-    unsigned char* buf = smem + st * Cfg::kStage;
-#pragma unroll 3
-    for (int p = p0; p < p1; ++p) {
-      const int r = (tid >> 3) + 32 * p;
-      if (r >= Cfg::kM + 2) break;
-      uint4* q = reinterpret_cast<uint4*>(buf + r * (GK * 2) + ((piece ^ (r & 7)) << 4));
-      uint4 v = *q;
-      v.x = prologue_bf16x2(v.x, a8[0], a8[1], b8[0], b8[1], f.slope);
-      v.y = prologue_bf16x2(v.y, a8[2], a8[3], b8[2], b8[3], f.slope);
-      v.z = prologue_bf16x2(v.z, a8[4], a8[5], b8[4], b8[5], f.slope);
-      v.w = prologue_bf16x2(v.w, a8[6], a8[7], b8[6], b8[7], f.slope);
-      *q = v;
-    }
-    // generic-proxy writes to a buffer that TMA (the async proxy) refills
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  };
-
   if (wg == 2) {
     // ---- producer -----------------------------------------------------------
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
@@ -237,11 +211,43 @@ conv3d_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
     const int l_row = lane & 15, l_hi = lane >> 4;
     unsigned fa[2][kMT][GK / 16][4];  // two sets: one is read by wgmmas in flight
 
+    // kPrologue: (a, b) of the 8 channels of this thread's 16-byte piece
+    // (tid & 7) of the line buffer, for a channel chunk
+    float a8[8], b8[8];
+    auto load_ab = [&](int c) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        a8[e] = __ldg(f.in_a + c * GK + (tid & 7) * 8 + e);
+        b8[e] = __ldg(f.in_b + c * GK + (tid & 7) * 8 + e);
+      }
+    };
+    // g on the rows of stage st's line buffer that feed this block (kM + 2):
+    // this thread's piece of rows tid / 8 + 32 p, for the passes p0 <= p < p1
+    auto rewrite = [&](int st, int p0, int p1) {
+      const int piece = tid & 7;
+      unsigned char* buf = smem + st * Cfg::kStage;
+#pragma unroll 3
+      for (int p = p0; p < p1; ++p) {
+        const int r = (tid >> 3) + 32 * p;
+        if (r >= Cfg::kM + 2) break;
+        uint4* q = reinterpret_cast<uint4*>(buf + r * (GK * 2) + ((piece ^ (r & 7)) << 4));
+        uint4 v = *q;
+        v.x = prologue_bf16x2(v.x, a8[0], a8[1], b8[0], b8[1], f.slope);
+        v.y = prologue_bf16x2(v.y, a8[2], a8[3], b8[2], b8[3], f.slope);
+        v.z = prologue_bf16x2(v.z, a8[4], a8[5], b8[4], b8[5], f.slope);
+        v.w = prologue_bf16x2(v.w, a8[6], a8[7], b8[6], b8[7], f.slope);
+        *q = v;
+      }
+      // generic-proxy writes to a buffer that TMA (the async proxy) refills
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    };
+
     int stage = 0, lp = 0, lc = 0;
     uint32_t parity = 0;
     if constexpr (kPrologue) {
+      load_ab(0);
       mbar_wait(full0, 0);
-      rewrite(0, 0, 0, Cfg::kRewritePasses);
+      rewrite(0, 0, Cfg::kRewritePasses);
       consumer_sync();
     }
     for (int step = 0; step < steps; ++step) {
@@ -286,9 +292,11 @@ conv3d_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
         wgmma_commit();
         if constexpr (kPrologue) {  // a third of the next stage, while this group's wgmmas run
           if (step + 1 < steps) {
-            if (kw == 0) mbar_wait(full0 + 8 * ns, ns == 0 ? parity ^ 1u : parity);
-            rewrite(ns, lc + 1 == chunks ? 0 : lc + 1, kw * Cfg::kRewritePasses / 3,
-                    (kw + 1) * Cfg::kRewritePasses / 3);
+            if (kw == 0) {
+              if (chunks > 1) load_ab(lc + 1 == chunks ? 0 : lc + 1);
+              mbar_wait(full0 + 8 * ns, ns == 0 ? parity ^ 1u : parity);
+            }
+            rewrite(ns, kw * Cfg::kRewritePasses / 3, (kw + 1) * Cfg::kRewritePasses / 3);
           }
         }
       }
@@ -486,10 +494,14 @@ inline int launch_conv3d_wgmma(const void* x, const void* w, void* y, int B, int
   if (shape == 0) shape = wgmma_block_shape(n_vox, Co, kStats);
   if (Co % (GN * (shape % 10)) != 0) return static_cast<int>(cudaErrorInvalidValue);
   switch (shape) {
-    case 21: return launch_wgmma<2, 1, kPrologue, kStats>(xmap, wmap, y, B, D, H, W, Ci, Co, n_vox, f, s);
-    case 12: return launch_wgmma<1, 2, kPrologue, kStats>(xmap, wmap, y, B, D, H, W, Ci, Co, n_vox, f, s);
-    case 22: return launch_wgmma<2, 2, kPrologue, kStats>(xmap, wmap, y, B, D, H, W, Ci, Co, n_vox, f, s);
-    default: return launch_wgmma<1, 1, kPrologue, kStats>(xmap, wmap, y, B, D, H, W, Ci, Co, n_vox, f, s);
+    case 21:
+      return launch_wgmma<2, 1, kPrologue, kStats>(xmap, wmap, y, B, D, H, W, Ci, Co, n_vox, f, s);
+    case 12:
+      return launch_wgmma<1, 2, kPrologue, kStats>(xmap, wmap, y, B, D, H, W, Ci, Co, n_vox, f, s);
+    case 22:
+      return launch_wgmma<2, 2, kPrologue, kStats>(xmap, wmap, y, B, D, H, W, Ci, Co, n_vox, f, s);
+    default:
+      return launch_wgmma<1, 1, kPrologue, kStats>(xmap, wmap, y, B, D, H, W, Ci, Co, n_vox, f, s);
   }
 }
 

@@ -18,11 +18,15 @@ its square: reduce over (B, D) and divide by B*D*H*W for the batch stats.
 
 The kernel (`csrc/conv3d_fused.cu`) is the implicit GEMM of
 `csrc/conv3d.cu` with the prologue applied where the input tile arrives in
-shared memory and the sums taken from the output tile before it leaves.
-Bound on an H100 SXM at the flagship site (64->64 at 80x96x80, batch 8,
-bf16): the conv's 1.09 TFLOP at the tensor-core rate (~1.10 ms); prologue
-and sums add no device-memory bytes. The sums are added with atomics, so
-their last bits change from run to run (~1e-6 relative).
+shared memory and the sums taken from the output tile before it leaves. In
+bf16 with Ci and Co multiples of 64 it runs `conv3d_same`'s wgmma body
+(`csrc/conv3d_wgmma.cuh`) with both parts switched on ("wgmma"); other
+shapes keep the mma.sync and FMA bodies ("mma", "fma";
+`conv3d_fused_stats_body` names the body). Bound on an H100 SXM at the
+flagship site (64->64 at 80x96x80, batch 8, bf16): the conv's 1.09 TFLOP at
+the tensor-core rate (~1.10 ms); prologue and sums add no device-memory
+bytes. The sums are added with atomics, so their last bits change from run
+to run (~1e-6 relative).
 
 `conv3d_fused_stats` takes the plain version for a CPU tensor and launches
 the kernel for a CUDA tensor; nothing falls back.
