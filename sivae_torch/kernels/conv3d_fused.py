@@ -39,7 +39,7 @@ from typing import Optional, Tuple
 import torch
 
 from sivae_torch.kernels import build
-from sivae_torch.kernels.conv3d import conv3d_same_plain, flip_swap, wgrad
+from sivae_torch.kernels.conv3d import BODIES, conv3d_same_plain, flip_swap, wgrad
 
 Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -117,9 +117,6 @@ def conv3d_fused_stats_wgmma_shape(x: torch.Tensor, co: int) -> int:
     co output channels."""
     b, d, h, wd, _ = x.shape
     return build.library().sivae_conv3d_fused_stats_wgmma_shape(b, d, h, wd, co)
-
-
-BODIES = ("fma", "mma", "wgmma")
 
 
 def conv3d_fused_stats_body(x: torch.Tensor, w: torch.Tensor) -> str:
