@@ -71,8 +71,26 @@ failure exits non-zero and prints no result):
    1e-3 * max|m| per tensor (max|m| not below 1e-2 of the model's largest:
    gradients that are zero in exact arithmetic hold cancellation noise).
 
-`--only kernels,grad,path,stage,train` runs a subset while working on one
-phase; it ends with `{"ok": false, "partial": ...}`, never with the result.
+8. The training entry point at full width (`sivae_torch/cli/train.py`,
+   below its split): the z1200 preset (spatial_1200 at 80x96x80, bf16
+   compute, batch 8), 24 synthetic volumes of seed 82, the CLI's seed, split
+   by patient rank without scikit-learn (every third patient's volumes to
+   validation: 16 train volumes, 2 steps an epoch, and 8 validation
+   volumes). First the pipeline: one train epoch on the card and on the CPU
+   must give the same bits (augmentation off), and a fixed affine resample of
+   one volume on the card must match the CPU's within 1e-5. Then, with the
+   counters at 0, 2 epochs with a checkpoint each: the run files must exist
+   (2 CSV rows, 2 JSONL lines), every metric must be finite, and the launches
+   must equal 4 train steps x (155, 10, 12) plus 2 validation steps x
+   (54, 6, 3). A new trainer's `try_resume` must return epoch 1 with the
+   state bit for bit as the fit left it. Printed: s/epoch, the loop's
+   overhead over steps x the median step time, checkpoint bytes and save
+   time, one aug-z1200 epoch with its augmentation time per batch, the
+   checkpoint sweep and `run_health` over the 2 checkpoints (not gated),
+   and a torch.profiler window over one epoch.
+
+`--only kernels,grad,path,stage,train,trainer` runs a subset while working on
+one phase; it ends with `{"ok": false, "partial": ...}`, never with the result.
 
 The next-to-last line is the per-kernel JSON record; the last line is
 `{"ok": true, "device": {...}}`.
@@ -142,7 +160,14 @@ SOURCES = {
     "conv3d_from1": "sivae_torch/csrc/conv3d_small.cu",
     "conv3d_fused_stats": "sivae_torch/csrc/conv3d_fused.cu",
 }
-PHASES = ("kernels", "grad", "path", "stage", "train")
+# launches of one validation step (make_soft_intro_eval_step): 3 encodes
+# (8 conv3d_same + 1 conv3d_from1 each) and 6 decodes (5 conv3d_same + 1
+# conv3d_to1 each)
+VAL_LAUNCHES = {"conv3d_same": 54, "conv3d_to1": 6, "conv3d_from1": 3, "conv3d_fused_stats": 0}
+# the panels' forwards, where matplotlib imports: 2 encodes and 3 decodes
+PANEL_LAUNCHES = {"conv3d_same": 31, "conv3d_to1": 3, "conv3d_from1": 2,
+                  "conv3d_fused_stats": 0}
+PHASES = ("kernels", "grad", "path", "stage", "train", "trainer")
 
 
 def log(msg: str) -> None:
@@ -848,6 +873,183 @@ def phase_train(dev, real) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the training entry point
+# ---------------------------------------------------------------------------
+
+
+def _state_tensors(state) -> dict:
+    out = {f"model/{k}": v for k, v in state.model.state_dict().items()}
+    for name in ("opt_e", "opt_d"):
+        for i, st in getattr(state, name).state_dict()["state"].items():
+            out.update({f"{name}/{i}/{k}": torch.as_tensor(v) for k, v in st.items()})
+    out["generator"] = state.generator.get_state()
+    out["step"] = torch.tensor(state.step)
+    return {k: v.detach().cpu() for k, v in out.items()}
+
+
+def phase_trainer(dev) -> dict:
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from sivae_torch.cli import train as cli_train
+    from sivae_torch.config import OptimConfig
+    from sivae_torch.data.augment import _affine_resample, _rotation_matrix
+    from sivae_torch.data.pipeline import BrainDataSource, DataPipeline
+    from sivae_torch.data.preprocess import preprocess_batch
+    from sivae_torch.eval.sweep import run_health, sweep_checkpoints
+    from sivae_torch.kernels import build
+    from sivae_torch.models.registry import get_model_config, make_model
+    from sivae_torch.train.loop import SoftIntroTrainer
+    from sivae_torch.utils.checkpoint import CheckpointManager
+    from sivae_torch.utils.plots import matplotlib_missing
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_")
+    run_dir = os.path.join(tmp.name, "z1200")
+    common = ["--synthetic", "24", "--batch", "8", "--device", str(dev)]
+    args = cli_train.parse_args(["--preset", "z1200", "--epochs", "2", "--run-dir", run_dir]
+                                + common)
+    shape = get_model_config("spatial_1200").input_shape
+    t0 = time.perf_counter()
+    src = BrainDataSource(cli_train.load_records(args, shape))
+    pids = sorted(set(src.pids))
+    is_val = np.array([pids.index(p) % 3 == 2 for p in src.pids])
+    train_src, val_src = src.subset(np.flatnonzero(~is_val)), src.subset(np.flatnonzero(is_val))
+    log(f"[trainer] z1200 preset, spatial_1200 {shape} bf16 batch 8: {len(src)} synthetic "
+        f"volumes (seed 82, {time.perf_counter() - t0:.1f} s to make), {len(train_src)} train "
+        f"/ {len(val_src)} validation by patient rank")
+
+    # the pipeline on the card against the CPU, and the resample
+    epochs = {d: [v.cpu() for v, _ in DataPipeline(train_src, 8, device=d, seed=103).epoch(0)]
+              for d in (dev, "cpu")}
+    same = len(epochs[dev]) == 2 and all(torch.equal(a, b) for a, b in
+                                         zip(epochs[dev], epochs["cpu"]))
+    x = epochs["cpu"][0][:1, 0]
+    inv = _rotation_matrix(torch.deg2rad(torch.tensor([8.0, -5.0, 10.0]))).T / \
+        torch.tensor([1.05, 0.95, 1.0])[None, :]
+    shift = torch.tensor([1.5, -2.0, 0.5])
+    err = (_affine_resample(x.to(dev), inv, shift).cpu() - _affine_resample(x, inv, shift)
+           ).abs().max().item()
+    log(f"[trainer] pipeline epoch card vs CPU bit-identical: {same}; affine resample card vs "
+        f"CPU max_abs {err:.2e} (limit 1e-5)")
+    if not same or err > 1e-5:
+        raise SystemExit("chip_smoke: the pipeline on the card disagrees with the CPU's")
+    del epochs
+
+    # the main path: 2 epochs through the CLI's code below its split
+    build.reset_launches()
+    t0 = time.perf_counter()
+    trainer = cli_train.train_on_split(args, train_src, val_src)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = dict(build.launches)
+    panels = 0 if matplotlib_missing() else 1
+    want = {k: 4 * TRAIN_LAUNCHES[k] + 2 * VAL_LAUNCHES[k] + panels * PANEL_LAUNCHES[k]
+            for k in TRAIN_LAUNCHES}
+    log(f"[trainer] fit of 2 epochs {fit_s:.2f} s; launches {counts} (expected {want})")
+    if counts != want:
+        raise SystemExit(f"chip_smoke: trainer launches {counts}, expected {want}")
+
+    with open(os.path.join(run_dir, "train_result.csv")) as f:
+        rows = f.read().splitlines()
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f.read().splitlines()]
+    files = ["args.json", "train_result.csv", "metrics.jsonl", "loss.txt", "kl_losses.txt"]
+    missing = [n for n in files if not os.path.exists(os.path.join(run_dir, n))]
+    hist = trainer.logger.history
+    finite = all(math.isfinite(v) for vals in hist.values() for v in vals)
+    steps = trainer.ckpt.all_steps()
+    log(f"[trainer] run files present {not missing}, {len(rows) - 1} CSV rows, {len(records)} "
+        f"JSONL lines, checkpoints {steps}; last epoch {json.dumps(records[-1])}")
+    if missing or len(rows) != 3 or len(records) != 2 or not finite or steps != [0, 1]:
+        raise SystemExit(f"chip_smoke: bad run output: missing {missing}, {len(rows)} CSV lines, "
+                         f"{len(records)} JSONL lines, finite {finite}, checkpoints {steps}")
+    epoch_s = records[1]["time"] - records[0]["time"]
+
+    # resume: a new trainer picks the state up bit for bit
+    end = _state_tensors(trainer.state)
+    again = SoftIntroTrainer(make_model(trainer.model_cfg, device=dev), trainer.loss_cfg,
+                             OptimConfig(), trainer.train_cfg, run_dir=run_dir,
+                             steps_per_epoch=2)
+    resumed = again.try_resume()
+    got = _state_tensors(again.state)
+    equal = set(got) == set(end) and all(torch.equal(got[k], end[k]) for k in end)
+    log(f"[trainer] try_resume -> epoch {resumed}; state bit-identical to the fit's end over "
+        f"{len(end)} tensors: {equal}")
+    if resumed != 1 or not equal:
+        raise SystemExit("chip_smoke: the resumed state differs from the saved one")
+    del again, got, end
+
+    # the loop's cost beside its steps
+    train, val = cli_train.build_pipelines(args, train_src, val_src)
+    vox, _ = train.first_batch()
+    step_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer._step(trainer.state, vox)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    median = sorted(step_s)[1]
+    val_gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer._eval(trainer.state, vox, val_gen)
+    torch.cuda.synchronize()
+    val_s = time.perf_counter() - t0
+    side = CheckpointManager(os.path.join(tmp.name, "timed"))
+    t0 = time.perf_counter()
+    side.save(0, trainer.state)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    nbytes = os.path.getsize(side.path(0))
+    log(f"[trainer] epoch 1 (2 train steps, 1 validation step, checkpoint, logs) "
+        f"{epoch_s:.3f} s/epoch; median step {median:.4f} s (of {len(step_s)}); loop overhead "
+        f"over 2 x median {epoch_s - 2 * median:.3f} s, of which validation step "
+        f"{val_s:.3f} s, checkpoint save {save_ms / 1e3:.3f} s, the rest (pipeline, sums, "
+        f"logs) {epoch_s - 2 * median - val_s - save_ms / 1e3:.3f} s; checkpoint {nbytes} "
+        f"bytes ({nbytes / 1e6:.1f} MB)")
+
+    def one_epoch():
+        trainer.train_epoch(train, 2)
+        trainer.eval_epoch(val, 2)
+        side.save(1, trainer.state)
+
+    profile_window("trainer epoch (2 train steps, 1 validation step, checkpoint)", one_epoch)
+
+    # the checkpoint sweep and the health criterion (printed, not gated)
+    val_vox = preprocess_batch(torch.from_numpy(val_src.voxels).to(dev))
+    sweep = sweep_checkpoints(make_model(trainer.model_cfg, device=dev), val_vox,
+                              ckpt_dir=trainer.ckpt.directory, batch_size=8)
+    log(f"[trainer] sweep {json.dumps(sweep)}")
+    log(f"[trainer] run_health {json.dumps(run_health(sweep))}")
+    del trainer, train, val, vox, val_vox
+    torch.cuda.empty_cache()
+
+    # one aug-z1200 epoch, and its augmentation alone per batch
+    aug_args = cli_train.parse_args(["--preset", "aug-z1200", "--epochs", "1", "--run-dir",
+                                     os.path.join(tmp.name, "aug")] + common)
+    t0 = time.perf_counter()
+    aug_trainer = cli_train.train_on_split(aug_args, train_src, val_src)
+    torch.cuda.synchronize()
+    aug_s = time.perf_counter() - t0
+    augment = cli_train.make_augment_fn(cli_train.PRESETS["aug-z1200"]["augment"])
+    raw = torch.from_numpy(train_src.voxels[:8]).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    aug_ms = time_ms(lambda: augment(gen, raw), 5)
+    finite = all(math.isfinite(v[0]) for v in aug_trainer.logger.history.values())
+    log(f"[trainer] aug-z1200 epoch (with the model's build) {aug_s:.2f} s, metrics finite "
+        f"{finite}; random affine of a batch of 8 {aug_ms:.3f} ms")
+    if not finite:
+        raise SystemExit("chip_smoke: aug-z1200 epoch metrics not finite")
+    del aug_trainer, raw
+    torch.cuda.empty_cache()
+    tmp.cleanup()
+    build.reset_launches()
+    return counts
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="", help="comma-separated subset of " + ",".join(PHASES))
@@ -869,6 +1071,8 @@ def main(argv=None):
     path_n = phase_path(dev, src, vox) if "path" in want else {}
     stage_n = phase_stage(dev) if "stage" in want else {}
     train_n = phase_train(dev, vox[:8]) if "train" in want else {}
+    del src, vox
+    trainer_n = phase_trainer(dev) if "trainer" in want else {}
     log(card)
     if only:
         print(json.dumps({"ok": False, "partial": only}))
@@ -882,7 +1086,7 @@ def main(argv=None):
     for kname, site in head.items():
         r = rows[(kname, site, torch.bfloat16)]
         per_path = {"eval_path": path_n[kname], "fused_stage": stage_n[kname],
-                    "train_step": train_n[kname]}
+                    "train_step": train_n[kname], "trainer": trainer_n[kname]}
         launches = sum(per_path.values())
         if launches == 0:
             raise SystemExit(f"chip_smoke: no counted path launched {kname}")

@@ -11,12 +11,17 @@ reports (same JSON keys as the JAX CLI):
 Usage:
   python -m sivae_torch.cli.eval --model spatial_1200 --synthetic 64 [--bf16]
   python -m sivae_torch.cli.eval --model spatial_1200 --synthetic 64 --ckpt epoch819.pth
+  python -m sivae_torch.cli.eval --model spatial_1200 --ckpt runs/z1200/ckpt \
+      --data-root /data/radiology_datas
   python -m sivae_torch.cli.eval --model tiny_spatial --synthetic 12 --device cpu
 
 Runs on CUDA unless `--device cpu` is given, and fails without CUDA
-otherwise. Weights come from a reference `.pth` (`--ckpt`) or, without one,
-from the random init of seed 0. Reading the JAX package's orbax
-checkpoints, the real-data catalog and the latent embedding come later.
+otherwise. Weights come from `--ckpt`: a reference `.pth`, a port checkpoint
+file (`<run>/ckpt/<epoch>.pth`) or a port run's `ckpt/` directory (its
+latest epoch); without it, from the random init of seed 0. Volumes are N
+synthetic ones (`--synthetic N`, seed 7) or the catalog under `--data-root`.
+Reading the JAX package's orbax checkpoints and the latent embedding come
+later.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 from typing import List, Optional
 
 import numpy as np
@@ -34,9 +40,11 @@ def main(argv: Optional[List[str]] = None) -> dict:
     ap = argparse.ArgumentParser(description="sivae_torch evaluation (latent AUC / "
                                              "retrieval / reconstruction)")
     ap.add_argument("--model", default="spatial_1200")
-    ap.add_argument("--ckpt", default=None, help="reference torch .pth checkpoint")
-    ap.add_argument("--synthetic", type=int, required=True,
-                    help="number of synthetic volumes (seed 7) to evaluate")
+    ap.add_argument("--ckpt", default=None,
+                    help="reference .pth, port checkpoint file or port ckpt/ directory")
+    ap.add_argument("--data-root", default="/data/radiology_datas")
+    ap.add_argument("--synthetic", type=int, default=0,
+                    help="evaluate N synthetic volumes (seed 7) instead of the dataset")
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--k", type=int, default=10)
     ap.add_argument("--out", default=None, help="write the JSON report here")
@@ -57,15 +65,31 @@ def main(argv: Optional[List[str]] = None) -> dict:
     cfg = get_model_config(args.model)
     if args.bf16:
         cfg = dataclasses.replace(cfg, dtype=torch.bfloat16)
-    if args.ckpt and not args.ckpt.endswith(".pth"):
-        raise SystemExit("--ckpt takes a reference .pth; orbax checkpoints need the JAX package")
+    ckpt = args.ckpt
+    if ckpt and os.path.isdir(ckpt):
+        from sivae_torch.utils.checkpoint import CheckpointManager
+
+        mgr = CheckpointManager(ckpt)
+        if mgr.latest_step() is None:
+            raise SystemExit(f"--ckpt {ckpt}: no port checkpoint (<epoch>.pth) there; reading "
+                             "the JAX package's orbax checkpoints is not ported yet "
+                             "(ROADMAP A.6)")
+        ckpt = mgr.path(mgr.latest_step())
     model = make_model(cfg, device=dev)
-    if args.ckpt:
+    if ckpt:
         from sivae_torch.utils.jax_import import load_reference_pth
 
-        load_reference_pth(model, args.ckpt)
+        load_reference_pth(model, ckpt)  # a port checkpoint's "model" entry, or a .pth
 
-    src = BrainDataSource(list(SyntheticBrainSource(args.synthetic, cfg.input_shape, seed=7)))
+    if args.synthetic:
+        records = list(SyntheticBrainSource(args.synthetic, cfg.input_shape, seed=7))
+    else:
+        from sivae_torch.data.catalog import load_data
+
+        records = load_data(kinds=["ADNI2", "ADNI2-2"],
+                            classes=["CN", "AD", "EMCI", "LMCI", "SMC", "MCI"],
+                            blacklist=True, root=args.data_root)
+    src = BrainDataSource(records)
     tid, vid = grouped_split(src.labels, src.pids, 5, 4, 103)
     vox = preprocess_batch(torch.from_numpy(src.voxels).to(dev))
     labels = src.labels

@@ -1,7 +1,7 @@
 """Configuration dataclasses for the spatial-latent model family.
 
-Port of `sivae_tpu/config.py:27-129` and `:178-230` (the loss and optimizer
-configs) with torch dtypes. The JAX package's TPU tactics (`remat*`, `use_pallas_*`, `PACK_SAVES`) have no counterpart:
+Port of `sivae_tpu/config.py:27-129`, `:178-260` (the loss, optimizer and
+trainer configs) and `to_json`, with torch dtypes. The JAX package's TPU tactics (`remat*`, `use_pallas_*`, `PACK_SAVES`) have no counterpart:
 the port routes every 3x3x3 stride-1 conv the same way, to its CUDA kernel
 for a CUDA tensor and to the plain PyTorch version for a CPU tensor.
 """
@@ -9,6 +9,7 @@ for a CUDA tensor and to the plain PyTorch version for a CPU tensor.
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
 from typing import Any, Optional, Sequence, Tuple
 
@@ -126,3 +127,25 @@ class OptimConfig:
     b1: float = 0.9
     b2: float = 0.999
     eps: float = 1e-8
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Epoch-loop settings (`sivae_tpu/config.py:234-246`). The JAX config's
+    mesh fields come with data parallelism."""
+
+    epochs: int = 500
+    batch_size: int = 8
+    seed: int = 77                 # trainer seed (my_trainer.py:160)
+    steps_per_epoch: Optional[int] = None  # None => derived from dataset
+    num_epochs_warm_start: int = 0
+    checkpoint_every_epochs: int = 1
+    eval_every_epochs: int = 1
+    val_eps: float = 0.1           # fixed val-reparam eps (models/models.py:269)
+    log_images_every_epochs: int = 20
+
+
+def to_json(cfg: Any) -> str:
+    """Serialize any config dataclass tree to JSON (run provenance, the
+    reference's `my_args.txt`, main.py:152-153); dtypes become their names."""
+    return json.dumps(dataclasses.asdict(cfg), default=str, indent=2)

@@ -2,7 +2,9 @@
 
 Port of `sivae_tpu/data/preprocess.py:21-46` (reference
 utils/data_load.py:25-30), run on the tensor's device over a whole batch,
-with per-volume statistics as the reference's per-item preprocessing.
+with per-volume statistics as the reference's per-item preprocessing. The
+standard deviation is summed in float64 and rounded once to float32, so the
+card and the CPU, which sum in other orders, give the same bits.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ def preprocess_batch(voxels: torch.Tensor) -> torch.Tensor:
     """(B, D, H, W) raw -> (B, 1, D, H, W) float32 in [0, 1]."""
     v32 = voxels.float()
     flat = v32.reshape(v32.shape[0], -1)
-    cut = 4.0 * flat.std(dim=1, correction=0)
+    cut = 4.0 * flat.double().std(dim=1, correction=0).float()
     v = torch.minimum(torch.clamp(flat, min=0.0), cut[:, None])
     lo = v.amin(dim=1, keepdim=True)
     hi = v.amax(dim=1, keepdim=True)

@@ -125,6 +125,15 @@ class SoftIntroVAE(nn.Module):
         """z (B, latent_dim) or (B, 1, d, h, w) -> (B, 1, D, H, W)."""
         return self.decoder(z)
 
+    @torch.no_grad()
+    def sample_with_noise(self, num_samples: int, generator: torch.Generator) -> torch.Tensor:
+        """Decode N(0, I) noise drawn from `generator`, on its device
+        (reference models/models.py:298-300), in the model's current mode
+        (the JAX package decodes with train=False: call it in eval mode)."""
+        z = torch.randn((num_samples,) + self.cfg.latent_shape, generator=generator,
+                        device=generator.device, dtype=torch.float32)
+        return self.decode(z)
+
     def sample(self, z: torch.Tensor) -> torch.Tensor:
         """Decode given flat latents (reference models/models.py:292-296)."""
         return self.decode(z.reshape((-1,) + self.cfg.latent_shape))

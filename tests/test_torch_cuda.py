@@ -413,3 +413,88 @@ def test_train_step_on_the_card_matches_the_cpu(cuda_device):
     for k, want in mom_p.items():
         scale = max(want.abs().max().item(), floor)
         assert (mom_k[k] - want).abs().max().item() <= 1e-3 * scale, k
+
+
+@pytest.mark.gpu
+def test_pipeline_batches_on_the_card_equal_the_cpus(cuda_device):
+    """The same epochs through the prefetching pipeline on the card (pinned
+    buffers, side-stream copies, events) and on the CPU give the same bits,
+    augmentation off, while the consumer keeps the card busy between
+    batches so that a batch read before its copy or its preprocessing
+    finished, or a pinned buffer refilled too early, would show."""
+    import numpy as np
+
+    from sivae_torch.data.pipeline import BrainDataSource, DataPipeline
+    from sivae_torch.data.synthetic import SyntheticBrainSource
+
+    src = BrainDataSource(SyntheticBrainSource(10, (40, 48, 40), seed=3).records)
+    busy = torch.ones((2048, 2048), device=cuda_device)
+    for epoch in (0, 1):
+        cpu = list(DataPipeline(src, 2, device="cpu", seed=5).epoch(epoch))
+        card = []
+        for vox, lab in DataPipeline(src, 2, device=cuda_device, seed=5).epoch(epoch):
+            for _ in range(20):
+                busy = busy @ busy / 2048.0
+            card.append((vox.clone(), lab))
+        assert len(card) == len(cpu) == 5
+        for (v_g, l_g), (v_c, l_c) in zip(card, cpu):
+            assert v_g.device.type == "cuda" and v_g.shape == (2, 1, 40, 48, 40)
+            np.testing.assert_array_equal(l_g, l_c)
+            assert torch.equal(v_g.cpu(), v_c)
+
+
+@pytest.mark.gpu
+def test_affine_resample_on_the_card_matches_the_cpu(cuda_device):
+    """A fixed rotation + scale + shift of preprocessed volumes (values in
+    [0, 1]) through `F.grid_sample` on the card and on the CPU: 1e-5."""
+    import numpy as np
+
+    from sivae_torch.data.augment import _affine_resample, _rotation_matrix
+    from sivae_torch.data.preprocess import preprocess_batch
+    from sivae_torch.data.synthetic import synthetic_brain_batch
+
+    vox, _ = synthetic_brain_batch(2, (80, 96, 80), seed=4)
+    x = preprocess_batch(torch.from_numpy(vox))[:, 0]
+    rot = _rotation_matrix(torch.deg2rad(torch.tensor([8.0, -5.0, 10.0])))
+    inv = rot.T / torch.tensor([1.05, 0.95, 1.0])[None, :]
+    t = torch.tensor([1.5, -2.0, 0.5])
+    got = _affine_resample(x.to(cuda_device), inv, t)
+    want = _affine_resample(x, inv, t)
+    assert got.shape == want.shape and got.device.type == "cuda"
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_checkpoint_restores_on_the_card_bit_for_bit(cuda_device, tmp_path):
+    """A state on the card, saved and restored into another state on the
+    card: every tensor, the generator and the step equal. A CPU state takes
+    no card generator."""
+    from sivae_torch.config import OptimConfig, SoftIntroLossConfig
+    from sivae_torch.models.registry import get_model_config, make_model
+    from sivae_torch.train.state import create_train_state
+    from sivae_torch.train.step import make_soft_intro_train_step
+    from sivae_torch.utils.checkpoint import CheckpointManager
+
+    cfg = get_model_config("tiny_spatial")
+    model = make_model(cfg, device=cuda_device, seed=3)
+    state = create_train_state(model, seed=2)
+    step = make_soft_intro_train_step(model, SoftIntroLossConfig(), OptimConfig(), 1,
+                                      cfg.input_shape)
+    step(state, torch.rand((2, 1) + cfg.input_shape, device=cuda_device))
+    mgr = CheckpointManager(str(tmp_path))
+    assert mgr.save(0, state)
+    other = create_train_state(make_model(cfg, device=cuda_device, seed=4), seed=5)
+    mgr.restore(other)
+    for (k, a), (_, b) in zip(state.model.state_dict().items(),
+                              other.model.state_dict().items()):
+        assert b.device.type == "cuda" and torch.equal(a, b), k
+    for name in ("opt_e", "opt_d"):
+        for p, q in zip(getattr(state, name).param_groups[0]["params"],
+                        getattr(other, name).param_groups[0]["params"]):
+            sa, sb = getattr(state, name).state[p], getattr(other, name).state[q]
+            assert set(sa) == set(sb) and all(torch.equal(sa[k], sb[k]) for k in sa)
+    assert torch.equal(torch.rand(8, generator=state.generator, device=cuda_device),
+                       torch.rand(8, generator=other.generator, device=cuda_device))
+    assert other.step == state.step == 1
+    with pytest.raises(ValueError, match="generator"):
+        mgr.restore(create_train_state(make_model(cfg, device="cpu", seed=4), seed=5))

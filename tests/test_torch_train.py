@@ -25,6 +25,7 @@ a bias, may differ by the two random-sign bias steps seen by phase D's two
 encoder forwards, 2 * lr * (0.1 + 0.09) = 7.6e-5, so it gets atol 1e-4."""
 
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -35,16 +36,22 @@ import torch
 
 from sivae_tpu.config import OptimConfig as JaxOptimConfig
 from sivae_tpu.config import SoftIntroLossConfig as JaxLossConfig
+from sivae_tpu.data.pipeline import BrainDataSource as JaxBrainDataSource
+from sivae_tpu.data.pipeline import DataPipeline as JaxDataPipeline
 from sivae_tpu.models.registry import get_model_config as jax_get_model_config
 from sivae_tpu.models.registry import make_model as jax_make_model
 from sivae_tpu.ops import losses as jax_losses
+from sivae_tpu.train.loop import SoftIntroTrainer as JaxSoftIntroTrainer
 from sivae_tpu.train.state import create_train_state as jax_create_train_state
 from sivae_tpu.train.state import param_count as jax_param_count
 from sivae_tpu.train.step import make_soft_intro_eval_step as jax_make_eval_step
 from sivae_tpu.train.step import make_soft_intro_train_step as jax_make_train_step
 from sivae_torch.config import OptimConfig, SoftIntroLossConfig
+from sivae_torch.data.pipeline import BrainDataSource, DataPipeline
+from sivae_torch.data.synthetic import SyntheticBrainSource
 from sivae_torch.models.registry import get_model_config, make_model
 from sivae_torch.ops import losses
+from sivae_torch.train.loop import SoftIntroTrainer
 from sivae_torch.train.state import create_train_state, learning_rate, param_count
 from sivae_torch.train.step import make_soft_intro_eval_step, make_soft_intro_train_step
 from sivae_torch.utils.jax_import import export_train_state, load_jax_train_state
@@ -229,7 +236,8 @@ def run():
     step_t = make_soft_intro_train_step(model_t, SoftIntroLossConfig(), OptimConfig(), 1,
                                         cfg_t.input_shape, zero_noise=True, fixed_noise=fixed)
     out = {"trees0": trees0, "real": real, "fixed": fixed, "carried": export_train_state(
-        state_t, trees0), "model_j": model_j, "cfg_j": cfg_j, "state_j0": state_j}
+        state_t, trees0), "model_j": model_j, "cfg_j": cfg_j, "state_j0": state_j,
+        "step_j": step_j}
     real_t = to_ncdhw(real)
     for n in (1, 2):
         state_j, m_j = step_j(state_j, jnp.asarray(real))
@@ -361,6 +369,35 @@ def test_dp_semantics_step_metrics_match_jax(run):
     m_j, m_t = _metrics_np(m_j), _metrics_np(m_t)
     for k in METRIC_KEYS[:-1]:
         np.testing.assert_allclose(m_t[k], m_j[k], rtol=1e-4, err_msg=k)
+
+
+@pytest.mark.parametrize("n_steps,rtol", [(1, 1e-4), (2, 1e-3)])
+def test_train_epoch_averages_match_jax(run, n_steps, rtol):
+    """The slice as a whole: the pipeline (shuffle, preprocess) feeding the
+    trainer's epoch (device-side sums, one read, rmse) in both stacks, from
+    the same state, over the same synthetic volumes, with the fixture's
+    zero_noise / fixed_noise steps. JAX's `SoftIntroTrainer.train_epoch`
+    runs unbound on a namespace holding its jitted step; the port's on one
+    holding the port step. Every epoch average and rmse at the step tests'
+    tolerances (one step 1e-4, two steps 1e-3)."""
+    records = SyntheticBrainSource(BATCH * n_steps + 1, (16, 16, 16), seed=21).records
+    pipe_j = JaxDataPipeline(JaxBrainDataSource(records), BATCH, seed=5)
+    pipe_t = DataPipeline(BrainDataSource(records), BATCH, device="cpu", seed=5)
+    assert pipe_j.steps_per_epoch == pipe_t.steps_per_epoch == n_steps
+    n_voxels = 16 ** 3
+    want = JaxSoftIntroTrainer.train_epoch(
+        types.SimpleNamespace(_step=run["step_j"], state=run["state_j0"], n_voxels=n_voxels),
+        pipe_j, 1)
+    _, model_t, state_t = _port_setup(run["trees0"])
+    step_t = make_soft_intro_train_step(model_t, SoftIntroLossConfig(), OptimConfig(), 1,
+                                        model_t.cfg.input_shape, zero_noise=True,
+                                        fixed_noise=run["fixed"])
+    port = types.SimpleNamespace(_step=step_t, state=state_t, n_voxels=n_voxels)
+    got = SoftIntroTrainer.train_epoch(port, pipe_t, 1)
+    assert set(got) == set(want) == set(METRIC_KEYS[:-1]) | {"rmse"}
+    assert port.state.step == n_steps
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=rtol, atol=1e-30, err_msg=k)
 
 
 # ---------------------------------------------------------------------------
