@@ -164,9 +164,6 @@ SOURCES = {
 # (8 conv3d_same + 1 conv3d_from1 each) and 6 decodes (5 conv3d_same + 1
 # conv3d_to1 each)
 VAL_LAUNCHES = {"conv3d_same": 54, "conv3d_to1": 6, "conv3d_from1": 3, "conv3d_fused_stats": 0}
-# the panels' forwards, where matplotlib imports: 2 encodes and 3 decodes
-PANEL_LAUNCHES = {"conv3d_same": 31, "conv3d_to1": 3, "conv3d_from1": 2,
-                  "conv3d_fused_stats": 0}
 PHASES = ("kernels", "grad", "path", "stage", "train", "trainer")
 
 
@@ -904,7 +901,6 @@ def phase_trainer(dev) -> dict:
     from sivae_torch.models.registry import get_model_config, make_model
     from sivae_torch.train.loop import SoftIntroTrainer
     from sivae_torch.utils.checkpoint import CheckpointManager
-    from sivae_torch.utils.plots import matplotlib_missing
 
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_")
     run_dir = os.path.join(tmp.name, "z1200")
@@ -938,16 +934,17 @@ def phase_trainer(dev) -> dict:
         raise SystemExit("chip_smoke: the pipeline on the card disagrees with the CPU's")
     del epochs
 
-    # the main path: 2 epochs through the CLI's code below its split
+    # the main path: 2 epochs through the CLI's code below its split. The fit
+    # draws no panels wherever it runs, as on the card's machine, which has no
+    # matplotlib: its import fails here too, and the trainer skips the figures
+    sys.modules["matplotlib"] = None
     build.reset_launches()
     t0 = time.perf_counter()
     trainer = cli_train.train_on_split(args, train_src, val_src)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     counts = dict(build.launches)
-    panels = 0 if matplotlib_missing() else 1
-    want = {k: 4 * TRAIN_LAUNCHES[k] + 2 * VAL_LAUNCHES[k] + panels * PANEL_LAUNCHES[k]
-            for k in TRAIN_LAUNCHES}
+    want = {k: 4 * TRAIN_LAUNCHES[k] + 2 * VAL_LAUNCHES[k] for k in TRAIN_LAUNCHES}
     log(f"[trainer] fit of 2 epochs {fit_s:.2f} s; launches {counts} (expected {want})")
     if counts != want:
         raise SystemExit(f"chip_smoke: trainer launches {counts}, expected {want}")

@@ -7,8 +7,8 @@ on the host with TorchIO inside its DataLoader workers:
 - RandomNoise(mean=0.03, std=0.03) with p=0.5 (vae_main.py:130-139)
 
 Here the whole batch is resampled on its device: angles U(-deg, +deg) per
-axis, scales 1 + U(-jitter, +jitter) per axis (TorchIO's default 0.1
-jitter), rotation and scaling about the volume centre, trilinear, zero fill.
+axis, scales 1 + U(-0.1, +0.1) per axis (TorchIO's default), rotation and
+scaling about the volume centre, trilinear, zero fill.
 
 The draws come from a `torch.Generator` on the batch's device, which the
 pipeline seeds per (seed, epoch, step) with the JAX package's formula, so a
@@ -22,6 +22,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+SCALE_JITTER = 0.1   # TorchIO RandomAffine's default scales=0.1
 
 
 def _rotation_matrix(angles: torch.Tensor) -> torch.Tensor:
@@ -75,25 +77,19 @@ def _affine_resample(vol: torch.Tensor, matrix: torch.Tensor,
 
 
 def random_affine_batch(generator: torch.Generator, voxels: torch.Tensor,
-                        degrees: float = 15.0, scale_jitter: float = 0.1, p: float = 0.6,
-                        translate: float = 0.0) -> torch.Tensor:
+                        degrees: float = 15.0, p: float = 0.6) -> torch.Tensor:
     """Random affine per volume with probability p. voxels: (B, D, H, W) or
-    (B, 1, D, H, W) on the generator's device; returns the same shape, float32.
-
-    translate > 0 adds a per-axis U(-translate, +translate) voxel shift
-    (TorchIO RandomAffine's `translation`; the reference scripts leave it 0)."""
+    (B, 1, D, H, W) on the generator's device; returns the same shape, float32."""
     squeeze = voxels.dim() == 5
     v = voxels[:, 0] if squeeze else voxels
     b = v.shape[0]
-    # one draw for the batch: apply, 3 angles, 3 scales, 3 shifts per volume
-    u = torch.rand((b, 10), generator=generator, device=v.device, dtype=torch.float32)
+    # one draw for the batch: apply, 3 angles, 3 scales per volume
+    u = torch.rand((b, 7), generator=generator, device=v.device, dtype=torch.float32)
     angles = (2 * u[:, 1:4] - 1) * (degrees * torch.pi / 180.0)
-    scales = 1.0 + (2 * u[:, 4:7] - 1) * scale_jitter
+    scales = 1.0 + (2 * u[:, 4:7] - 1) * SCALE_JITTER
     # inverse map, output -> input coordinates: R^-1 @ S^-1 (R orthonormal)
     inv = _rotation_matrix(angles).transpose(1, 2) / scales[:, None, :]
-    translation = (2 * u[:, 7:10] - 1) * translate if translate > 0 else None
-    resampled = _affine_resample(v, inv, translation)
-    out = torch.where((u[:, 0] < p)[:, None, None, None], resampled, v.float())
+    out = torch.where((u[:, 0] < p)[:, None, None, None], _affine_resample(v, inv), v.float())
     return out[:, None] if squeeze else out
 
 

@@ -60,6 +60,7 @@ class BrainDataSource:
 
 
 Augment = Callable[[torch.Generator, torch.Tensor], torch.Tensor]
+PREFETCH = 2   # batches in flight ahead of the consumer, one pinned buffer each
 
 
 class DataPipeline:
@@ -73,9 +74,9 @@ class DataPipeline:
     - `augment(generator, raw)` runs on the device before preprocessing
       (reference data_load.py:21-23), with a generator on the device seeded
       with `seed * 100003 + epoch * steps_per_epoch + step`, as the JAX key;
-    - a background thread prefetches `prefetch` batches ahead.
+    - a background thread prefetches `PREFETCH` batches ahead.
 
-    On a CUDA device the thread fills one of two pinned host buffers (it
+    On a CUDA device the thread fills one of `PREFETCH` pinned host buffers (it
     waits for that buffer's previous copy to finish before it writes it
     again), copies it with `non_blocking` on a side stream, runs the device
     work there and records an event; the consumer's stream waits on that
@@ -90,7 +91,6 @@ class DataPipeline:
         device: Optional[Union[str, torch.device]] = None,
         shuffle: bool = True,
         seed: int = 103,           # seed_ti in the entry scripts (main.py:51)
-        prefetch: int = 2,
         augment: Optional[Augment] = None,
     ):
         self.source = source
@@ -98,7 +98,6 @@ class DataPipeline:
         self.device = resolve_device(device)
         self.shuffle = shuffle
         self.seed = seed
-        self.prefetch = prefetch
         self.augment = augment
         self.steps_per_epoch = len(source) // batch_size
         if self.steps_per_epoch == 0:
@@ -138,8 +137,8 @@ class DataPipeline:
                     stream = torch.cuda.Stream(self.device)
                     shape = (self.batch_size,) + self.source.voxels.shape[1:]
                     pinned = [torch.empty(shape, dtype=torch.float32, pin_memory=True)
-                              for _ in range(2)]
-                    copied = [None, None]
+                              for _ in range(PREFETCH)]
+                    copied = [None] * PREFETCH
                 for step in range(self.steps_per_epoch):
                     if stop.is_set():
                         return
@@ -151,7 +150,7 @@ class DataPipeline:
                         if not _put(q, (vox, lab, None)):
                             return
                         continue
-                    k = step % 2
+                    k = step % PREFETCH
                     if copied[k] is not None:
                         copied[k].synchronize()  # its last copy has left the buffer
                     np.take(self.source.voxels, idx, axis=0, out=pinned[k].numpy())
@@ -167,7 +166,7 @@ class DataPipeline:
             except Exception as e:  # surface worker errors to the consumer
                 _put(q, e)
 
-        q: queue.Queue = queue.Queue(maxsize=self.prefetch)
+        q: queue.Queue = queue.Queue(maxsize=PREFETCH)
         t = threading.Thread(target=produce, args=(q,), daemon=True)
         t.start()
         try:

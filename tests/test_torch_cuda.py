@@ -440,7 +440,7 @@ def test_pipeline_batches_on_the_card_equal_the_cpus(cuda_device):
         for (v_g, l_g), (v_c, l_c) in zip(card, cpu):
             assert v_g.device.type == "cuda" and v_g.shape == (2, 1, 40, 48, 40)
             np.testing.assert_array_equal(l_g, l_c)
-            assert torch.equal(v_g.cpu(), v_c)
+            torch.testing.assert_close(v_g.cpu(), v_c, rtol=0, atol=0)
 
 
 @pytest.mark.gpu

@@ -140,7 +140,7 @@ def test_pipeline_abandoned_epochs_leak_no_threads():
     """Abandoning the epoch generator (closed, or dropped without close)
     must not leave producer threads behind (tests/test_data.py:164-191)."""
     src = BrainDataSource(SyntheticBrainSource(16, shape=(8, 8, 8), seed=3).records)
-    pipe = DataPipeline(src, batch_size=2, device="cpu", shuffle=False, seed=1, prefetch=2)
+    pipe = DataPipeline(src, batch_size=2, device="cpu", shuffle=False, seed=1)
     assert pipe.steps_per_epoch == 8
     pipe.first_batch()
     gc.collect()
