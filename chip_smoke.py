@@ -89,8 +89,26 @@ failure exits non-zero and prints no result):
    checkpoint sweep and `run_health` over the 2 checkpoints (not gated),
    and a torch.profiler window over one epoch.
 
-`--only kernels,grad,path,stage,train,trainer` runs a subset while working on
-one phase; it ends with `{"ok": false, "partial": ...}`, never with the result.
+9. The other model families and trainers (phase `families`), bf16 at
+   80x96x80, batch 8, the first 8 volumes of phase 5: the z600 and
+   z600-wide presets' models (fc_150, fc_600) with their loss weights, one
+   warm-up step, one step with the counters at 0 whose launches must equal
+   the counts derived from the model's modules (`soft_intro_launches`), 5
+   timed steps (median, min, max s/step, vol/s), peak memory, finite
+   metrics and every parameter and BN statistic moved (conv biases in front
+   of a BN aside), and a torch.profiler window over one fc_150 step. Then
+   one fp32 tiny_fc step on the card against the CPU at phase 7's
+   tolerances. Then one epoch of 2 steps of the vae, cae and vae2soft
+   presets through `train_on_split` on phase 8's 24 volumes: run files,
+   finite metrics, a checkpoint and the derived launch counts. Then the
+   spatial_150 `ResNetClassifier`: 3 steps on the volumes' labels and
+   `predict_all` over them, counted. Phase 3 also holds the kernels at this
+   phase's new sites (conv3d_same 12->12 and 16->16 at 80x96x80, 32->64 at
+   20x24x20; both stencils at C = 12), bf16, batch 8.
+
+`--only kernels,grad,path,stage,train,trainer,families` runs a subset while
+working on one phase; it ends with `{"ok": false, "partial": ...}`, never
+with the result.
 
 The next-to-last line is the per-kernel JSON record; the last line is
 `{"ok": true, "device": {...}}`.
@@ -142,6 +160,13 @@ STENCIL_BF16_SITES = [(8, 64, (80, 96, 80)), (2, 32, (20, 23, 37)), (2, 16, (20,
 # bf16 only, (batch, Ci, Co, grid): the fused kernel with its prologue at the
 # stage phase's batch
 FUSED_BF16_SITES = [(8, 64, 64, (80, 96, 80))]
+# bf16 only, at the families phase's batch: conv3d_same sites that no
+# earlier path reaches (fc_150's full-resolution 12->12 and fc_600's 16->16,
+# both on the "fma" body; fc_600's 32->64 on "mma"), and the two stencils
+# at fc_150's C = 12 ("fma")
+FAMILY_CONV_SITES = [(8, 12, 12, (80, 96, 80)), (8, 16, 16, (80, 96, 80)),
+                     (8, 32, 64, (20, 24, 20))]
+FAMILY_STENCIL_SITES = [(8, 12, (80, 96, 80))]
 SLOPE = 0.2                  # the model's LeakyReLU
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 TOL_SUMS = 1e-3
@@ -164,7 +189,7 @@ SOURCES = {
 # (8 conv3d_same + 1 conv3d_from1 each) and 6 decodes (5 conv3d_same + 1
 # conv3d_to1 each)
 VAL_LAUNCHES = {"conv3d_same": 54, "conv3d_to1": 6, "conv3d_from1": 3, "conv3d_fused_stats": 0}
-PHASES = ("kernels", "grad", "path", "stage", "train", "trainer")
+PHASES = ("kernels", "grad", "path", "stage", "train", "trainer", "families")
 
 
 def log(msg: str) -> None:
@@ -345,7 +370,7 @@ def phase_kernels(dev) -> dict:
 
     for dtype in (torch.float32, torch.bfloat16):
         isz = 4 if dtype == torch.float32 else 2
-        flagship8 = [(8,) + FLAGSHIP_CONV] if dtype == torch.bfloat16 else []
+        flagship8 = [(8,) + FLAGSHIP_CONV] + FAMILY_CONV_SITES if dtype == torch.bfloat16 else []
         for b, ci, co, sp in [(2,) + site for site in CONV_SITES] + flagship8:
             x = torch.randn((b,) + sp + (ci,), generator=gen, device=dev).to(dtype)
             w = _he((3, 3, 3, ci, co), 27 * ci, gen, dev, dtype)
@@ -364,7 +389,7 @@ def phase_kernels(dev) -> dict:
                 x.numel(), body,
                 (lambda: conv3d_same_earlier_body(x, w)) if body == "wgmma" else None, blocks)
 
-        to1_more = STENCIL_BF16_SITES if dtype == torch.bfloat16 else []
+        to1_more = STENCIL_BF16_SITES + FAMILY_STENCIL_SITES if dtype == torch.bfloat16 else []
         for b, c, sp in [(2,) + site for site in SMALL_SITES] + to1_more:
             n_vox = b * sp[0] * sp[1] * sp[2]
             x = torch.randn((b,) + sp + (c,), generator=gen, device=dev).to(dtype)
@@ -377,7 +402,7 @@ def phase_kernels(dev) -> dict:
                 (x.numel() + w.numel() + n_vox) * isz, 2.0 * n_vox * 27 * c, x.numel(),
                 conv3d_to1_body(x))
 
-        from1_more = STENCIL_BF16_SITES if dtype == torch.bfloat16 else []
+        from1_more = STENCIL_BF16_SITES + FAMILY_STENCIL_SITES if dtype == torch.bfloat16 else []
         for b, c, sp in [(2,) + site for site in SMALL_SITES] + from1_more:
             n_vox = b * sp[0] * sp[1] * sp[2]
             x = torch.randn((b,) + sp + (1,), generator=gen, device=dev).to(dtype)
@@ -742,8 +767,6 @@ def _metrics_line(metrics) -> dict:
 
 
 def phase_train(dev, real) -> dict:
-    import numpy as np
-
     from sivae_torch.config import OptimConfig, SoftIntroLossConfig
     from sivae_torch.kernels import build
     from sivae_torch.models.blocks import BatchNorm
@@ -824,16 +847,39 @@ def phase_train(dev, real) -> dict:
 
     # one fp32 step through the kernels (card) against the plain versions (CPU)
     tiny = get_model_config("tiny_spatial")
-    tiny = dataclasses.replace(tiny, act=tiny.act.with_no_dropout())
+    card_vs_cpu_step(dev, dataclasses.replace(tiny, act=tiny.act.with_no_dropout()), 6)
+    build.reset_launches()
+    return counts
+
+
+def card_vs_cpu_step(dev, cfg, max_floored: int) -> None:
+    """One fp32 Soft-IntroVAE step of `cfg` (no dropout, zero_noise, a fixed
+    numpy noise batch, batch 4, weights of seed 3) on the card through the
+    kernels against the same step on the CPU through the plain versions:
+    lossE and lossD within 1e-4 relative, every first moment within 1e-3 *
+    max|m| per tensor. A tensor whose gradient is zero or nearly so in exact
+    arithmetic (a conv bias or a 1-channel conv weight in front of a BN,
+    which cancels shift and scale; the zero-initialised logvar head under
+    zero_noise) holds only cancellation noise, so the scale has a floor of
+    1e-2 of the largest moment in the model, and at most `max_floored`
+    tensors may sit under it."""
+    import numpy as np
+
+    from sivae_torch.config import OptimConfig, SoftIntroLossConfig
+    from sivae_torch.kernels import build
+    from sivae_torch.models.registry import make_model
+    from sivae_torch.train.state import create_train_state
+    from sivae_torch.train.step import make_soft_intro_train_step
+
     rng = np.random.RandomState(11)
-    real_t = torch.from_numpy(rng.rand(4, 1, *tiny.input_shape).astype(np.float32))
-    fixed = rng.randn(4, tiny.latent_dim).astype(np.float32)
+    real_t = torch.from_numpy(rng.rand(4, 1, *cfg.input_shape).astype(np.float32))
+    fixed = rng.randn(4, cfg.latent_dim).astype(np.float32)
     done = {}
     for where in (dev, torch.device("cpu")):
-        m_t = make_model(tiny, device=where, seed=3)
+        m_t = make_model(cfg, device=where, seed=3)
         s_t = create_train_state(m_t, seed=0)
         f_t = make_soft_intro_train_step(m_t, SoftIntroLossConfig(), OptimConfig(), 1,
-                                         tiny.input_shape, zero_noise=True, fixed_noise=fixed)
+                                         cfg.input_shape, zero_noise=True, fixed_noise=fixed)
         build.reset_launches()
         _, met = f_t(s_t, real_t.to(where))
         names = {p: k for k, p in m_t.named_parameters()}
@@ -843,11 +889,6 @@ def phase_train(dev, real) -> dict:
     (m_k, mom_k, n_k), (m_p, mom_p, n_p) = done["cuda"], done["cpu"]
     if n_k["conv3d_same"] == 0 or any(n_p.values()):
         raise SystemExit(f"chip_smoke: fp32 step launches card {n_k} CPU {n_p}")
-    # per tensor, 1e-3 of its largest moment; a tensor whose gradient is zero
-    # or nearly so in exact arithmetic (a conv bias or a 1-channel conv weight
-    # in front of a BN, which cancels shift and scale; the zero-initialised
-    # logvar head under zero_noise) holds only cancellation noise, so the
-    # scale has a floor of 1e-2 of the largest moment in the model
     floor = 1e-2 * max(m.abs().max().item() for m in mom_p.values())
     bad, worst, floored = [], (0.0, ""), []
     for k, want in mom_p.items():
@@ -860,14 +901,13 @@ def phase_train(dev, real) -> dict:
             bad.append((k, rel))
     rel_e = abs(m_k["lossE"] - m_p["lossE"]) / abs(m_p["lossE"])
     rel_d = abs(m_k["lossD"] - m_p["lossD"]) / abs(m_p["lossD"])
-    log(f"[train] fp32 tiny_spatial step, kernels (card) vs plain (CPU): lossE rel {rel_e:.2e}, "
+    tag = f"fp32 {type(cfg).__name__} {grid_name(cfg.input_shape)} step"
+    log(f"[train] {tag}, kernels (card) vs plain (CPU): lossE rel {rel_e:.2e}, "
         f"lossD rel {rel_d:.2e} (limit 1e-4); first moments of {len(mom_p)} tensors worst "
         f"{worst[0]:.2e} of max|m| at {worst[1]} (limit 1e-3); held to the floor {floor:.2e}: "
-        f"{floored}; card launches {n_k}")
-    if rel_e > 1e-4 or rel_d > 1e-4 or bad or len(floored) > 6:
-        raise SystemExit(f"chip_smoke: the card's fp32 step disagrees with the CPU's: {bad}")
-    build.reset_launches()
-    return counts
+        f"{len(floored)} tensors (at most {max_floored}) {floored}; card launches {n_k}")
+    if rel_e > 1e-4 or rel_d > 1e-4 or bad or len(floored) > max_floored:
+        raise SystemExit(f"chip_smoke: the card's {tag} disagrees with the CPU's: {bad}")
 
 
 # ---------------------------------------------------------------------------
@@ -1047,6 +1087,227 @@ def phase_trainer(dev) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the other model families and trainers
+# ---------------------------------------------------------------------------
+
+
+def conv_sites(module) -> dict:
+    """Launches of each kernel in one forward of `module`, read from its
+    modules: every 3x3x3 `Conv3d` routes to one kernel (C->1 `conv3d_to1`,
+    1->C `conv3d_from1`, else `conv3d_same`); the fused upsample + conv and
+    the 1x1 convs are library calls."""
+    from sivae_torch.models.blocks import Conv3d, UpsampleConv3d
+
+    n = {"conv3d_same": 0, "conv3d_to1": 0, "conv3d_from1": 0, "conv3d_fused_stats": 0}
+    for m in module.modules():
+        if isinstance(m, Conv3d) and not isinstance(m, UpsampleConv3d) and m.kernel_size == 3:
+            n["conv3d_to1" if m.out_ch == 1 else "conv3d_from1" if m.in_ch == 1
+              else "conv3d_same"] += 1
+    return n
+
+
+def soft_intro_launches(model) -> dict:
+    """One two-phase step: 5 encodes and 8 decodes forward; backward through
+    all 5 encodes and the 7 decodes with a graph (phase E's decode of the
+    noise has none). A conv's input gradient is one more launch: the same
+    kernel for conv3d_same; conv3d_to1's is a conv3d_from1 launch (7 decoder
+    tails) and conv3d_from1's a conv3d_to1 launch where the stem's input
+    needs it (phase D's 2 encodes of decoded volumes)."""
+    e, d = conv_sites(model.encoder), conv_sites(model.decoder)
+    return {"conv3d_same": 10 * e["conv3d_same"] + 15 * d["conv3d_same"],
+            "conv3d_to1": 8 * d["conv3d_to1"] + 2 * e["conv3d_from1"],
+            "conv3d_from1": 5 * e["conv3d_from1"] + 7 * d["conv3d_to1"], "conv3d_fused_stats": 0}
+
+
+def soft_intro_eval_launches(model) -> dict:
+    """One validation step: 3 encodes, 6 decodes, no backward."""
+    e, d = conv_sites(model.encoder), conv_sites(model.decoder)
+    return {k: 3 * e[k] + 6 * d[k] for k in e}
+
+
+def plain_launches(model, train_steps: int, eval_steps: int) -> dict:
+    """VAE / CAE: a step is one encode + decode forward and backward (no
+    input gradient at the stem: its input is the data; a tail's input
+    gradient is a conv3d_from1 launch); a validation step is the forward
+    alone."""
+    f = conv_sites(model)
+    return {"conv3d_same": (2 * train_steps + eval_steps) * f["conv3d_same"],
+            "conv3d_to1": (train_steps + eval_steps) * f["conv3d_to1"],
+            "conv3d_from1": (train_steps * (f["conv3d_from1"] + f["conv3d_to1"])
+                             + eval_steps * f["conv3d_from1"]),
+            "conv3d_fused_stats": 0}
+
+
+def _add_counts(a: dict, b: dict) -> dict:
+    return {k: a.get(k, 0) + b.get(k, 0) for k in set(a) | set(b)}
+
+
+def phase_families(dev, real) -> dict:
+    """z600 and z600-wide (fc_150, fc_600) train steps at full width, one
+    fp32 tiny_fc step card vs CPU, one epoch of the vae, cae and vae2soft
+    presets through the CLI's code, and the spatial_150 classifier."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from sivae_torch.cli import train as cli_train
+    from sivae_torch.config import OptimConfig, SoftIntroLossConfig
+    from sivae_torch.data.pipeline import BrainDataSource, DataPipeline
+    from sivae_torch.eval.confusion import predict_all
+    from sivae_torch.kernels import build
+    from sivae_torch.models.blocks import Conv3d
+    from sivae_torch.models.classifier import ResNetClassifier
+    from sivae_torch.models.registry import get_model_config, make_model
+    from sivae_torch.train.state import create_train_state, param_count
+    from sivae_torch.train.step import (make_classifier_eval_step, make_classifier_train_step,
+                                        make_soft_intro_train_step)
+
+    total = {}
+    batch = real.shape[0]
+    for preset in ("z600", "z600-wide"):
+        spec = cli_train.PRESETS[preset]
+        cfg = dataclasses.replace(get_model_config(spec["model"]), dtype=torch.bfloat16)
+        model = make_model(cfg, device=dev, seed=0)
+        state = create_train_state(model, seed=0)
+        loss_cfg = SoftIntroLossConfig(beta_rec=spec["beta_rec"], beta_neg=spec["beta_neg"],
+                                       beta_kl=spec["beta_kl"])
+        step = make_soft_intro_train_step(model, loss_cfg, OptimConfig(), 1, cfg.input_shape)
+        want = soft_intro_launches(model)
+        log(f"[families] {preset}: {spec['model']} {grid_name(cfg.input_shape)} batch {batch} "
+            f"bf16, z {cfg.z_ch}, channels {cfg.first_ch}/{cfg.second_ch}/{cfg.third_ch}/"
+            f"{cfg.forth_ch}, {param_count(state)} parameters; per forward encoder "
+            f"{conv_sites(model.encoder)} decoder {conv_sites(model.decoder)}")
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        step(state, real)  # warm-up
+        torch.cuda.synchronize()
+        log(f"[families] {preset} warm-up step {time.perf_counter() - t0:.2f} s")
+        build.reset_launches()
+        step(state, real)
+        torch.cuda.synchronize()
+        counts = dict(build.launches)
+        log(f"[families] {preset} launches in one step {counts} (expected {want}); conv3d_same "
+            f"by site {json.dumps(build.conv3d_same_sites)}")
+        if counts != want:
+            raise SystemExit(f"chip_smoke: {preset} step launches {counts}, expected {want}")
+        total = _add_counts(total, counts)
+        times = []
+        for _ in range(REPEATS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, metrics = step(state, real)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        times.sort()
+        median = times[REPEATS // 2]
+        peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+        m = _metrics_line(metrics)
+        log(f"[families] {preset} {REPEATS} steps: median {median:.4f} s/step, min {times[0]:.4f}, "
+            f"max {times[-1]:.4f}; {batch / median:.2f} vol/s; peak memory {peak_gib:.2f} GiB; "
+            f"metrics {json.dumps(m)}")
+        if m["nan"] or not all(math.isfinite(v) for k, v in m.items() if k != "nan"):
+            raise SystemExit(f"chip_smoke: {preset} metrics not finite: {m}")
+        # conv biases in front of a BN are left out: their gradient is
+        # rounding noise, which may round to exactly 0
+        biases = {f"{n}.bias" for n, c in model.named_modules()
+                  if isinstance(c, Conv3d) and c.bias is not None}
+        after = model.state_dict()
+        same = [k for k, v in before.items() if k not in biases
+                and not k.endswith("num_batches_tracked") and torch.equal(v, after[k])]
+        log(f"[families] {preset}: unchanged tensors (conv biases in front of a BN aside) "
+            f"{same} of {len(before)}")
+        if same:
+            raise SystemExit(f"chip_smoke: {preset} left tensors unchanged: {same}")
+        if preset == "z600":
+            profile_window(f"{preset} train step, batch {batch}", lambda: step(state, real),
+                           top=15)
+        del state, step, model, before
+        torch.cuda.empty_cache()
+
+    # one fp32 FC step through the kernels (card) against the plain versions
+    # (CPU); every FC conv but the output one has a bias in front of a BN
+    tiny = get_model_config("tiny_fc")
+    n_bn_biases = sum(1 for m in make_model(tiny, device="cpu").modules()
+                      if isinstance(m, Conv3d) and m.bias is not None) - 1
+    card_vs_cpu_step(dev, tiny, n_bn_biases + 6)
+
+    # vae, cae and vae2soft: one epoch of 2 steps each through the CLI's code
+    # below its split, on phase 8's 24 volumes (16 train, 8 validation), with
+    # no figures wherever it runs (as in phase 8)
+    sys.modules["matplotlib"] = None
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_families_")
+    common = ["--synthetic", "24", "--batch", "8", "--epochs", "1", "--device", str(dev)]
+    shape = get_model_config("spatial_150").input_shape
+    src = BrainDataSource(cli_train.load_records(cli_train.parse_args(common), shape))
+    pids = sorted(set(src.pids))
+    is_val = np.array([pids.index(p) % 3 == 2 for p in src.pids])
+    train_src, val_src = src.subset(np.flatnonzero(~is_val)), src.subset(np.flatnonzero(is_val))
+    for preset in ("vae", "cae", "vae2soft"):
+        run_dir = os.path.join(tmp.name, preset)
+        args = cli_train.parse_args(["--preset", preset, "--run-dir", run_dir] + common)
+        probe = make_model(get_model_config(cli_train.PRESETS[preset]["model"]), device="cpu")
+        want = plain_launches(probe, 2, 1)
+        if preset == "vae2soft":
+            soft = _add_counts({k: 2 * v for k, v in soft_intro_launches(probe).items()},
+                               soft_intro_eval_launches(probe))
+            want = _add_counts(want, soft)
+        build.reset_launches()
+        t0 = time.perf_counter()
+        trainer = cli_train.train_on_split(args, train_src, val_src)
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        counts = dict(build.launches)
+        files = ["args.json", "train_result.csv", "metrics.jsonl", os.path.join("ckpt", "0.pth")]
+        if preset == "vae2soft":
+            files += [os.path.join("vae_stage", "train_losses.txt"),
+                      os.path.join("vae_stage", "ckpt", "0.pth")]
+        missing = [f for f in files if not os.path.exists(os.path.join(run_dir, f))]
+        hist = trainer.logger.history
+        finite = all(math.isfinite(v) for vals in hist.values() for v in vals)
+        log(f"[families] {preset} epoch (2 steps, 1 validation step, checkpoint, the model's "
+            f"build) {epoch_s:.2f} s; launches {counts} (expected {want}); run files missing "
+            f"{missing}; last epoch {json.dumps({k: v[-1] for k, v in hist.items()})}")
+        if counts != want or missing or not finite or trainer.state.step != 2:
+            raise SystemExit(f"chip_smoke: {preset} epoch: launches {counts} (expected {want}), "
+                             f"missing {missing}, finite {finite}, step {trainer.state.step}")
+        total = _add_counts(total, counts)
+        del trainer
+        torch.cuda.empty_cache()
+    tmp.cleanup()
+
+    # the classifier on spatial_150: 3 steps on the 24 volumes' labels, then
+    # predict_all over them
+    cfg = dataclasses.replace(get_model_config("spatial_150"), dtype=torch.bfloat16)
+    model = ResNetClassifier(cfg, num_classes=2, generator=torch.Generator().manual_seed(0))
+    model = model.to(dev).eval()
+    state = create_train_state(model, seed=0, joint_optimizer=True)
+    step = make_classifier_train_step(model, OptimConfig(), 3)
+    pipe = DataPipeline(src, 8, device=dev, shuffle=False)
+    f = conv_sites(model)
+    want = {"conv3d_same": 3 * 2 * f["conv3d_same"] + 3 * f["conv3d_same"], "conv3d_to1": 0,
+            "conv3d_from1": 3 * f["conv3d_from1"] + 3 * f["conv3d_from1"],
+            "conv3d_fused_stats": 0}
+    build.reset_launches()
+    losses = [float(step(state, vox, lab)[1]["loss"]) for vox, lab in pipe.epoch(0)]
+    preds, labels, acc = predict_all(make_classifier_eval_step(model), state, pipe)
+    torch.cuda.synchronize()
+    counts = dict(build.launches)
+    log(f"[families] classifier spatial_150 bf16 batch 8: losses {losses}, predict_all accuracy "
+        f"{acc:.3f} over {len(preds)} volumes; launches {counts} (expected {want})")
+    if (counts != want or len(losses) != 3 or not all(math.isfinite(v) for v in losses)
+            or preds.shape != (24,) or not np.array_equal(labels, src.labels)):
+        raise SystemExit(f"chip_smoke: classifier: launches {counts} (expected {want}), "
+                         f"losses {losses}, predictions {preds.shape}")
+    total = _add_counts(total, counts)
+    del state, step, model, pipe
+    torch.cuda.empty_cache()
+    build.reset_launches()
+    return total
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="", help="comma-separated subset of " + ",".join(PHASES))
@@ -1064,16 +1325,21 @@ def main(argv=None):
     rows = phase_kernels(dev) if "kernels" in want else {}
     if "grad" in want:
         phase_gradients(dev)
-    src, vox = synthetic_volumes(dev) if want & {"path", "train"} else (None, None)
+    src, vox = synthetic_volumes(dev) if want & {"path", "train", "families"} else (None, None)
     path_n = phase_path(dev, src, vox) if "path" in want else {}
     stage_n = phase_stage(dev) if "stage" in want else {}
     train_n = phase_train(dev, vox[:8]) if "train" in want else {}
+    real = vox[:8].clone() if "families" in want else None
     del src, vox
     trainer_n = phase_trainer(dev) if "trainer" in want else {}
+    families_n = phase_families(dev, real) if "families" in want else {}
     log(card)
     if only:
         print(json.dumps({"ok": False, "partial": only}))
         return 0
+    for kname in ("conv3d_same", "conv3d_to1", "conv3d_from1"):
+        if families_n[kname] == 0:
+            raise SystemExit(f"chip_smoke: the families phase launched no {kname}")
 
     flag = f"{FLAGSHIP[0]}->{{}}@{grid_name(FLAGSHIP[1])}"
     head = {"conv3d_same": flag.format(64), "conv3d_to1": flag.format(1),
@@ -1083,7 +1349,8 @@ def main(argv=None):
     for kname, site in head.items():
         r = rows[(kname, site, torch.bfloat16)]
         per_path = {"eval_path": path_n[kname], "fused_stage": stage_n[kname],
-                    "train_step": train_n[kname], "trainer": trainer_n[kname]}
+                    "train_step": train_n[kname], "trainer": trainer_n[kname],
+                    "families": families_n[kname]}
         launches = sum(per_path.values())
         if launches == 0:
             raise SystemExit(f"chip_smoke: no counted path launched {kname}")

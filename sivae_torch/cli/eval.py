@@ -14,6 +14,10 @@ Usage:
   python -m sivae_torch.cli.eval --model spatial_1200 --ckpt runs/z1200/ckpt \
       --data-root /data/radiology_datas
   python -m sivae_torch.cli.eval --model tiny_spatial --synthetic 12 --device cpu
+  python -m sivae_torch.cli.eval --model fc_150 --ckpt runs/z600/ckpt --synthetic 64
+
+`--model` takes every model of the registry, spatial or FC (an FC latent is
+its z_ch-vector, a spatial one its flattened map).
 
 Runs on CUDA unless `--device cpu` is given, and fails without CUDA
 otherwise. Weights come from `--ckpt`: a reference `.pth`, a port checkpoint

@@ -1,33 +1,43 @@
-"""Training CLI of the port: the Soft-IntroVAE presets of `cli/train.py`.
+"""Training CLI of the port: every preset of `cli/train.py`.
 
 Experiment presets, each one exact reference invocation (the table is the
 JAX CLI's, copied):
   z1200      <- z-1200main.py:158,202: models.SoftIntroVAE(64,[[64,1,2],
                [128,1,2],[256,2,2]]), beta_kl=.75, beta_neg=1024, no aug
   aug-z1200  <- aug-z-1200main.py:167: same model + RandomAffine(10deg) p=.35
+  z600       <- 600z_main.py:176 AS RUN: mymodel.SoftIntroVAE(12,24,32,48,150)
+               (z=150 despite the script name; the 600-d ctor is only a
+               comment, :54), beta_kl=.7, RandomAffine(15deg) p=.6
+  z600-wide  <- 600z_main.py:54's documented variant (16,32,64,128,600):
+               the 600-d FC model, same betas / aug
   z150       <- main.py:139: models.SoftIntroVAE(12,[[12,1,2],[24,1,2],
                [32,2,2],[48,2,2]]), no aug
+  vae        <- vae_main.py:180,205: vaemodel.ResNetVAE + RandomNoise p=.5,
+               mse_w / kl_w from the CLI
+  cae        <- main.py:131 --model ResNetCAE
+  vae2soft   <- main.py:185-192 VAEtoSoftVAE (VAE pretrain -> warm start)
   dp-variant <- main_DataParallel.py:470,617: the DataParallel trainer's
                loss variant (0.25*expELBO, no x10, scale 1/614400,
                beta_neg=256, beta_kl=1) on the spatial-150 model
-The FC presets (z600, z600-wide), the plain VAE / CAE (vae, cae) and the
-VAE warm start (vae2soft) need the FC family and the VAE / CAE trainers,
-which the port does not have yet: they exit saying so (ROADMAP A.7).
 
 beta_* defaults come from the preset; --beta-rec/--beta-neg/--beta-kl/
 --gamma-r override them (z-1200main.py:46-48).
 
 Usage:
   python -m sivae_torch.cli.train --preset z1200 --epochs 500 --data-root /data/radiology_datas
-  python -m sivae_torch.cli.train --preset z1200 --synthetic 64 --epochs 2
+  python -m sivae_torch.cli.train --preset z600 --synthetic 64 --epochs 2
   python -m sivae_torch.cli.train --preset z1200 --model tiny_spatial --synthetic 40 \\
       --epochs 2 --batch 4 --device cpu --run-dir /tmp/r
+  python -m sivae_torch.cli.train --preset z600 --model tiny_fc --synthetic 40 \\
+      --epochs 2 --batch 4 --device cpu --run-dir /tmp/fc
 
 Runs on CUDA unless `--device cpu` is given, and fails without CUDA
 otherwise. Writes into the run directory what the JAX CLI writes: args.json,
-train_result.csv, metrics.jsonl, loss.txt, kl_losses.txt, ckpt/<epoch>.pth
-(the port's checkpoint files), and, where matplotlib imports, the loss plots
-and image panels. `main` loads the records and splits them;
+train_result.csv, metrics.jsonl and ckpt/<epoch>.pth (the port's checkpoint
+files); loss.txt and kl_losses.txt for the Soft-IntroVAE trainer,
+train_losses.txt for the VAE's; vae2soft runs its VAE stage in
+`<run-dir>/vae_stage`; and, where matplotlib imports, the loss plots and
+image panels. `main` loads the records and splits them;
 `train_on_split(args, train_src, val_src)` does everything after the split.
 """
 
@@ -70,8 +80,6 @@ PRESETS = {
                        exp_elbo_weight=0.25, loss_multiplier=1.0,
                        scale=1.0 / (80 * 96 * 80), dp_semantics=True),
 }
-# the presets this port runs: the spatial Soft-IntroVAE ones
-PORTED_PRESETS = ("z1200", "aug-z1200", "z150", "dp-variant")
 
 
 def make_augment_fn(spec):
@@ -140,7 +148,7 @@ def apply_health_gate(cfg, val_source, run_dir, batch, device):
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     """Parse, and refuse what the port cannot run yet before any work."""
-    ap = argparse.ArgumentParser(description="sivae_torch Soft-IntroVAE training")
+    ap = argparse.ArgumentParser(description="sivae_torch training")
     ap.add_argument("--preset", choices=sorted(PRESETS), default="z1200")
     ap.add_argument("--model", default=None,
                     help="override the preset's model config (registry name)")
@@ -155,6 +163,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--beta-neg", type=float, default=None)
     ap.add_argument("--beta-kl", type=float, default=None)
     ap.add_argument("--gamma-r", type=float, default=None)
+    ap.add_argument("--mse-w", type=float, default=None,
+                    help="VAE trainer mse weight (vae_main.py:53, default 1)")
+    ap.add_argument("--kl-w", type=float, default=None,
+                    help="VAE trainer kl weight (vae_main.py:54, default 1)")
     ap.add_argument("--data-root", default="/data/radiology_datas")
     ap.add_argument("--synthetic", type=int, default=0,
                     help="use N synthetic volumes instead of the dataset")
@@ -178,8 +190,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         return v
 
     ap.add_argument("--checkpoint-every", type=positive_int, default=None,
-                    help="checkpoint cadence in epochs (default: every epoch, "
-                         "my_trainer.py:476-480)")
+                    help="checkpoint cadence in epochs (default: each trainer's reference "
+                         "cadence: every epoch for soft-intro, my_trainer.py:476-480; every "
+                         "10 for vae / cae, my_trainer.py:628)")
     ap.add_argument("--pretrained", default=None, help="reference torch .pth for a warm start")
     ap.add_argument("--health-gate", action="store_true",
                     help="after training, sweep the run's checkpoints on the val split "
@@ -189,11 +202,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                          "if unhealthy")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.preset not in PORTED_PRESETS:
-        ap.exit(2, f"preset {args.preset!r} ({PRESETS[args.preset]['model']}, "
-                   f"{PRESETS[args.preset]['trainer']} trainer) needs the FC family and the "
-                   f"VAE / CAE trainers, not ported yet (ROADMAP A.7); the port runs "
-                   f"{', '.join(PORTED_PRESETS)}\n")
+    if args.health_gate and PRESETS[args.preset]["trainer"] in ("vae", "cae"):
+        ap.error("--health-gate applies to the soft-intro trainers only "
+                 "(the criterion is calibrated on adversarial drift)")
     if args.pretrained and not args.pretrained.endswith(".pth"):
         ap.exit(2, f"--pretrained {args.pretrained!r}: only reference .pth files; reading "
                    f"the JAX package's orbax checkpoints is not ported yet (ROADMAP A.6)\n")
@@ -212,13 +223,15 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 
 def train_on_split(args: argparse.Namespace, train_src, val_src):
-    """Everything after the split: pipelines, model, trainer, warm start or
-    resume, fit, health gate. Returns the trainer."""
+    """Everything after the split: pipelines, model, the preset's trainer,
+    warm start or resume, fit, health gate (the dispatch of
+    `cli/train.py:237-300`). Returns the trainer (for vae2soft the
+    Soft-IntroVAE stage's)."""
     import torch
 
     from sivae_torch.config import OptimConfig, SoftIntroLossConfig, TrainConfig, to_json
     from sivae_torch.models.registry import get_model_config, make_model
-    from sivae_torch.train.loop import SoftIntroTrainer
+    from sivae_torch.train.loop import CAETrainer, SoftIntroTrainer, VAETrainer
 
     preset = PRESETS[args.preset]
     cfg = get_model_config(args.model or preset["model"])
@@ -228,7 +241,6 @@ def train_on_split(args: argparse.Namespace, train_src, val_src):
     os.makedirs(run_dir, exist_ok=True)
 
     train, val = build_pipelines(args, train_src, val_src, augment_spec=preset.get("augment"))
-    model = make_model(cfg, device=args.device)
     optim_cfg = OptimConfig(lr=args.lr)
     if args.milestones is not None:
         optim_cfg = dataclasses.replace(optim_cfg, milestones=tuple(args.milestones))
@@ -239,6 +251,26 @@ def train_on_split(args: argparse.Namespace, train_src, val_src):
     # args snapshot (reference my_args.txt, main.py:152-153)
     with open(os.path.join(run_dir, "args.json"), "w") as f:
         json.dump({**vars(args), "model_config": to_json(cfg)}, f, indent=2, default=str)
+
+    plain_every = args.checkpoint_every if args.checkpoint_every is not None else 10
+    if preset["trainer"] == "cae":
+        trainer = CAETrainer(cfg, optim_cfg, train_cfg, run_dir=run_dir,
+                             steps_per_epoch=train.steps_per_epoch,
+                             keep_checkpoints=args.keep_checkpoints,
+                             checkpoint_every=plain_every, device=args.device)
+        trainer.fit(train, val, epochs=args.epochs)
+        return trainer
+
+    model = make_model(cfg, device=args.device)
+    if preset["trainer"] == "vae":
+        trainer = VAETrainer(model, optim_cfg, train_cfg,
+                             mse_w=args.mse_w if args.mse_w is not None else preset["mse_w"],
+                             kl_w=args.kl_w if args.kl_w is not None else preset["kl_w"],
+                             run_dir=run_dir, steps_per_epoch=train.steps_per_epoch,
+                             keep_checkpoints=args.keep_checkpoints,
+                             checkpoint_every=plain_every)
+        trainer.fit(train, val, epochs=args.epochs)
+        return trainer
 
     loss_cfg = SoftIntroLossConfig(
         beta_rec=(args.beta_rec if args.beta_rec is not None else preset.get("beta_rec", 1.0)),
@@ -251,6 +283,22 @@ def train_on_split(args: argparse.Namespace, train_src, val_src):
         dp_semantics=preset.get("dp_semantics", False))
     if args.gamma_r is not None:
         loss_cfg = dataclasses.replace(loss_cfg, gamma_r=args.gamma_r)
+
+    if preset["trainer"] == "vae2soft":
+        # two-stage pipeline (main.py:185-192): a VAE stage on the model, then
+        # a Soft-IntroVAE from its parameters and BN statistics (the same
+        # model object) with fresh Adams
+        stage = VAETrainer(model, optim_cfg, train_cfg, mse_w=preset["mse_w"],
+                           kl_w=preset["kl_w"], run_dir=os.path.join(run_dir, "vae_stage"),
+                           steps_per_epoch=train.steps_per_epoch,
+                           keep_checkpoints=args.keep_checkpoints, checkpoint_every=plain_every)
+        stage.fit(train, val, epochs=max(1, args.epochs // 5))
+        trainer = SoftIntroTrainer(model, loss_cfg, optim_cfg, train_cfg, run_dir=run_dir,
+                                   steps_per_epoch=train.steps_per_epoch)
+        trainer.fit(train, val, epochs=args.epochs)
+        if args.health_gate:
+            apply_health_gate(cfg, val.source, run_dir, args.batch, args.device)
+        return trainer
 
     trainer = SoftIntroTrainer(model, loss_cfg, optim_cfg, train_cfg, run_dir=run_dir,
                                steps_per_epoch=train.steps_per_epoch,

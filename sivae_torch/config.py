@@ -1,7 +1,9 @@
-"""Configuration dataclasses for the spatial-latent model family.
+"""Configuration dataclasses for the spatial-latent and FC-latent model
+families.
 
-Port of `sivae_tpu/config.py:27-129`, `:178-260` (the loss, optimizer and
-trainer configs) and `to_json`, with torch dtypes. The JAX package's TPU tactics (`remat*`, `use_pallas_*`, `PACK_SAVES`) have no counterpart:
+Port of `sivae_tpu/config.py:27-170`, `:178-260` (the loss, optimizer and
+trainer configs) and `to_json`, with torch dtypes. The JAX package's TPU
+tactics (`remat*`, `use_pallas_*`, `PACK_SAVES`) have no counterpart:
 the port routes every 3x3x3 stride-1 conv the same way, to its CUDA kernel
 for a CUDA tensor and to the plain PyTorch version for a CPU tensor.
 """
@@ -80,6 +82,48 @@ class SpatialVAEConfig:
     def latent_dim(self) -> int:
         d, h, w = self.latent_spatial_shape
         return d * h * w
+
+
+@dataclass(frozen=True)
+class FCVAEConfig:
+    """FC-latent ("vector z") family, reference models/mymodel.py
+    (`sivae_tpu/config.py:133-170`).
+
+    Four stages of stride-2 AvgPool with hand-placed skip connections down to
+    a (5,6,5) grid, then Linear(forth_ch*150 -> 2*z_ch) split into (mu,
+    logvar); z_ch in {150, 300, 600} (reference 600z_main.py:176).
+    `fuse_upconv=False` runs each decoder upsample as a nearest upsample
+    followed by a 3x3x3 conv (the reference's op structure) instead of the
+    fused transposed conv.
+    """
+
+    first_ch: int = 12
+    second_ch: int = 24
+    third_ch: int = 32
+    forth_ch: int = 48
+    z_ch: int = 150
+    input_shape: Tuple[int, int, int] = (80, 96, 80)
+    act: ActivationConfig = field(
+        default_factory=lambda: ActivationConfig().with_no_dropout()
+    )
+    dtype: Any = torch.float32
+    param_dtype: Any = torch.float32
+    logvar_head_zero_init: bool = True
+    logvar_clip: Optional[Tuple[float, float]] = (-30.0, 20.0)
+    fuse_upconv: bool = True
+
+    @property
+    def bottleneck_spatial_shape(self) -> Tuple[int, int, int]:
+        d, h, w = self.input_shape
+        return (d // 16, h // 16, w // 16)
+
+    @property
+    def latent_shape(self) -> Tuple[int, ...]:
+        return (self.z_ch,)
+
+    @property
+    def latent_dim(self) -> int:
+        return self.z_ch
 
 
 @dataclass(frozen=True)

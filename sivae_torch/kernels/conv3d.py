@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from sivae_torch.kernels import build
+from sivae_torch.utils.dtypes import wide_dtype, widen
 
 
 def _taps():
@@ -44,13 +45,14 @@ def _taps():
 
 def conv3d_same_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Plain version: pad, then 27 shifted slices, each contracted against
-    its (Ci, Co) weight slice into an fp32 accumulator, rounded once."""
+    its (Ci, Co) weight slice into an fp32 accumulator (float64 for a
+    float64 input), rounded once."""
     b, d, h, wd, _ = x.shape
     xp = F.pad(x, (0, 0, 1, 1, 1, 1, 1, 1))
-    acc = torch.zeros((b, d, h, wd, w.shape[-1]), dtype=torch.float32, device=x.device)
+    acc = torch.zeros((b, d, h, wd, w.shape[-1]), dtype=wide_dtype(x), device=x.device)
     for kd, kh, kw in _taps():
-        sl = xp[:, kd:kd + d, kh:kh + h, kw:kw + wd, :].float()
-        acc += torch.matmul(sl, w[kd, kh, kw].float())
+        sl = widen(xp[:, kd:kd + d, kh:kh + h, kw:kw + wd, :])
+        acc += torch.matmul(sl, w[kd, kh, kw].to(acc.dtype))
     return acc.to(x.dtype)
 
 
@@ -67,7 +69,7 @@ def wgrad(x: torch.Tensor, g: torch.Tensor, w_dtype: torch.dtype) -> torch.Tenso
     cuDNN; on the CPU the operands are widened first."""
     xc, gc = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)  # NCDHW views
     if not x.is_cuda:
-        xc, gc = xc.float(), gc.float()
+        xc, gc = widen(xc), widen(gc)
     shape = (g.shape[-1], x.shape[-1], 3, 3, 3)                  # OIDHW
     dw = torch.nn.grad.conv3d_weight(xc, shape, gc.to(xc.dtype), padding=1)
     return dw.permute(2, 3, 4, 1, 0).to(w_dtype)

@@ -42,6 +42,7 @@ import torch.nn.functional as F
 
 from sivae_torch.kernels import build
 from sivae_torch.kernels.conv3d import _taps
+from sivae_torch.utils.dtypes import wide_dtype, widen
 
 # the kernels keep the 27 x C weights in 48 KB of static shared memory
 MAX_CHANNELS = 48 * 1024 // (27 * 4)
@@ -51,10 +52,10 @@ def conv3d_to1_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Plain version: x (B, D, H, W, C), w (3, 3, 3, C, 1) -> (B, D, H, W, 1)."""
     b, d, h, wd, _ = x.shape
     xp = F.pad(x, (0, 0, 1, 1, 1, 1, 1, 1))
-    acc = torch.zeros((b, d, h, wd), dtype=torch.float32, device=x.device)
+    acc = torch.zeros((b, d, h, wd), dtype=wide_dtype(x), device=x.device)
     for kd, kh, kw in _taps():
-        sl = xp[:, kd:kd + d, kh:kh + h, kw:kw + wd, :].float()
-        acc += torch.matmul(sl, w[kd, kh, kw, :, 0].float())
+        sl = widen(xp[:, kd:kd + d, kh:kh + h, kw:kw + wd, :])
+        acc += torch.matmul(sl, w[kd, kh, kw, :, 0].to(acc.dtype))
     return acc.to(x.dtype)[..., None]
 
 
@@ -76,10 +77,10 @@ def conv3d_from1_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Plain version: x (B, D, H, W, 1), w (3, 3, 3, 1, C) -> (B, D, H, W, C)."""
     b, d, h, wd, _ = x.shape
     xp = F.pad(x[..., 0], (1, 1, 1, 1, 1, 1))
-    acc = torch.zeros((b, d, h, wd, w.shape[-1]), dtype=torch.float32, device=x.device)
+    acc = torch.zeros((b, d, h, wd, w.shape[-1]), dtype=wide_dtype(x), device=x.device)
     for kd, kh, kw in _taps():
-        sl = xp[:, kd:kd + d, kh:kh + h, kw:kw + wd].float()
-        acc += sl[..., None] * w[kd, kh, kw, 0].float()
+        sl = widen(xp[:, kd:kd + d, kh:kh + h, kw:kw + wd])
+        acc += sl[..., None] * w[kd, kh, kw, 0].to(acc.dtype)
     return acc.to(x.dtype)
 
 
@@ -99,10 +100,10 @@ def _unfold27(v: torch.Tensor, flip: bool = False) -> torch.Tensor:
     """v (B, D, H, W) -> (B*D*H*W, 32): column t holds v at the input voxel
     of tap t (0 outside the volume), taps in `_taps()` order, or in reverse
     order with `flip`; columns 27-31 are zero (a 16-byte aligned row for the
-    card's matrix product). fp32 on the CPU; the card's bf16 product
-    accumulates in fp32 itself."""
+    card's matrix product). fp32 (or float64) on the CPU; the card's bf16
+    product accumulates in fp32 itself."""
     if not v.is_cuda:
-        v = v.float()
+        v = widen(v)
     b, d, h, w = v.shape
     vp = F.pad(v, (1, 1, 1, 1, 1, 1))
     cols = v.new_zeros((b, d, h, w, 32))

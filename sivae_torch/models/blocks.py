@@ -2,8 +2,9 @@
 
 Port of `sivae_tpu/models/blocks.py` (`make_act`, `avg_pool3d`,
 `upsample_nearest3d`, `Conv3d`, `BatchNorm` in both modes, `ConvBlock`,
-`UpBlock`, `ConvBNAct`). Module and parameter names follow the reference torch
-`state_dict` (reference models/models.py:8-80): `block.{0,1,4,5}` inside a
+`UpBlock`, `ConvBNAct`), and flax's `Dense` as `Linear`. Module and
+parameter names follow the reference torch `state_dict` (reference
+models/models.py:8-80): `block.{0,1,4,5}` inside a
 residual block, `shortcut` for its 1x1 projection, `{0,1}` inside a
 conv-BN-act unit. A reference checkpoint therefore loads with
 `load_state_dict`.
@@ -26,6 +27,7 @@ from sivae_torch.config import ActivationConfig
 from sivae_torch.kernels.conv3d import conv3d_same
 from sivae_torch.kernels.conv3d_small import conv3d_from1, conv3d_to1
 from sivae_torch.ops.fused_upconv import upsampled_conv3x3
+from sivae_torch.utils.dtypes import widen
 
 CL = torch.channels_last_3d
 
@@ -85,6 +87,42 @@ class AvgPool(nn.Module):
 
     def forward(self, x):
         return avg_pool3d(x, self.stride)
+
+
+class Upsample(nn.Module):
+    def __init__(self, scale: int):
+        super().__init__()
+        self.scale = scale
+
+    def forward(self, x):
+        return upsample_nearest3d(x, self.scale)
+
+
+def lecun_normal_(w: torch.Tensor, fan_in: int,
+                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax's default kernel init (`lecun_normal`): a normal truncated at 2
+    standard deviations, scaled so that its variance is 1 / fan_in."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    with torch.no_grad():
+        return nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
+class Linear(nn.Module):
+    """Dense layer, torch's (out, in) weight layout, flax's init: lecun-normal
+    weights from `generator` and a zero bias (torch's `nn.Linear` draws
+    both uniformly). Parameters in `param_dtype`; the product runs in the
+    compute `dtype`."""
+
+    def __init__(self, in_features: int, out_features: int, dtype=torch.float32,
+                 param_dtype=torch.float32, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(lecun_normal_(
+            torch.empty((out_features, in_features), dtype=param_dtype), in_features, generator))
+        self.bias = nn.Parameter(torch.zeros(out_features, dtype=param_dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), self.bias.to(self.dtype))
 
 
 class Dropout(nn.Module):
@@ -182,7 +220,8 @@ def _act(y: torch.Tensor, slope: Optional[float]) -> torch.Tensor:
 
 class _BatchNormTrain(torch.autograd.Function):
     """Train-mode BatchNorm (+ optional LeakyReLU / ReLU) that keeps only its
-    input and the per-channel fp32 statistics for the backward pass.
+    input and the per-channel fp32 statistics (float64 for a float64 input)
+    for the backward pass.
 
     Written as separate eager ops, autograd would keep `x.float()`, `x - mean`
     and the scaled product alive for every BN site of every forward of the
@@ -197,7 +236,7 @@ class _BatchNormTrain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, weight, bias, eps, slope, out_dtype):
-        xf = x.float()
+        xf = widen(x)
         mean = xf.mean(dim=_BN_AXES)
         raw_var = (xf * xf).mean(dim=_BN_AXES) - mean * mean
         del xf
@@ -205,10 +244,11 @@ class _BatchNormTrain(torch.autograd.Function):
         rstd = torch.rsqrt(var + eps)
         # same op order as the eval branch (flax `_normalize`)
         y = x - mean.view(_BN_VIEW)
-        y = y.mul_((rstd * weight.float()).view(_BN_VIEW)).add_(bias.float().view(_BN_VIEW))
+        y = y.mul_((rstd * weight.to(rstd.dtype)).view(_BN_VIEW))
+        y = y.add_(bias.to(rstd.dtype).view(_BN_VIEW))
         y = _act(y.to(out_dtype), slope)
         # d max(0, v) / dv: 1 above 0, 0 below, 1/2 at the tie (as jnp.maximum)
-        k = (raw_var > 0).float() + 0.5 * (raw_var == 0).float()
+        k = (raw_var > 0).to(rstd.dtype) + 0.5 * (raw_var == 0).to(rstd.dtype)
         ctx.save_for_backward(x, weight, bias, mean, rstd, k)
         ctx.slope = slope
         ctx.mark_non_differentiable(mean, var)
@@ -219,10 +259,10 @@ class _BatchNormTrain(torch.autograd.Function):
         x, weight, bias, mean, rstd, k = ctx.saved_tensors
         n = x.numel() // x.shape[1]
         d = x - mean.view(_BN_VIEW)                      # fp32, a new tensor
-        mul = rstd * weight.float()
-        gf = g.float()
+        mul = rstd * weight.to(rstd.dtype)
+        gf = g.to(rstd.dtype)
         if ctx.slope is not None:                        # the forward's own pre-activation
-            pos = (d * mul.view(_BN_VIEW) + bias.float().view(_BN_VIEW)) > 0
+            pos = (d * mul.view(_BN_VIEW) + bias.to(rstd.dtype).view(_BN_VIEW)) > 0
             gf = torch.where(pos, gf, gf * ctx.slope)
             del pos
         xhat = d.mul_(rstd.view(_BN_VIEW))
@@ -243,9 +283,10 @@ class BatchNorm(nn.Module):
     (`sivae_tpu/models/blocks.py:313-361`).
 
     Eval mode takes the running statistics. Training mode takes the batch's:
-    mean and mean of squares in fp32, `var = max(0, E[x^2] - mean^2)`, and
-    moves the running statistics by `0.9 * old + 0.1 * new` with the BIASED
-    variance, as flax does (torch's `BatchNorm3d` stores the unbiased one).
+    mean and mean of squares in fp32 (float64 for a float64 input),
+    `var = max(0, E[x^2] - mean^2)`, and moves the running statistics by
+    `0.9 * old + 0.1 * new` with the BIASED variance, as flax does (torch's
+    `BatchNorm3d` stores the unbiased one).
     Buffer names are torch's (`num_batches_tracked` included), so reference
     checkpoints load.
     """

@@ -26,6 +26,7 @@ import torch.nn as nn
 from sivae_torch.config import SpatialVAEConfig
 from sivae_torch.models.blocks import (Conv3d, ConvBlock, ConvBNAct, Dropout, UpBlock, make_act,
                                        to_channels_last)
+from sivae_torch.utils.dtypes import widen
 
 
 class SpatialEncoder(nn.Module):
@@ -99,30 +100,34 @@ def reparameterize(mu: torch.Tensor, logvar: torch.Tensor, val_eps: Optional[flo
     """z = mu + eps * std in fp32. Validation uses the reference's fixed eps
     (models/models.py:263-271, default 0.1); training draws eps ~ N(0, I)
     from `generator`, which must then be given."""
-    std = torch.exp(0.5 * logvar.float())
+    std = torch.exp(0.5 * widen(logvar))
     if val_eps is not None:
-        return mu.float() + val_eps * std
+        return widen(mu) + val_eps * std
     if generator is None:
         raise ValueError("reparameterize draws noise: pass a torch.Generator")
     eps = torch.randn(std.shape, generator=generator, device=std.device, dtype=torch.float32)
-    return mu.float() + eps * std
+    return widen(mu) + eps * std
 
 
 class SoftIntroVAE(nn.Module):
-    """Encoder + decoder, under the reference's `encoder.` / `decoder.` keys."""
+    """Encoder + decoder of either family, under the reference's `encoder.` /
+    `decoder.` keys (`sivae_tpu/models/resnet_vae.py:129-204`). `cfg` is the
+    family's config: everything downstream reads its `latent_shape` and
+    `input_shape`. Also the container of the plain VAE and of the CAE
+    (whose encoder returns the latent itself)."""
 
-    def __init__(self, cfg: SpatialVAEConfig, generator: Optional[torch.Generator] = None):
+    def __init__(self, cfg, encoder: nn.Module, decoder: nn.Module):
         super().__init__()
         self.cfg = cfg
-        self.encoder = SpatialEncoder(cfg, generator)
-        self.decoder = SpatialDecoder(cfg, generator)
+        self.encoder = encoder
+        self.decoder = decoder
 
     def encode(self, x: torch.Tensor):
-        """x (B, 1, D, H, W) -> (mu, logvar), each (B, 1, d, h, w)."""
+        """x (B, 1, D, H, W) -> (mu, logvar), each (B,) + latent_shape."""
         return self.encoder(x)
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
-        """z (B, latent_dim) or (B, 1, d, h, w) -> (B, 1, D, H, W)."""
+        """z (B, latent_dim) or (B,) + latent_shape -> (B, 1, D, H, W)."""
         return self.decoder(z)
 
     @torch.no_grad()
@@ -137,3 +142,10 @@ class SoftIntroVAE(nn.Module):
     def sample(self, z: torch.Tensor) -> torch.Tensor:
         """Decode given flat latents (reference models/models.py:292-296)."""
         return self.decode(z.reshape((-1,) + self.cfg.latent_shape))
+
+
+def make_spatial_soft_intro_vae(cfg: SpatialVAEConfig,
+                                generator: Optional[torch.Generator] = None) -> SoftIntroVAE:
+    """The encoder's weights are drawn from `generator` first, then the
+    decoder's."""
+    return SoftIntroVAE(cfg, SpatialEncoder(cfg, generator), SpatialDecoder(cfg, generator))

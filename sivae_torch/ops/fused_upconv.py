@@ -17,6 +17,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from sivae_torch.utils.dtypes import widen
+
 # (4, 3) selection: derived tap m sums original taps t; per axis
 # K = [w0, w0+w1, w1+w2, w2]
 _M4 = torch.tensor([[1, 0, 0],
@@ -27,9 +29,11 @@ _M4 = torch.tensor([[1, 0, 0],
 
 def upconv_kernel(w: torch.Tensor) -> torch.Tensor:
     """OIDHW (Co, Ci, 3, 3, 3) conv weight -> the (Ci, Co, 4, 4, 4)
-    `conv_transpose3d` weight of the fused op, in fp32."""
-    m4 = _M4.to(w.device)
-    k = torch.einsum("ad,bh,cw,oidhw->abcio", m4, m4, m4, w.float())  # (4,4,4,Ci,Co)
+    `conv_transpose3d` weight of the fused op, in fp32 (float64 for float64
+    weights)."""
+    w = widen(w)
+    m4 = _M4.to(w.device, w.dtype)
+    k = torch.einsum("ad,bh,cw,oidhw->abcio", m4, m4, m4, w)  # (4,4,4,Ci,Co)
     return k.flip((0, 1, 2)).permute(3, 4, 0, 1, 2)
 
 

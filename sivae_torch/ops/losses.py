@@ -20,11 +20,13 @@ from typing import Tuple, Union
 
 import torch
 
+from sivae_torch.utils.dtypes import widen
+
 Tensor = torch.Tensor
 
 
 def _flatten_per_sample(x: Tensor) -> Tensor:
-    return x.reshape(x.shape[0], -1).float()
+    return widen(x.reshape(x.shape[0], -1))
 
 
 def _reduce(per_item: Tensor, reduce: str) -> Tensor:
@@ -118,7 +120,7 @@ def exp_elbo(rec_per_sample: Tensor, kl_per_sample: Tensor, *, scale: float, bet
     (my_trainer.py:278-279). The argument is large and negative for confident
     fakes, so this underflows to 0."""
     arg = -2.0 * scale * (beta_rec * rec_per_sample + beta_neg * kl_per_sample)
-    return torch.exp(arg.float()).mean()
+    return torch.exp(widen(arg)).mean()
 
 
 def soft_intro_encoder_loss(*, loss_rec: Tensor, kl_real: Tensor, loss_fake_rec: Tensor,

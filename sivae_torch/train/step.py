@@ -1,7 +1,8 @@
-"""The Soft-IntroVAE two-phase train step and its validation step.
+"""The Soft-IntroVAE two-phase train step and its validation step, and the
+plain VAE, CAE and classifier steps.
 
 Port of `make_soft_intro_train_step` and `make_soft_intro_eval_step`
-(`sivae_tpu/train/step.py:94-402`). The JAX step is one jitted function over
+(`sivae_tpu/train/step.py:94-402`) and of the plain steps (`:410-536`). The JAX step is one jitted function over
 an immutable state; this one runs eagerly and updates the state in place:
 
 - phase E differentiates the encoder loss w.r.t. the encoder's parameters
@@ -34,13 +35,16 @@ from __future__ import annotations
 
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from sivae_torch.config import OptimConfig, SoftIntroLossConfig
 from sivae_torch.models.blocks import Dropout
 from sivae_torch.models.resnet_vae import SoftIntroVAE, reparameterize
 from sivae_torch.ops.losses import (calc_kl, calc_kl_per_position, calc_reconstruction_loss,
-                                    soft_intro_decoder_loss, soft_intro_encoder_loss)
+                                    normal_loss, soft_intro_decoder_loss,
+                                    soft_intro_encoder_loss)
 from sivae_torch.train.state import SIVAETrainState, learning_rate
 
 Metrics = Dict[str, torch.Tensor]
@@ -301,3 +305,133 @@ def make_soft_intro_eval_step(
                 "exp_elbo_rec": e_rec}
 
     return eval_step
+
+
+# --------------------------------------------------------------------------
+# Plain VAE / CAE / classifier steps (reference my_trainer.py:557-652,
+# 763-910). One joint Adam (`create_train_state(joint_optimizer=True)`),
+# one forward and one backward; the state is updated in place.
+# --------------------------------------------------------------------------
+
+
+def _plain_update(state: SIVAETrainState, model: torch.nn.Module, optim_cfg: OptimConfig,
+                  steps_per_epoch: int, loss_fn: Callable[[], Tuple[torch.Tensor, Metrics]]):
+    """Train mode with the state's generator on every dropout, `loss_fn()`,
+    one update of the joint Adam at the scheduled rate; the model is left
+    in eval mode. Returns the metrics, detached, with the `nan` flag."""
+    if state.model is not model:
+        raise ValueError("the step was built for another model than the state holds")
+    if state.opt_d is not None:
+        raise ValueError("the plain steps update one joint Adam: "
+                         "create_train_state(..., joint_optimizer=True)")
+    drops = _dropouts(model)
+    model.train()
+    _set_generator(drops, state.generator)
+    try:
+        loss, aux = loss_fn()
+        state.opt_e.zero_grad(set_to_none=True)
+        loss.backward()
+        for group in state.opt_e.param_groups:
+            group["lr"] = learning_rate(optim_cfg, steps_per_epoch, state.step)
+        state.opt_e.step()
+    finally:
+        _set_generator(drops, None)
+        model.eval()
+    state.step += 1
+    return {**{k: v.detach() for k, v in aux.items()}, "nan": torch.isnan(loss.detach())}
+
+
+def make_vae_train_step(model: SoftIntroVAE, optim_cfg: OptimConfig, steps_per_epoch: int,
+                        mse_w: float = 1.0, kl_w: float = 1.0):
+    """ELBO step over all parameters (train_ResNetVAE, my_trainer.py:557-652;
+    loss = lossf.normal_loss with the CLI's mse / kl weights,
+    vae_main.py:205): `state, metrics = step(state, real)`, metrics
+    {"loss", "mse", "kl", "nan"}. The reparameterisation noise comes from
+    the state's generator."""
+
+    def train_step(state: SIVAETrainState, real: torch.Tensor):
+        def loss_fn():
+            mu, logvar = model.encode(real)
+            x_re = model.decode(reparameterize(mu, logvar, generator=state.generator))
+            loss, mse, kld = normal_loss(x_re, mu, logvar, real, msew=mse_w, kldw=kl_w)
+            return loss, {"loss": loss, "mse": mse, "kl": kld}
+
+        return state, _plain_update(state, model, optim_cfg, steps_per_epoch, loss_fn)
+
+    return train_step
+
+
+def make_vae_eval_step(model: SoftIntroVAE):
+    """Eval mode, `metrics = step(state, real, generator)`. Quirk kept from
+    the reference: its validation calls normal_loss with the defaults
+    (my_trainer.py:616), so the weights are mse 1 and KL 10 whatever the
+    training weights are (`sivae_tpu/train/step.py:451`)."""
+
+    @torch.no_grad()
+    def eval_step(state: SIVAETrainState, real: torch.Tensor,
+                  generator: torch.Generator) -> Metrics:
+        if state.model is not model:
+            raise ValueError("the step was built for another model than the state holds")
+        model.eval()
+        mu, logvar = model.encode(real)
+        x_re = model.decode(reparameterize(mu, logvar, generator=generator))
+        loss, mse, kld = normal_loss(x_re, mu, logvar, real, msew=1.0, kldw=10.0)
+        return {"loss": loss, "mse": mse, "kl": kld}
+
+    return eval_step
+
+
+def _labels(labels, dev) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(labels), device=dev).long()
+
+
+def make_classifier_train_step(model: torch.nn.Module, optim_cfg: OptimConfig,
+                               steps_per_epoch: int):
+    """CrossEntropy step (reference `train`, my_trainer.py:829-910):
+    `state, metrics = step(state, x, labels)`, metrics {"loss", "acc",
+    "nan"}; `labels` a host array or a tensor of class indices."""
+
+    def train_step(state: SIVAETrainState, x: torch.Tensor, labels):
+        lab = _labels(labels, x.device)
+
+        def loss_fn():
+            logits = model(x)
+            loss = F.cross_entropy(logits, lab)
+            acc = (logits.argmax(-1) == lab).float().mean()
+            return loss, {"loss": loss, "acc": acc}
+
+        return state, _plain_update(state, model, optim_cfg, steps_per_epoch, loss_fn)
+
+    return train_step
+
+
+def make_classifier_eval_step(model: torch.nn.Module):
+    """`metrics, predictions = step(state, x, labels)` in eval mode."""
+
+    @torch.no_grad()
+    def eval_step(state: SIVAETrainState, x: torch.Tensor, labels):
+        if state.model is not model:
+            raise ValueError("the step was built for another model than the state holds")
+        model.eval()
+        lab = _labels(labels, x.device)
+        logits = model(x)
+        pred = logits.argmax(-1)
+        return {"loss": F.cross_entropy(logits, lab), "acc": (pred == lab).float().mean()}, pred
+
+    return eval_step
+
+
+def make_cae_train_step(model: SoftIntroVAE, optim_cfg: OptimConfig, steps_per_epoch: int):
+    """CAE step: the encoder's latent straight into the decoder, the
+    elementwise-mean MSE (torch nn.MSELoss default, my_trainer.py:777):
+    `state, metrics = step(state, real)`, metrics {"loss", "nan"}."""
+
+    def train_step(state: SIVAETrainState, real: torch.Tensor):
+        def loss_fn():
+            out = model.decode(model.encode(real))
+            loss = torch.mean((out.float() - real.float()) ** 2)
+            return loss, {"loss": loss}
+
+        return state, _plain_update(state, model, optim_cfg, steps_per_epoch, loss_fn)
+
+    return train_step

@@ -8,7 +8,8 @@ with orbax; here each step is one `torch.save` file, `<dir>/<step>.pth`:
 
     {"model": the model's state_dict (the reference .pth key layout, so
               `utils.jax_import.load_reference_pth` reads this entry),
-     "opt_e", "opt_d": both Adams' state_dicts,
+     "opt_e", "opt_d": both Adams' state_dicts ("opt_d" None for a state
+                       with one joint Adam),
      "generator": the state's generator state, "generator_device": its
                   device type ("cuda" or "cpu"), "step": steps taken}
 
@@ -53,8 +54,9 @@ class CheckpointManager:
         latest = self.latest_step()
         if latest is not None and step <= latest:
             return False
+        opt_d = None if state.opt_d is None else state.opt_d.state_dict()
         payload = {"model": state.model.state_dict(), "opt_e": state.opt_e.state_dict(),
-                   "opt_d": state.opt_d.state_dict(), "generator": state.generator.get_state(),
+                   "opt_d": opt_d, "generator": state.generator.get_state(),
                    "generator_device": state.generator.device.type, "step": int(state.step)}
         tmp = self.path(step) + ".tmp"
         torch.save(payload, tmp)
@@ -78,9 +80,12 @@ class CheckpointManager:
         if payload["generator_device"] != state.generator.device.type:
             raise ValueError(f"{self.path(step)} holds a {payload['generator_device']} "
                              f"generator; the state's is on {state.generator.device.type}")
+        if (payload["opt_d"] is None) != (state.opt_d is None):
+            raise ValueError(f"{self.path(step)} and the state disagree on a joint optimizer")
         state.model.load_state_dict(payload["model"])
         state.opt_e.load_state_dict(payload["opt_e"])
-        state.opt_d.load_state_dict(payload["opt_d"])
+        if state.opt_d is not None:
+            state.opt_d.load_state_dict(payload["opt_d"])
         state.generator.set_state(payload["generator"])
         state.step = int(payload["step"])
         return state

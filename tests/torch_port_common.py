@@ -11,6 +11,7 @@ test_torch_kernels.py).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -48,14 +49,21 @@ def perturb(variables, seed: int = 0):
     return tree
 
 
+@functools.lru_cache(maxsize=None)
+def _tiny_init():
+    """`tiny_spatial`'s config and its jitted init through XLA's convs (the
+    Pallas cores keep the same param tree), compiled once per process."""
+    cfg_j = dataclasses.replace(jax_get_model_config("tiny_spatial"), use_pallas_conv=False)
+    return cfg_j, jax.jit(jax_make_model(cfg_j).init)
+
+
 def tiny_pair(seed: int = 0):
     """(jax_model, jax_variables, port_model) for `tiny_spatial`, same weights,
     both fp32, port on the CPU in eval mode."""
-    cfg_j = dataclasses.replace(jax_get_model_config("tiny_spatial"), use_pallas_conv=False)
+    cfg_j, init = _tiny_init()
     x0 = jnp.zeros((1,) + cfg_j.input_shape + (1,), jnp.float32)
-    # init through XLA's convs (the Pallas cores keep the same param tree),
-    # apply through the interpret-mode stencils
-    variables = perturb(jax.jit(jax_make_model(cfg_j).init)(jax.random.key(seed), x0), seed)
+    # init through XLA's convs, apply through the interpret-mode stencils
+    variables = perturb(init(jax.random.key(seed), x0), seed)
     model_j = jax_make_model(dataclasses.replace(cfg_j, use_pallas_small_ch=True))
     model_t = make_model(get_model_config("tiny_spatial"), device="cpu")
     model_t.load_state_dict(jax_to_state_dict(variables, model_t))
@@ -77,3 +85,70 @@ def to_ncdhw(x: np.ndarray) -> torch.Tensor:
 
 def to_ndhwc(t: torch.Tensor) -> np.ndarray:
     return t.detach().float().permute(0, 2, 3, 4, 1).numpy()
+
+
+def np_tree(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def jax_state_trees(st):
+    """A JAX SIVAETrainState as the plain numpy trees that
+    `load_jax_train_state` takes. A joint Adam (the VAE / CAE trainers) keeps
+    its (encoder, decoder) pair of moment trees; an empty `opt_d` is left
+    out, and so are a classifier's empty decoder trees."""
+    def adam(o):
+        return {"mu": np_tree(o[0].mu), "nu": np_tree(o[0].nu), "count": int(o[0].count)}
+
+    out = {"enc_params": np_tree(st.enc_params), "dec_params": np_tree(st.dec_params),
+           "enc_stats": np_tree(st.enc_stats), "dec_stats": np_tree(st.dec_stats),
+           "opt_e": adam(st.opt_e), "step": int(st.step)}
+    if st.opt_d != ():
+        out["opt_d"] = adam(st.opt_d)
+    return out
+
+
+def flat_state(trees):
+    """The trees of `jax_state_trees` flat, under `export_train_state`'s
+    names ("opt_e/mu/0/..." for the encoder half of a joint Adam)."""
+    def walk(node, prefix, out):
+        items = (node.items() if isinstance(node, dict)
+                 else ((str(i), v) for i, v in enumerate(node)))
+        for k, v in items:
+            if isinstance(v, (dict, tuple, list)):
+                walk(v, prefix + (k,), out)
+            else:
+                out["/".join(prefix + (k,))] = np.asarray(v)
+        return out
+
+    out = {}
+    for name in ("enc_params", "dec_params", "enc_stats", "dec_stats"):
+        if trees[name]:
+            walk(trees[name], (name,), out)
+    for o in ("opt_e", "opt_d"):
+        if o in trees:
+            walk({"mu": trees[o]["mu"], "nu": trees[o]["nu"]}, (o,), out)
+            out[f"{o}/count"] = np.asarray(trees[o]["count"])
+    out["step"] = np.asarray(trees["step"])
+    return out
+
+
+def assert_moments_close(got, want, zero_grad=()):
+    """Adam first moments after one step (0.1 x the gradient), per tensor:
+    |got - want| <= 1e-3 * max|want| where |want| > 1e-3 * max|want|. The
+    tensors in `zero_grad` (conv biases feeding a BN, whose exact gradient
+    is 0: the mean subtraction cancels them) hold rounding noise in both
+    stacks and must stay below 1e-4 of the largest first moment of all."""
+    bad = []
+    noise = 1e-4 * max(np.abs(w).max() for w in want.values())
+    for k, w in want.items():
+        g = got[k]
+        if k in zero_grad:
+            if max(np.abs(g).max(), np.abs(w).max()) >= noise:
+                bad.append((k, "noise", float(np.abs(g).max()), float(np.abs(w).max())))
+            continue
+        scale = np.abs(w).max()
+        mask = np.abs(w) > 1e-3 * scale
+        err = np.abs(g - w)[mask].max() if mask.any() else 0.0
+        if err > 1e-3 * scale:
+            bad.append((k, float(err), float(scale)))
+    assert not bad, bad
