@@ -14,7 +14,9 @@ failure exits non-zero and prints no result):
    bf16: the body the dispatch chose, max error, kernel / plain / library
    (`library_ms`, a yardstick only) times, and the roofline bound; for
    `conv3d_same` rows that the wgmma body takes, its block shape and the
-   earlier mma.sync body's error and time on the same operands. Times are
+   superseded mma.sync body's error and time on the same operands, for rows
+   that the narrow body takes the superseded "fma" body's, and for
+   `conv3d_to1` rows on the tensor-core body its "fma" body's. Times are
    device times: the timed calls wait on the card behind other queued work,
    so a kernel shorter than its launch path is not timed by that path. The
    flagship sites of `conv3d_same`, `conv3d_to1` and `conv3d_from1` are also
@@ -103,8 +105,15 @@ failure exits non-zero and prints no result):
    finite metrics, a checkpoint and the derived launch counts. Then the
    spatial_150 `ResNetClassifier`: 3 steps on the volumes' labels and
    `predict_all` over them, counted. Phase 3 also holds the kernels at this
-   phase's new sites (conv3d_same 12->12 and 16->16 at 80x96x80, 32->64 at
-   20x24x20; both stencils at C = 12), bf16, batch 8.
+   phase's sites (conv3d_same on the narrow body at 80x96x80 and 40x48x40:
+   12->12, 12->24, 24->12, 16->16, 16->32, 32->16; 64->32 at 20x24x20 on the
+   narrow body and 32->64 on "mma"; both stencils at C = 12), bf16, batch 8.
+   Before the steps, one whole fc_150 forward (eval mode, encode, and decode
+   of the fp32 forward's mu) in bf16 against the same weights in fp32 on the
+   card, which share no kernel body: relative error <= 5e-2 of the largest
+   fp32 value (`TOL_FC_FORWARD` says why). Every counted bf16 run of the
+   phase prints the body of each `conv3d_same` site it launched, forward and
+   input gradient, and fails if one is "fma".
 
 `--only kernels,grad,path,stage,train,trainer,families` runs a subset while
 working on one phase; it ends with `{"ok": false, "partial": ...}`, never
@@ -161,14 +170,22 @@ STENCIL_BF16_SITES = [(8, 64, (80, 96, 80)), (2, 32, (20, 23, 37)), (2, 16, (20,
 # stage phase's batch
 FUSED_BF16_SITES = [(8, 64, 64, (80, 96, 80))]
 # bf16 only, at the families phase's batch: conv3d_same sites that no
-# earlier path reaches (fc_150's full-resolution 12->12 and fc_600's 16->16,
-# both on the "fma" body; fc_600's 32->64 on "mma"), and the two stencils
-# at fc_150's C = 12 ("fma")
-FAMILY_CONV_SITES = [(8, 12, 12, (80, 96, 80)), (8, 16, 16, (80, 96, 80)),
-                     (8, 32, 64, (20, 24, 20))]
+# earlier path reaches, those of the "narrow" body at 80x96x80 and 40x48x40
+# (fc_150 and spatial_150: 12->12, 12->24 and its input gradient 24->12;
+# fc_600: 16->16, 16->32 and its input gradient 32->16), fc_600's 64->32
+# (narrow, the input gradient of its 32->64 on "mma"); and the two stencils
+# at fc_150's C = 12
+FAMILY_CONV_SITES = [(8, 12, 12, (80, 96, 80)), (8, 12, 12, (40, 48, 40)),
+                     (8, 12, 24, (40, 48, 40)), (8, 24, 12, (40, 48, 40)),
+                     (8, 16, 16, (80, 96, 80)), (8, 16, 16, (40, 48, 40)),
+                     (8, 16, 32, (40, 48, 40)), (8, 32, 16, (40, 48, 40)),
+                     (8, 64, 32, (20, 24, 20)), (8, 32, 64, (20, 24, 20))]
 FAMILY_STENCIL_SITES = [(8, 12, (80, 96, 80))]
 SLOPE = 0.2                  # the model's LeakyReLU
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# the body each tensor-core body superseded, which phase 3 runs beside it on
+# the same operands (`conv3d_to1`'s "mma" superseded its "fma" body)
+SUPERSEDED = {"wgmma": "mma", "narrow": "fma", "mma": "fma"}
 TOL_SUMS = 1e-3
 TOL_DW = {torch.float32: 1e-3, torch.bfloat16: 1e-2}
 TRAIN_LAUNCHES = {"conv3d_same": 155, "conv3d_to1": 10, "conv3d_from1": 12,
@@ -325,7 +342,7 @@ def phase_kernels(dev) -> dict:
                                                   conv3d_fused_stats_plain)
     from sivae_torch.kernels.conv3d_small import (conv3d_from1, conv3d_from1_body,
                                                   conv3d_from1_plain, conv3d_to1, conv3d_to1_body,
-                                                  conv3d_to1_plain)
+                                                  conv3d_to1_earlier_body, conv3d_to1_plain)
 
     gen = torch.Generator(device=dev).manual_seed(0)
     failures, rows = [], {}
@@ -333,7 +350,8 @@ def phase_kernels(dev) -> dict:
     def run(name, site, dtype, kern, plain, lib_fn, nbytes, flops, numel, body="", earlier=None,
             note=""):
         """kern / plain return a tensor or a tuple (y, sums...); `earlier` is
-        the body the dispatch's choice superseded, held to the same plain."""
+        the body the dispatch's choice superseded (`SUPERSEDED[body]`), held
+        to the same plain version and timed in the same run."""
         k = kern()
         torch.cuda.synchronize()
         p = plain()
@@ -358,7 +376,8 @@ def phase_kernels(dev) -> dict:
         b_ms, b_by = bound(nbytes, flops, PEAK_FLOPS[dtype])
         old = note
         if earlier is not None:
-            old += f" | earlier body max_rel {e_rel:.3e} {time_ms(earlier, reps):.3f} ms"
+            old += (f" | superseded {SUPERSEDED[body]} body max_rel {e_rel:.3e} "
+                    f"{time_ms(earlier, reps):.3f} ms")
         tag = f"{name} {site} {dtype_name(dtype)}"
         log(f"[kernel] {tag:52s} {body:5s} max_abs {err:.3e} max_rel {rel:.3e}{sums} "
             f"{'ok' if ok else 'FAIL'} | kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
@@ -387,7 +406,8 @@ def phase_kernels(dev) -> dict:
                 lambda: F.conv3d(x_cl, w_cl, padding=1),
                 (x.numel() + w.numel() + n_vox * co) * isz, 2.0 * n_vox * 27 * ci * co,
                 x.numel(), body,
-                (lambda: conv3d_same_earlier_body(x, w)) if body == "wgmma" else None, blocks)
+                (lambda: conv3d_same_earlier_body(x, w)) if body in ("wgmma", "narrow") else None,
+                blocks)
 
         to1_more = STENCIL_BF16_SITES + FAMILY_STENCIL_SITES if dtype == torch.bfloat16 else []
         for b, c, sp in [(2,) + site for site in SMALL_SITES] + to1_more:
@@ -396,11 +416,12 @@ def phase_kernels(dev) -> dict:
             w = _he((3, 3, 3, c, 1), 27 * c, gen, dev, dtype)
             x_cl = x.permute(0, 4, 1, 2, 3)
             w_cl = w.permute(4, 3, 0, 1, 2).contiguous()
+            body = conv3d_to1_body(x)
             run("conv3d_to1", f"{c}->1@{grid_name(sp)}" + _batch_tag(b), dtype,
                 lambda: conv3d_to1(x, w), lambda: conv3d_to1_plain(x, w),
                 lambda: F.conv3d(x_cl, w_cl, padding=1),
                 (x.numel() + w.numel() + n_vox) * isz, 2.0 * n_vox * 27 * c, x.numel(),
-                conv3d_to1_body(x))
+                body, (lambda: conv3d_to1_earlier_body(x, w)) if body == "mma" else None)
 
         from1_more = STENCIL_BF16_SITES + FAMILY_STENCIL_SITES if dtype == torch.bfloat16 else []
         for b, c, sp in [(2,) + site for site in SMALL_SITES] + from1_more:
@@ -1143,6 +1164,73 @@ def _add_counts(a: dict, b: dict) -> dict:
     return {k: a.get(k, 0) + b.get(k, 0) for k in set(a) | set(b)}
 
 
+def site_bodies(dev) -> dict:
+    """The body conv3d_same's dispatch takes at each bf16 site launched since
+    the counters were last set to 0, "Ci->Co": body (fresh operands, which
+    are aligned, as the model's are)."""
+    from sivae_torch.kernels import build
+    from sivae_torch.kernels.conv3d import conv3d_same_body
+
+    bodies = {}
+    for site in build.conv3d_same_sites:
+        ci, co = (int(c) for c in site.split("@")[0].split("->"))
+        ops = [torch.empty(s, dtype=torch.bfloat16, device=dev)
+               for s in ((1, 1, 1, 1, ci), (3, 3, 3, ci, co), (1, 1, 1, 1, co))]
+        bodies[f"{ci}->{co}"] = conv3d_same_body(*ops)
+    return bodies
+
+
+def _require_tensor_core_bodies(what: str, bodies: dict) -> None:
+    """Every bf16 pairing of the FC and spatial_150 paths, forward and input
+    gradient, runs a tensor-core body ("wgmma", "mma" or "narrow")."""
+    slow = {k: v for k, v in bodies.items() if v == "fma"}
+    if slow:
+        raise SystemExit(f"chip_smoke: {what} ran the fma body at {slow}")
+
+
+# bf16 forward against fp32 forward of the same FC weights: bf16 keeps 8
+# significant bits (a rounding is <= 2^-9 relative) and the forward rounds the
+# activations after each of its ~20 layers (convs, BN, activations, pools,
+# the Linears), so the errors add up; the same comparison of this
+# architecture on the CPU (plain versions, 32^3 volumes) reads 0.8e-2 (mu)
+# and 1.5e-2 (reconstruction) of the largest fp32 value. 5e-2 leaves 3x room;
+# a wrong kernel body is off by O(1).
+TOL_FC_FORWARD = 5e-2
+
+
+def fc_forward_check(dev, real) -> None:
+    """One whole fc_150 forward, eval mode, on the volumes `real`: encode, and
+    decode of the fp32 forward's mu, in bf16 (its convs run the "narrow" and
+    C->1 / 1->C tensor-core bodies) against the same weights in fp32 on the
+    card (every conv on the "fma" bodies: the two forwards share no kernel
+    body)."""
+    from sivae_torch.kernels import build
+    from sivae_torch.models.registry import get_model_config, make_model
+
+    cfg32 = get_model_config("fc_150")
+    model32 = make_model(cfg32, device=dev, seed=0)
+    model16 = make_model(dataclasses.replace(cfg32, dtype=torch.bfloat16), device=dev, seed=0)
+    with torch.no_grad():
+        mu32, _ = model32.encode(real)
+        rec32 = model32.decode(mu32)
+        build.reset_launches()
+        mu16, _ = model16.encode(real)
+        rec16 = model16.decode(mu32)
+        torch.cuda.synchronize()
+    bodies = site_bodies(dev)
+    e_mu, e_rec = _rel(mu16, mu32), _rel(rec16, rec32)
+    ok = (e_mu <= TOL_FC_FORWARD and e_rec <= TOL_FC_FORWARD and mu16.shape == mu32.shape
+          and rec16.shape == real.shape and bool(torch.isfinite(rec16).all()))
+    log(f"[families] fc_150 forward, eval, {real.shape[0]} volumes: bf16 vs fp32 on the card, "
+        f"mu rel {e_mu:.3e}, reconstruction rel {e_rec:.3e} (limit {TOL_FC_FORWARD}); bf16 "
+        f"launches {dict(build.launches)}; conv3d_same bodies {json.dumps(bodies)} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("chip_smoke: fc_150 bf16 forward disagrees with its fp32 forward")
+    _require_tensor_core_bodies("the fc_150 bf16 forward", bodies)
+    build.reset_launches()
+
+
 def phase_families(dev, real) -> dict:
     """z600 and z600-wide (fc_150, fc_600) train steps at full width, one
     fp32 tiny_fc step card vs CPU, one epoch of the vae, cae and vae2soft
@@ -1164,6 +1252,7 @@ def phase_families(dev, real) -> dict:
     from sivae_torch.train.step import (make_classifier_eval_step, make_classifier_train_step,
                                         make_soft_intro_train_step)
 
+    fc_forward_check(dev, real)
     total = {}
     batch = real.shape[0]
     for preset in ("z600", "z600-wide"):
@@ -1188,11 +1277,12 @@ def phase_families(dev, real) -> dict:
         build.reset_launches()
         step(state, real)
         torch.cuda.synchronize()
-        counts = dict(build.launches)
+        counts, bodies = dict(build.launches), site_bodies(dev)
         log(f"[families] {preset} launches in one step {counts} (expected {want}); conv3d_same "
-            f"by site {json.dumps(build.conv3d_same_sites)}")
+            f"by site {json.dumps(build.conv3d_same_sites)}; bodies {json.dumps(bodies)}")
         if counts != want:
             raise SystemExit(f"chip_smoke: {preset} step launches {counts}, expected {want}")
+        _require_tensor_core_bodies(f"the {preset} step", bodies)
         total = _add_counts(total, counts)
         times = []
         for _ in range(REPEATS):
@@ -1259,7 +1349,7 @@ def phase_families(dev, real) -> dict:
         trainer = cli_train.train_on_split(args, train_src, val_src)
         torch.cuda.synchronize()
         epoch_s = time.perf_counter() - t0
-        counts = dict(build.launches)
+        counts, bodies = dict(build.launches), site_bodies(dev)
         files = ["args.json", "train_result.csv", "metrics.jsonl", os.path.join("ckpt", "0.pth")]
         if preset == "vae2soft":
             files += [os.path.join("vae_stage", "train_losses.txt"),
@@ -1268,11 +1358,13 @@ def phase_families(dev, real) -> dict:
         hist = trainer.logger.history
         finite = all(math.isfinite(v) for vals in hist.values() for v in vals)
         log(f"[families] {preset} epoch (2 steps, 1 validation step, checkpoint, the model's "
-            f"build) {epoch_s:.2f} s; launches {counts} (expected {want}); run files missing "
-            f"{missing}; last epoch {json.dumps({k: v[-1] for k, v in hist.items()})}")
+            f"build) {epoch_s:.2f} s; launches {counts} (expected {want}); conv3d_same bodies "
+            f"{json.dumps(bodies)}; run files missing {missing}; last epoch "
+            f"{json.dumps({k: v[-1] for k, v in hist.items()})}")
         if counts != want or missing or not finite or trainer.state.step != 2:
             raise SystemExit(f"chip_smoke: {preset} epoch: launches {counts} (expected {want}), "
                              f"missing {missing}, finite {finite}, step {trainer.state.step}")
+        _require_tensor_core_bodies(f"the {preset} epoch", bodies)
         total = _add_counts(total, counts)
         del trainer
         torch.cuda.empty_cache()
@@ -1294,9 +1386,11 @@ def phase_families(dev, real) -> dict:
     losses = [float(step(state, vox, lab)[1]["loss"]) for vox, lab in pipe.epoch(0)]
     preds, labels, acc = predict_all(make_classifier_eval_step(model), state, pipe)
     torch.cuda.synchronize()
-    counts = dict(build.launches)
+    counts, bodies = dict(build.launches), site_bodies(dev)
     log(f"[families] classifier spatial_150 bf16 batch 8: losses {losses}, predict_all accuracy "
-        f"{acc:.3f} over {len(preds)} volumes; launches {counts} (expected {want})")
+        f"{acc:.3f} over {len(preds)} volumes; launches {counts} (expected {want}); conv3d_same "
+        f"bodies {json.dumps(bodies)}")
+    _require_tensor_core_bodies("the classifier", bodies)
     if (counts != want or len(losses) != 3 or not all(math.isfinite(v) for v in losses)
             or preds.shape != (24,) or not np.array_equal(labels, src.labels)):
         raise SystemExit(f"chip_smoke: classifier: launches {counts} (expected {want}), "

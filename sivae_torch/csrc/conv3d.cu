@@ -7,28 +7,39 @@
 // once to the output type. (The Pallas kernel rounds the running sum to the
 // activation type after every depth tap.)
 //
-// Bound on an H100 SXM at the flagship site (64->64 at 80x96x80, batch 8,
-// bf16): 1.09 TFLOP against ~1.26 GB moved, so the tensor-core rate bounds
-// it. Three bodies, chosen here by shape and type:
-// - "wgmma" (conv3d_wgmma.cuh): bf16 with Ci % 64 == 0 and Co % 64 == 0.
-//   Warp-specialised: one producer thread feeds a ring of stages by TMA
-//   (input line buffers and weight tiles, 128-byte swizzle), two consumer
-//   warpgroups multiply with wgmma.mma_async, synchronised by mbarriers.
+// Four bodies, chosen here by shape, type and alignment:
+// - "wgmma" (conv3d_wgmma.cuh): bf16 with Ci % 64 == 0 and Co % 64 == 0. At
+//   the flagship site (64->64 at 80x96x80, batch 8) 1.09 TFLOP against
+//   ~1.26 GB moved: the tensor-core rate bounds it. Warp-specialised: one
+//   producer thread feeds a ring of stages by TMA (input line buffers and
+//   weight tiles, 128-byte swizzle), two consumer warpgroups multiply with
+//   wgmma.mma_async, synchronised by mbarriers.
 // - "mma" (conv3d_body.cuh): the other bf16 shapes with Ci % 32 == 0 and
 //   Co % 64 == 0: mma.sync on ldmatrix fragments over a cp.async ring.
-// - "fma" (conv3d_body.cuh): fp32 and odd channel counts, on CUDA cores.
-// The fused conv + statistics kernel (conv3d_fused.cu) instantiates the same
-// bodies with their optional parts; the conv here has none.
+// - "narrow" (conv3d_narrow.cuh): the other bf16 shapes with Ci and Co
+//   multiples of 4 up to 64 (the FC and spatial_150 channels). The bytes
+//   bound it (12->12 at 80x96x80, batch 8: 0.070 ms at 3.35 TB/s); a block
+//   reads each haloed input plane into shared memory once and multiplies
+//   with mma.sync, K padded to 16 and N to 8. H100 80GB HBM3, 700 W: 0.37 ms
+//   there (cuDNN 1.9 ms, the fma body 8.9 ms; chip_smoke.py phase 3).
+// - "fma" (conv3d_body.cuh): fp32 and the channel counts no other body
+//   takes, on CUDA cores.
+// The fused conv + statistics kernel (conv3d_fused.cu) instantiates the
+// mma, fma and wgmma bodies with their optional parts; the conv here has
+// none.
 
 #include "conv3d_body.cuh"
+#include "conv3d_narrow.cuh"
 #include "conv3d_wgmma.cuh"
 
 extern "C" {
 
-// Which body a call with these arguments runs: 2 = wgmma, 1 = mma, 0 = fma.
+// Which body a call with these arguments runs: 2 = wgmma, 1 = mma, 3 = narrow,
+// 0 = fma.
 int sivae_conv3d_same_body(const void* x, const void* w, const void* y, int Ci, int Co, int dtype) {
   if (sivae::wgmma_eligible(x, w, y, Ci, Co, dtype)) return 2;
-  return sivae::mma_eligible(x, w, y, Ci, Co, dtype) ? 1 : 0;
+  if (sivae::mma_eligible(x, w, y, Ci, Co, dtype)) return 1;
+  return sivae::narrow_eligible(x, y, Ci, Co, dtype) ? 3 : 0;
 }
 
 // x (B,D,H,W,Ci), w (3,3,3,Ci,Co), y (B,D,H,W,Co), all contiguous, one dtype,
@@ -40,6 +51,8 @@ int sivae_conv3d_same(const void* x, const void* w, void* y, int B, int D, int H
   const sivae::Fusion none = {nullptr, nullptr, 0.f, nullptr, nullptr};
   if (sivae::wgmma_eligible(x, w, y, Ci, Co, dtype))
     return sivae::launch_conv3d_wgmma<false, false>(x, w, y, B, D, H, W, Ci, Co, none, s);
+  if (!sivae::mma_eligible(x, w, y, Ci, Co, dtype) && sivae::narrow_eligible(x, y, Ci, Co, dtype))
+    return sivae::launch_conv3d_narrow(x, w, y, B, D, H, W, Ci, Co, s);
   return sivae::launch_conv3d<false, false, 3>(x, w, y, B, D, H, W, Ci, Co, dtype, none, s);
 }
 
@@ -62,7 +75,8 @@ int sivae_conv3d_same_wgmma(const void* x, const void* w, void* y, int B, int D,
 }
 
 // The same conv through the bodies of conv3d_body.cuh only (mma or fma, never
-// wgmma): the earlier tensor-core body's time beside the new one's, for
+// wgmma or narrow): the body each of those two superseded on its operands
+// (mma for wgmma's, fma for narrow's), its time beside the new one's, for
 // measurements and tests. No model path calls it.
 int sivae_conv3d_same_mma(const void* x, const void* w, void* y, int B, int D, int H, int W,
                           int Ci, int Co, int dtype, void* stream) {

@@ -10,14 +10,19 @@
 //
 // - C -> 1 replaces sivae_tpu/kernels/conv3d_small.py:_small_out_impl
 //   (_small_out_kernel). Two bodies:
-//   "mma" (conv3d_to1_mma.cuh; bf16, C = 16, 32 or 64): the channels are
-//   contracted once per input voxel on the tensor cores and the 27 taps are
-//   summed from shared memory, so each input byte is read about once.
+//   "mma" (conv3d_to1_mma.cuh; bf16, C a multiple of 4 up to 64): the
+//   channels, padded to K = 16, 32 or 64, are contracted once per input
+//   voxel on the tensor cores and the 27 taps are summed from shared
+//   memory, so each input byte is read about once; C = 12's 24-byte rows
+//   arrive by cp.async, the others by TMA.
 //   "fma" (conv3d_to1_kernel below; fp32, where TF32 would not hold the fp32
 //   tolerance, and every other C): eight threads per output voxel, each
 //   owning 16-byte chunks of the C contiguous channels; fp32 FMAs against the
 //   27xC weights held in shared memory, then a shuffle reduce. The 27x
-//   re-reads of overlapping windows hit L1/L2, which is what bounds it.
+//   re-reads of overlapping windows hit L1/L2, which is what bounds it; at
+//   C = 12 only two of the eight threads have channels (12->1 at 80x96x80,
+//   batch 8, on an H100 80GB HBM3 at 700 W: 3.6 ms, where the mma body
+//   takes 0.18 ms; chip_smoke.py phase 3).
 // - 1 -> C replaces _small_in_impl (_small_in_kernel). Two bodies:
 //   "mma" (conv3d_from1_mma.cuh; bf16, C = 16, 32 or 64, a 16-byte aligned
 //   output): the 27-tap window sum is a matrix product per voxel,
@@ -196,6 +201,20 @@ int sivae_conv3d_to1(const void* x, const void* w, void* y, int B, int D, int H,
                      int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (sivae::to1_mma_eligible(x, C, dtype)) return sivae::launch_to1_mma(x, w, y, B, D, H, W, C, s);
+  if (dtype == sivae::kFloat32)
+    sivae::launch_to1<float>(x, w, y, B, D, H, W, C, s);
+  else
+    sivae::launch_to1<__nv_bfloat16>(x, w, y, B, D, H, W, C, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The C -> 1 conv through the CUDA-core body whatever the dispatch would
+// choose: the body the tensor-core one superseded at C = 12 (and 24, 48), its
+// time beside the new one's, for measurements and tests. No model path calls
+// it.
+int sivae_conv3d_to1_fma(const void* x, const void* w, void* y, int B, int D, int H, int W, int C,
+                         int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == sivae::kFloat32)
     sivae::launch_to1<float>(x, w, y, B, D, H, W, C, s);
   else

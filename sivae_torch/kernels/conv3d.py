@@ -6,21 +6,34 @@ which is the same kernel on the flipped, IO-swapped weights (`_bwd`,
 `sivae_tpu/kernels/conv3d.py:134-149`).
 
 The kernel (`csrc/conv3d.cu`) is an implicit GEMM over M = B*D*H*W voxels,
-N = Co, K = 27*Ci. Bound on an H100 SXM at the flagship site (64->64 at
-80x96x80, batch 8, bf16): 1.09 TFLOP is ~1.10 ms at 989 TF/s, ~1.26 GB
-in+out is ~0.38 ms at 3.35 TB/s, so the tensor cores bound it. Three bodies,
-chosen in C by shape and type (`conv3d_same_body` names the one a call runs):
-"wgmma" for bf16 with Ci % 64 == 0 and Co % 64 == 0 (warp-specialised: a
-producer thread feeds a ring of shared-memory stages by TMA, two consumer
-warpgroups multiply with `wgmma.mma_async`, synchronised by mbarriers; the
-weight tile is read from shared memory once per warpgroup, which is what the
-shared-memory bandwidth of the earlier body could not afford); "mma" for the
-other bf16 shapes with Ci % 32 == 0 and Co % 64 == 0 (`mma.sync` on `ldmatrix`
-fragments over a `cp.async` ring); "fma" for fp32 and odd channel counts. All
-apply SAME padding without a padded copy (masks or bounds checks), serve the
-3 kw taps of a (kd, kh) from one line buffer of input rows, sum all 27 taps
-in fp32 and round once. The Pallas v1 rounds after each depth tap, so bf16
-comparisons against it allow for that.
+N = Co, K = 27*Ci. Four bodies, chosen in C by shape, type and alignment
+(`conv3d_same_body` names the one a call runs):
+- "wgmma", bf16 with Ci % 64 == 0 and Co % 64 == 0 (the spatial_1200
+  sites). At the flagship site (64->64 at 80x96x80, batch 8) 1.09 TFLOP is
+  ~1.10 ms at 989 TF/s and ~1.26 GB in+out ~0.38 ms at 3.35 TB/s: the tensor
+  cores bound it. Warp-specialised: a producer thread feeds a ring of
+  shared-memory stages by TMA, two consumer warpgroups multiply with
+  `wgmma.mma_async`, synchronised by mbarriers; the weight tile is read from
+  shared memory once per warpgroup.
+- "mma", the other bf16 shapes with Ci % 32 == 0 and Co % 64 == 0:
+  `mma.sync` on `ldmatrix` fragments over a `cp.async` ring.
+- "narrow", the other bf16 shapes with Ci and Co multiples of 4 up to 64:
+  the FC family's and spatial_150's 12/16/24/32/48 channels
+  (`csrc/conv3d_narrow.cuh`). There the bytes bound it (12->12 at 80x96x80,
+  batch 8: 236 MB, 0.070 ms at 3.35 TB/s, against ~0.07 ms of padded
+  tensor work). A block marches a 16-wide in-plane patch along d, copies
+  each haloed input plane into shared memory once (`cp.async`, 8-byte pieces
+  where a row is not a multiple of 16 bytes), keeps its weights resident in
+  the `mma.sync` fragment order, pads K to 16 and N to 8 with zeros in
+  shared memory, and reuses each input row's A fragment for every kh that
+  needs it. On an H100 80GB HBM3 at 700 W (`chip_smoke.py` phase 3):
+  0.37 ms at 12->12 and 0.35 ms at 16->16 (80x96x80, batch 8), against
+  cuDNN's 1.9 / 1.2 ms and the CUDA-core body's 8.9 / 8.9 ms;
+  `conv3d_same_narrow_plain` is its algorithm in PyTorch.
+- "fma", fp32 and channel counts the others do not take, on the CUDA cores.
+All apply SAME padding without a padded copy, sum all 27 taps in fp32 and
+round once. The Pallas v1 rounds after each depth tap, so bf16 comparisons
+against it allow for that.
 
 `conv3d_same` takes the plain version for a CPU tensor and launches the
 kernel for a CUDA tensor; nothing falls back. It is differentiable: a
@@ -54,6 +67,39 @@ def conv3d_same_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         sl = widen(xp[:, kd:kd + d, kh:kh + h, kw:kw + wd, :])
         acc += torch.matmul(sl, w[kd, kh, kw].to(acc.dtype))
     return acc.to(x.dtype)
+
+
+def conv3d_same_narrow_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The "narrow" body's algorithm in PyTorch, for the tests: the input
+    channels zero-padded to Kp (Ci rounded up to 16), the output channels cut
+    into the kernel's blocks (at most 32 a block, Co > 32 in two halves of a
+    multiple of 4) and each block's zero-padded to a multiple of 8; each tap's
+    16-channel products summed in fp32 in the kernel's order (kd, kw, channel
+    step, kh), rounded once. Same function as `conv3d_same_plain`, another
+    order of the fp32 sums."""
+    def round_up(a, m):
+        return -(-a // m) * m
+
+    b, d, h, wd, ci = x.shape
+    co = w.shape[-1]
+    kp = round_up(ci, 16)
+    n_chunks = -(-co // 32)                 # output channels in chunks of at most 32
+    cw = round_up(-(-co // n_chunks), 4)    # output channels a chunk (a block)
+    xp = F.pad(widen(x), (0, kp - ci, 1, 1, 1, 1, 1, 1))
+    blocks = []
+    for n0 in range(0, co, cw):
+        n_real = min(cw, co - n0)
+        wp = xp.new_zeros((3, 3, 3, kp, round_up(cw, 8)))
+        wp[..., :ci, :n_real] = w[..., n0:n0 + n_real].to(wp.dtype)
+        acc = xp.new_zeros((b, d, h, wd, wp.shape[-1]))
+        for kd in range(3):
+            for kw in range(3):
+                for k0 in range(0, kp, 16):
+                    for kh in range(3):
+                        sl = xp[:, kd:kd + d, kh:kh + h, kw:kw + wd, k0:k0 + 16]
+                        acc += torch.matmul(sl, wp[kd, kh, kw, k0:k0 + 16])
+        blocks.append(acc[..., :n_real])
+    return torch.cat(blocks, dim=-1).to(x.dtype)
 
 
 def flip_swap(w: torch.Tensor) -> torch.Tensor:
@@ -115,10 +161,11 @@ def conv3d_same_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def conv3d_same_earlier_body(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The conv on a CUDA tensor through the bodies that preceded the wgmma
-    one ("mma" or "fma"), whatever the dispatch would choose: for timing the
-    two tensor-core bodies side by side and for the card tests. No model path
-    calls it and it counts no launch."""
+    """The conv on a CUDA tensor through the body that the dispatch's choice
+    superseded: "mma" on the operands the "wgmma" body takes, "fma" on those
+    the "narrow" body takes (whatever the dispatch would choose, never wgmma
+    or narrow): for timing the two bodies side by side and for the card
+    tests. No model path calls it and it counts no launch."""
     return _launch("sivae_conv3d_same_mma", x, w)
 
 
@@ -156,12 +203,13 @@ def _launch(entry: str, x: torch.Tensor, w: torch.Tensor, *more: int) -> torch.T
     return y
 
 
-BODIES = ("fma", "mma", "wgmma")
+BODIES = ("fma", "mma", "wgmma", "narrow")
 WGMMA_SHAPES = (11, 21, 12, 22)   # 128x64, 256x64, 128x128, 256x128 outputs a block
 
 
 def conv3d_same_body(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor) -> str:
-    """Which kernel body a CUDA call on these tensors runs: "wgmma", "mma" or "fma"."""
+    """Which kernel body a CUDA call on these tensors runs: "wgmma", "mma",
+    "narrow" or "fma"."""
     used = build.library().sivae_conv3d_same_body(
         x.data_ptr(), w.data_ptr(), y.data_ptr(), x.shape[-1], w.shape[-1], build.dtype_code(x))
     return BODIES[used]

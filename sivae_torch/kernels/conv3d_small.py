@@ -19,16 +19,22 @@ A 1-channel side makes the conv a 27-tap stencil with a channel reduction or
 broadcast. Both are bound by the bytes of their C-wide side: at 64 channels,
 80x96x80, batch 8, bf16 that side is ~629 MB, ~0.19 ms at 3.35 TB/s on an
 H100 SXM (`chip_smoke.py` computes the same bound from each call's shapes).
-In bf16 with C = 16, 32 or 64 both run on the tensor cores ("mma" bodies):
-`conv3d_to1` contracts the channels once per input voxel and sums the 27
-taps from shared memory (`conv3d_to1_contract_first_plain` is that algorithm
-in PyTorch); `conv3d_from1` multiplies each output voxel's 27-tap window
-(padded to 32) by the 32 x C weights held in registers, so its own output
-stream is what is left (`conv3d_from1_gemm_plain`). Their fp32 and odd-C
-bodies ("fma") do the ~1.7e10 multiply-adds on CUDA cores (~0.5 ms at 67
-TF/s counting 2 per FMA); the 1 -> C one is held there by its shared-memory
-weight reads, one per FMA. `csrc/conv3d_small.cu` says how each body is laid
-out. All accumulate in fp32 and round once.
+Both have tensor-core bodies ("mma") in bf16. `conv3d_to1` (C a multiple
+of 4 up to 64) contracts the channels once per input voxel, K padded to
+16, 32 or 64 with zeros, and sums the 27 taps from shared memory
+(`conv3d_to1_contract_first_plain` is that algorithm in PyTorch); its input
+arrives by TMA where a voxel row is a multiple of 16 bytes and by 8-byte
+`cp.async` where it is not (C = 12: 24 bytes). On an H100 80GB HBM3 at
+700 W (`chip_smoke.py` phase 3, 80x96x80, batch 8): 12->1 in 0.18 ms
+against the CUDA-core body's 3.6 ms, cuDNN's 7.2 ms and a 0.038 ms bound.
+`conv3d_from1` (C = 16, 32 or 64) multiplies each output voxel's 27-tap
+window (padded to 32) by the 32 x C weights held in registers, so its own
+output stream is what is left (`conv3d_from1_gemm_plain`). Their fp32 and
+other-C bodies ("fma") do the ~1.7e10 multiply-adds on CUDA cores (~0.5 ms
+at 67 TF/s counting 2 per FMA); the 1 -> C one is held there by its
+shared-memory weight reads, one per FMA (1 -> 12 at 80x96x80, batch 8:
+0.42 ms). `csrc/conv3d_small.cu` says how each body is laid out. All
+accumulate in fp32 and round once.
 
 The wrappers take the plain version for a CPU tensor and launch the kernel
 for a CUDA tensor; nothing falls back. `conv3d_to1` and `conv3d_from1` are
@@ -130,16 +136,31 @@ def wgrad_from1(x: torch.Tensor, g: torch.Tensor, w_dtype: torch.dtype) -> torch
     return dw[:27].reshape(3, 3, 3, 1, c).to(w_dtype)
 
 
-def _launch(name: str, x: torch.Tensor, w27: torch.Tensor, y: torch.Tensor, c: int) -> None:
+def _launch(entry: str, x: torch.Tensor, w27: torch.Tensor, y: torch.Tensor, c: int) -> None:
     b, d, h, wd = y.shape[:4]
     build.require_voxels(b, d, h, wd)
     lib = build.library()
     with torch.cuda.device(x.device):
-        rc = getattr(lib, "sivae_" + name)(x.data_ptr(), w27.data_ptr(), y.data_ptr(),
-                                           b, d, h, wd, c, build.dtype_code(x),
-                                           build.stream_of(x))
-    build.check(rc, name)
-    build.launches[name] += 1
+        rc = getattr(lib, "sivae_" + entry)(x.data_ptr(), w27.data_ptr(), y.data_ptr(),
+                                            b, d, h, wd, c, build.dtype_code(x),
+                                            build.stream_of(x))
+    build.check(rc, entry)
+
+
+def _check_to1(x: torch.Tensor, w: torch.Tensor) -> None:
+    if x.dim() != 5 or tuple(w.shape) != (3, 3, 3, x.shape[-1], 1):
+        raise ValueError(f"conv3d_to1: bad shapes x{tuple(x.shape)} w{tuple(w.shape)}")
+
+
+def _to1_launch(entry: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    c = x.shape[-1]
+    if c > MAX_CHANNELS:
+        raise ValueError(f"conv3d_to1 takes at most {MAX_CHANNELS} channels, got {c}")
+    w27 = w[..., 0].contiguous()
+    build.require_cuda(x, w27)
+    y = torch.empty(x.shape[:4] + (1,), dtype=x.dtype, device=x.device)
+    _launch(entry, x, w27, y, c)
+    return y
 
 
 class _Conv3dTo1(torch.autograd.Function):
@@ -194,17 +215,11 @@ def conv3d_from1(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def conv3d_to1_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The C -> 1 stencil itself, outside autograd: plain version or kernel."""
-    if x.dim() != 5 or tuple(w.shape) != (3, 3, 3, x.shape[-1], 1):
-        raise ValueError(f"conv3d_to1: bad shapes x{tuple(x.shape)} w{tuple(w.shape)}")
+    _check_to1(x, w)
     if x.device.type == "cpu":
         return conv3d_to1_plain(x, w)
-    c = x.shape[-1]
-    if c > MAX_CHANNELS:
-        raise ValueError(f"conv3d_to1 takes at most {MAX_CHANNELS} channels, got {c}")
-    w27 = w[..., 0].contiguous()
-    build.require_cuda(x, w27)
-    y = torch.empty(x.shape[:4] + (1,), dtype=x.dtype, device=x.device)
-    _launch("conv3d_to1", x, w27, y, c)
+    y = _to1_launch("conv3d_to1", x, w)
+    build.launches["conv3d_to1"] += 1
     return y
 
 
@@ -221,7 +236,17 @@ def conv3d_from1_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     build.require_cuda(x, w27)
     y = torch.empty(x.shape[:4] + (c,), dtype=x.dtype, device=x.device)
     _launch("conv3d_from1", x, w27, y, c)
+    build.launches["conv3d_from1"] += 1
     return y
+
+
+def conv3d_to1_earlier_body(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """`conv3d_to1` on a CUDA tensor through the CUDA-core body ("fma"),
+    whatever the dispatch would choose: the body the tensor-core one
+    superseded at C = 12, timed beside it, and for the card tests. No model
+    path calls it and it counts no launch."""
+    _check_to1(x, w)
+    return _to1_launch("conv3d_to1_fma", x, w)
 
 
 def conv3d_from1_body(x: torch.Tensor, c: int) -> str:

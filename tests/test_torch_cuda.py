@@ -20,8 +20,9 @@ import torch
 
 from sivae_torch.kernels import build
 from sivae_torch.kernels.conv3d import (WGMMA_SHAPES, conv3d_same, conv3d_same_body,
-                                        conv3d_same_earlier_body, conv3d_same_plain,
-                                        conv3d_same_wgmma_blocks, conv3d_same_wgmma_shape)
+                                        conv3d_same_earlier_body, conv3d_same_narrow_plain,
+                                        conv3d_same_plain, conv3d_same_wgmma_blocks,
+                                        conv3d_same_wgmma_shape)
 from sivae_torch.kernels.conv3d_fused import (conv3d_fused_stats, conv3d_fused_stats_body,
                                               conv3d_fused_stats_earlier_body,
                                               conv3d_fused_stats_plain,
@@ -29,7 +30,9 @@ from sivae_torch.kernels.conv3d_fused import (conv3d_fused_stats, conv3d_fused_s
                                               conv3d_fused_stats_wgmma_shape, conv3d_stats)
 from sivae_torch.kernels.conv3d_small import (conv3d_from1, conv3d_from1_body,
                                               conv3d_from1_gemm_plain, conv3d_from1_plain,
-                                              conv3d_to1, conv3d_to1_body, conv3d_to1_plain)
+                                              conv3d_to1, conv3d_to1_body,
+                                              conv3d_to1_contract_first_plain,
+                                              conv3d_to1_earlier_body, conv3d_to1_plain)
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 CASES = [  # kernel, plain version, x shape, w shape
@@ -72,32 +75,51 @@ def test_kernel_matches_plain_and_counts_one_launch(cuda_device, dtype, kern, pl
     assert err <= TOL[dtype] * max(1.0, want.float().abs().max().item())
 
 
-# bf16 shapes of conv3d_same and the body each must take. The wgmma body
-# walks 128 or 256 consecutive voxels a block: W and H that no tile divides,
-# M not a multiple of 64, B = 1 and 3, tiles that straddle rows, planes and
-# batch elements, Ci != Co, K of several 64-channel chunks, a grid large
-# enough for several rounds of blocks (36864 voxels x 128 channels).
+# shapes of conv3d_same, the body each must take, and the type (bf16 unless
+# said). The wgmma body walks 128 or 256 consecutive voxels a block: W and H
+# that no tile divides, M not a multiple of 64, B = 1 and 3, tiles that
+# straddle rows, planes and batch elements, Ci != Co, K of several 64-channel
+# chunks, a grid large enough for several rounds of blocks (36864 voxels x
+# 128 channels). The narrow body marches 16-wide patches along d: every
+# pairing of the FC and spatial_150 forwards and input gradients at a grid no
+# patch divides (7 wide, 6 high), Co > 32 in two channel halves.
 BODY_CASES = [
-    ((1, 3, 5, 7, 64), 64, "wgmma"),        # M = 105: one ragged block
-    ((3, 5, 7, 9, 64), 128, "wgmma"),       # M = 945, 63 voxels a plane
-    ((1, 2, 3, 200, 64), 64, "wgmma"),      # a row longer than a block
-    ((3, 4, 6, 5, 256), 128, "wgmma"),      # the 256 -> 128 input-gradient site's channels
-    ((2, 9, 11, 13, 128), 64, "wgmma"),
-    ((1, 32, 36, 32, 64), 128, "wgmma"),    # several rounds of blocks over the SMs
-    ((2, 5, 6, 7, 96), 64, "mma"),          # Ci = 32 * 3: the earlier tensor-core body
-    ((2, 4, 5, 6, 64), 24, "fma"),
+    ((1, 3, 5, 7, 64), 64, "wgmma", torch.bfloat16),        # M = 105: one ragged block
+    ((3, 5, 7, 9, 64), 128, "wgmma", torch.bfloat16),       # M = 945, 63 voxels a plane
+    ((1, 2, 3, 200, 64), 64, "wgmma", torch.bfloat16),      # a row longer than a block
+    ((3, 4, 6, 5, 256), 128, "wgmma", torch.bfloat16),      # the 256 -> 128 dgrad's channels
+    ((2, 9, 11, 13, 128), 64, "wgmma", torch.bfloat16),
+    ((1, 32, 36, 32, 64), 128, "wgmma", torch.bfloat16),    # several rounds of blocks
+    ((2, 5, 6, 7, 96), 64, "mma", torch.bfloat16),          # Ci = 32 * 3: the earlier body
+    ((2, 4, 5, 6, 64), 24, "narrow", torch.bfloat16),
+    ((2, 5, 6, 7, 12), 12, "narrow", torch.bfloat16),
+    ((2, 5, 6, 7, 12), 24, "narrow", torch.bfloat16),
+    ((2, 5, 6, 7, 24), 12, "narrow", torch.bfloat16),
+    ((2, 5, 6, 7, 16), 16, "narrow", torch.bfloat16),
+    ((2, 5, 6, 7, 16), 32, "narrow", torch.bfloat16),
+    ((2, 5, 6, 7, 32), 16, "narrow", torch.bfloat16),
+    ((2, 5, 6, 7, 32), 32, "narrow", torch.bfloat16),
+    ((2, 5, 6, 7, 24), 32, "narrow", torch.bfloat16),
+    ((2, 5, 6, 7, 32), 48, "narrow", torch.bfloat16),
+    ((2, 5, 6, 7, 48), 32, "narrow", torch.bfloat16),
+    ((2, 5, 6, 7, 48), 48, "narrow", torch.bfloat16),
+    ((2, 5, 6, 7, 64), 32, "narrow", torch.bfloat16),       # fc_600's 32 -> 64 dgrad
+    ((3, 20, 37, 41, 12), 12, "narrow", torch.bfloat16),    # several patches and segments
+    ((2, 5, 6, 7, 5), 12, "fma", torch.bfloat16),           # Ci not a multiple of 4
+    ((2, 5, 6, 7, 12), 12, "fma", torch.float32),
 ]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("x_shape,co,body", BODY_CASES)
-def test_conv3d_same_bodies_match_plain(cuda_device, x_shape, co, body):
-    """Each bf16 body the dispatch chooses, and the earlier body on the same
-    operands, against the plain version."""
+@pytest.mark.parametrize("x_shape,co,body,dtype", BODY_CASES)
+def test_conv3d_same_bodies_match_plain(cuda_device, x_shape, co, body, dtype):
+    """Each body the dispatch chooses, and the body it superseded on the same
+    operands ("mma" for wgmma's, "fma" for narrow's), against the plain
+    version and against each other."""
     gen = torch.Generator(device=cuda_device).manual_seed(3)
-    x = torch.randn(x_shape, generator=gen, device=cuda_device).bfloat16()
+    x = torch.randn(x_shape, generator=gen, device=cuda_device).to(dtype)
     w = (0.1 * torch.randn((3, 3, 3, x_shape[-1], co), generator=gen,
-                           device=cuda_device)).bfloat16()
+                           device=cuda_device)).to(dtype)
     got = conv3d_same(x, w)
     assert conv3d_same_body(x, w, got) == body
     before = dict(build.launches)
@@ -108,9 +130,12 @@ def test_conv3d_same_bodies_match_plain(cuda_device, x_shape, co, body):
     torch.cuda.synchronize()
     assert build.launches == before  # the measuring entries count nothing
     want = conv3d_same_plain(x, w).float()
-    tol = TOL[torch.bfloat16] * max(1.0, want.abs().max().item())
+    tol = TOL[dtype] * max(1.0, want.abs().max().item())
     assert (got.float() - want).abs().max().item() <= tol
     assert (earlier.float() - want).abs().max().item() <= tol
+    assert (got.float() - earlier.float()).abs().max().item() <= tol
+    if body == "narrow":  # its own algorithm, in PyTorch, on the same bf16 values
+        assert (got.float() - conv3d_same_narrow_plain(x, w).float()).abs().max().item() <= tol
 
 
 @pytest.mark.gpu
@@ -133,11 +158,13 @@ def test_conv3d_same_wgmma_block_shapes_agree(cuda_device, shape):
 
 
 # bf16 shapes of conv3d_to1: the mma body marches 16 x 16 patches along d, so
-# H and W below, at and above one patch, D = 1, B = 1 and 3, every C it
-# takes; C = 5 and 48 fall to the CUDA-core body
+# H and W below, at and above one patch, D = 1, B = 1 and 3, C = 16, 32 and
+# 64 by TMA, 12 by cp.async, 24 and 48 by a TMA box wider than the channels;
+# C = 5 falls to the CUDA-core body
 TO1_CASES = [((1, 1, 3, 4, 64), "mma"), ((3, 5, 7, 9, 64), "mma"), ((1, 9, 16, 16, 64), "mma"),
              ((2, 3, 17, 33, 64), "mma"), ((1, 90, 18, 20, 16), "mma"), ((2, 4, 35, 6, 32), "mma"),
-             ((2, 4, 5, 6, 5), "fma"), ((1, 4, 5, 6, 48), "fma")]
+             ((2, 4, 5, 6, 5), "fma"), ((1, 4, 5, 6, 48), "mma"), ((2, 6, 19, 37, 12), "mma"),
+             ((3, 5, 17, 21, 24), "mma"), ((1, 1, 3, 4, 12), "mma")]
 
 
 @pytest.mark.gpu
@@ -150,11 +177,17 @@ def test_conv3d_to1_bodies_match_plain(cuda_device, x_shape, body):
     assert conv3d_to1_body(x) == body
     assert conv3d_to1_body(x.float()) == "fma"  # TF32 would not hold the fp32 tolerance
     got = conv3d_to1(x, w)
+    before = dict(build.launches)
+    earlier = conv3d_to1_earlier_body(x, w)  # the CUDA-core body on the same operands
     torch.cuda.synchronize()
+    assert build.launches == before
     want = conv3d_to1_plain(x, w).float()
+    tol = TOL[torch.bfloat16] * max(1.0, want.abs().max().item())
     assert got.shape == want.shape
-    assert (got.float() - want).abs().max().item() <= TOL[torch.bfloat16] * max(
-        1.0, want.abs().max().item())
+    assert (got.float() - want).abs().max().item() <= tol
+    assert (earlier.float() - want).abs().max().item() <= tol
+    if body == "mma":  # its own algorithm, in PyTorch, on the same bf16 values
+        assert (got.float() - conv3d_to1_contract_first_plain(x, w).float()).abs().max() <= tol
 
 
 # (B, D, H, W) and C of conv3d_from1 in bf16: the mma body marches 16 x 16
@@ -294,6 +327,7 @@ GRAD_CASES = [  # differentiable wrapper, plain version, x shape, w shape
     (conv3d_same, conv3d_same_plain, (2, 6, 8, 10, 64), (3, 3, 3, 64, 128)),  # dgrad 128 -> 64
     (conv3d_same, conv3d_same_plain, (3, 5, 7, 9, 128), (3, 3, 3, 128, 256)),  # dgrad 256 -> 128
     (conv3d_same, conv3d_same_plain, (2, 4, 5, 6, 3), (3, 3, 3, 3, 4)),
+    (conv3d_same, conv3d_same_plain, (2, 5, 6, 7, 12), (3, 3, 3, 12, 24)),  # dgrad 24 -> 12, narrow
     (conv3d_to1, conv3d_to1_plain, (2, 6, 8, 10, 64), (3, 3, 3, 64, 1)),
     (conv3d_from1, conv3d_from1_plain, (2, 6, 8, 10, 1), (3, 3, 3, 1, 64)),
     (conv3d_stats, _stats_plain, (2, 6, 7, 9, 64), (3, 3, 3, 64, 64)),

@@ -18,7 +18,7 @@ from sivae_tpu.kernels.conv3d import conv3d_same_pallas
 from sivae_tpu.kernels.conv3d_small import conv3d_from1 as jax_from1
 from sivae_tpu.kernels.conv3d_small import conv3d_to1 as jax_to1
 from sivae_torch.kernels import build
-from sivae_torch.kernels.conv3d import conv3d_same, conv3d_same_plain
+from sivae_torch.kernels.conv3d import conv3d_same, conv3d_same_narrow_plain, conv3d_same_plain
 from sivae_torch.kernels.conv3d_small import (conv3d_from1, conv3d_from1_gemm_plain,
                                               conv3d_from1_plain, conv3d_to1,
                                               conv3d_to1_contract_first_plain, conv3d_to1_plain)
@@ -84,6 +84,18 @@ def test_to1_plain_matches_pallas_bf16():
     got = conv3d_to1_plain(xt, wt).float().numpy()
     want = np.asarray(jax_to1(xj, wj, True).astype(jnp.float32))
     np.testing.assert_allclose(got, want, atol=0.05, rtol=0.05)
+
+
+# the narrow conv body's algorithm (channels padded to 16, output channels to
+# a multiple of 8, taps summed in its order) at the FC family's channel counts
+@pytest.mark.parametrize("cin,cout", [(12, 12), (12, 24), (24, 12), (16, 16), (16, 24)])
+def test_conv3d_narrow_plain_matches_plain(cin, cout):
+    """Same function, another order of the fp32 sums: 1e-5 of the largest."""
+    x, w = _inputs(8, (1, 3, 4, 5), cin, cout)
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    got, want = conv3d_same_narrow_plain(xt, wt), conv3d_same_plain(xt, wt)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert (got - want).abs().max().item() <= 1e-5 * max(1.0, want.abs().max().item())
 
 
 # the tensor-core body's algorithm (channels contracted once per voxel, then

@@ -55,7 +55,7 @@ from sivae_torch.train.loop import SoftIntroTrainer
 from sivae_torch.train.state import create_train_state, learning_rate, param_count
 from sivae_torch.train.step import make_soft_intro_eval_step, make_soft_intro_train_step
 from sivae_torch.utils.jax_import import export_train_state, load_jax_train_state
-from torch_port_common import perturb, to_ncdhw
+from torch_port_common import flat_random_draws, perturb, to_ncdhw
 
 torch.set_num_threads(2)
 
@@ -202,7 +202,8 @@ def _jax_setup(seed=0):
     cfg = dataclasses.replace(cfg, act=cfg.act.with_no_dropout(), remat=False)
     model = jax_make_model(cfg)
     x0 = jnp.zeros((1,) + cfg.input_shape + (1,), jnp.float32)
-    state = jax_create_train_state(model, jax.random.key(seed), x0, JaxOptimConfig(), 1)
+    with flat_random_draws():  # the same bits, compiled faster
+        state = jax_create_train_state(model, jax.random.key(seed), x0, JaxOptimConfig(), 1)
     v = perturb({"enc": {"params": state.enc_params, "batch_stats": state.enc_stats},
                  "dec": {"params": state.dec_params, "batch_stats": state.dec_stats}}, seed)
     state = state.replace(enc_params=v["enc"]["params"], enc_stats=v["enc"]["batch_stats"],

@@ -10,10 +10,13 @@ test_torch_kernels.py).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import math
 
 import jax
+import jax._src.random as jax_random_impl
 import jax.numpy as jnp
 import numpy as np
 import torch
@@ -49,6 +52,42 @@ def perturb(variables, seed: int = 0):
     return tree
 
 
+@contextlib.contextmanager
+def flat_random_draws():
+    """While active, `jax.random.normal` and `jax.random.truncated_normal`
+    draw a flat vector and reshape it to the asked shape. With the
+    partitionable threefry (the default of the JAX installed here) a draw's
+    bits depend on the flat index only, so the values are bit for bit those
+    of the shaped draw; XLA on the CPU compiles a flat draw several times
+    faster than a 5-D one (the conv kernels of a flax init), which is most
+    of the time an init takes. Without the partitionable threefry it changes
+    nothing."""
+    normal, truncated = jax.random.normal, jax.random.truncated_normal
+
+    def flat_normal(key, shape=(), dtype=None, **kw):
+        shape = tuple(shape)
+        return normal(key, (math.prod(shape),), dtype, **kw).reshape(shape)
+
+    def flat_truncated(key, lower, upper, shape=None, dtype=None, **kw):
+        if shape is None or np.ndim(lower) or np.ndim(upper):
+            return truncated(key, lower, upper, shape, dtype, **kw)
+        shape = tuple(shape)
+        return truncated(key, lower, upper, (math.prod(shape),), dtype, **kw).reshape(shape)
+
+    if not jax.config.jax_threefry_partitionable:
+        yield
+        return
+    # jax.nn.initializers call the samplers through jax._src.random
+    modules = (jax.random, jax_random_impl)
+    for m in modules:
+        m.normal, m.truncated_normal = flat_normal, flat_truncated
+    try:
+        yield
+    finally:
+        for m in modules:
+            m.normal, m.truncated_normal = normal, truncated
+
+
 @functools.lru_cache(maxsize=None)
 def _tiny_init():
     """`tiny_spatial`'s config and its jitted init through XLA's convs (the
@@ -63,7 +102,8 @@ def tiny_pair(seed: int = 0):
     cfg_j, init = _tiny_init()
     x0 = jnp.zeros((1,) + cfg_j.input_shape + (1,), jnp.float32)
     # init through XLA's convs, apply through the interpret-mode stencils
-    variables = perturb(init(jax.random.key(seed), x0), seed)
+    with flat_random_draws():  # the first call traces the init
+        variables = perturb(init(jax.random.key(seed), x0), seed)
     model_j = jax_make_model(dataclasses.replace(cfg_j, use_pallas_small_ch=True))
     model_t = make_model(get_model_config("tiny_spatial"), device="cpu")
     model_t.load_state_dict(jax_to_state_dict(variables, model_t))
