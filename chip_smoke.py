@@ -12,15 +12,18 @@ failure exits non-zero and prints no result):
    input gradient sees (128->64 and 256->128), batch 2, plus odd shapes
    (conv 3->4 and 1->5, stencils with 5 channels), in fp32 (TF32 off) and
    bf16: the body the dispatch chose, max error, kernel / plain / library
-   (`library_ms`, a yardstick only) times, and the roofline bound; for
-   `conv3d_same` rows that the wgmma body takes, its block shape and the
-   superseded mma.sync body's error and time on the same operands, for rows
-   that the narrow body takes the superseded "fma" body's, and for
-   `conv3d_to1` rows on the tensor-core body its "fma" body's. Times are
+   (`library_ms`, a yardstick only) times, and the roofline bound (fp32 at
+   165 TF/s, a third of the TF32 rate: what fp32-accurate work costs on the
+   tensor cores); for `conv3d_same` rows that the wgmma body takes, its
+   block shape and the superseded mma.sync body's error and time on the same
+   operands, for rows that the narrow or tf32x3 body takes the superseded
+   "fma" body's, and for `conv3d_to1` and `conv3d_from1` rows on a
+   tensor-core body ("mma", "tf32x3") their "fma" body's. Times are
    device times: the timed calls wait on the card behind other queued work,
    so a kernel shorter than its launch path is not timed by that path. The
    flagship sites of `conv3d_same`, `conv3d_to1` and `conv3d_from1` are also
-   run at batch 8, the batch both main paths run, and the two stencils at
+   run at batch 8, the batch both main paths run, in bf16 and fp32 (the
+   stem also at C = 12 in fp32 and C = 24 in bf16), and the two stencils at
    C = 16 and 32. The fused conv +
    statistics kernel runs with and without its prologue at the flagship site
    (with it also at batch 8) and at two shapes whose tiles straddle (b, d)
@@ -39,18 +42,19 @@ failure exits non-zero and prints no result):
    version on the same values. dx: the forward tolerances. dw sums 1.2e6
    products per element: fp32 1e-3, bf16 1e-2, of max(1, max|reference|).
 5. The eval / CBIR path end to end at full width: spatial_1200 at 80x96x80,
-   seeded random weights, 32 synthetic volumes (seed 7), all bf16. The main
-   path runs once with the launch counters set to 0: encode every volume at
+   seeded random weights, 32 synthetic volumes (seed 7), in bf16 (the eval
+   CLI's `--bf16`) and then in fp32 (its default). For each, the main path
+   runs once with the launch counters set to 0: encode every volume at
    batch 8, cosine-kNN retrieval (every fifth patient's volumes as queries),
    reconstruction report of every volume at batch 8. The counters must grow
    by exactly 8 conv3d + 1 from1 per encoded batch and 13 conv3d + 1 to1 +
    1 from1 per reconstructed batch. Then encode and reconstruct throughput
-   over the same 4 full batches, 5 windows each (median, min, max). Then
-   one volume in fp32 on the card (every conv through the kernels) against
-   the same model and volume on the CPU (plain versions): relative error of
-   mu and of the reconstruction <= 1e-3. A torch.profiler window over one
-   batch through each entry point (encode, reconstruction report) prints
-   device time by kernel and the idle share.
+   over the same 4 full batches, 5 windows each (median, min, max), peak
+   memory, and a torch.profiler window over one batch through each entry
+   point (encode, reconstruction report): device time by kernel and the
+   idle share. Then one volume in fp32 on the card (every conv through the
+   kernels) against the same model and volume on the CPU (plain versions):
+   relative error of mu and of the reconstruction <= 1e-3.
 6. The fused stage (the path of the fused conv + statistics kernel, which is
    on no model path): at the flagship site, batch 8, bf16, with the counters
    at 0, one fused stage forward (prologue -> conv -> batch statistics from
@@ -110,10 +114,10 @@ failure exits non-zero and prints no result):
    narrow body and 32->64 on "mma"; both stencils at C = 12), bf16, batch 8.
    Before the steps, one whole fc_150 forward (eval mode, encode, and decode
    of the fp32 forward's mu) in bf16 against the same weights in fp32 on the
-   card, which share no kernel body: relative error <= 5e-2 of the largest
+   card, which share no kernel: relative error <= 5e-2 of the largest
    fp32 value (`TOL_FC_FORWARD` says why). Every counted bf16 run of the
-   phase prints the body of each `conv3d_same` site it launched, forward and
-   input gradient, and fails if one is "fma".
+   phase prints the body of each `conv3d_same` and `conv3d_from1` site it
+   launched, forward and input gradient, and fails if one is "fma".
 
 `--only kernels,grad,path,stage,train,trainer,families` runs a subset while
 working on one phase; it ends with `{"ok": false, "partial": ...}`, never
@@ -139,8 +143,12 @@ import torch.nn.functional as F
 
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3, bytes/s
 # the card's peak FLOP/s for the inputs' type (published, dense): bf16 on the
-# tensor cores; fp32 (TF32 off) outside them
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# tensor cores; fp32-accurate work at a third of the 495 TF/s TF32 rate,
+# since one TF32 product misses the fp32 tolerance and three (the split big
+# and small operands of the "tf32x3" bodies) hold it. That is above the CUDA
+# cores' 67 TF/s, so it is the least time the card takes for the same fp32
+# work, whichever body does it.
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}
 REPEATS = 5                  # timed windows per end-to-end measurement
 
 # (Ci, Co, (D, H, W)) of every 3x3x3 stride-1 conv of spatial_1200 encode +
@@ -181,11 +189,20 @@ FAMILY_CONV_SITES = [(8, 12, 12, (80, 96, 80)), (8, 12, 12, (40, 48, 40)),
                      (8, 16, 32, (40, 48, 40)), (8, 32, 16, (40, 48, 40)),
                      (8, 64, 32, (20, 24, 20)), (8, 32, 64, (20, 24, 20))]
 FAMILY_STENCIL_SITES = [(8, 12, (80, 96, 80))]
+# fp32 only (the eval CLI's default, `--no-bf16` training), at the eval
+# path's batch: the flagship conv, and the tail and stem of spatial_1200;
+# the stem also at the FC families' C = 12
+FP32_CONV_SITES = [(8, 64, 64, (80, 96, 80))]
+FP32_STENCIL_SITES = [(8, 64, (80, 96, 80))]
+FP32_FROM1_SITES = [(8, 12, (80, 96, 80))]
+# bf16 only: the stem at C = 24, another width of the tap product's padded N
+FROM1_BF16_SITES = [(8, 24, (80, 96, 80))]
 SLOPE = 0.2                  # the model's LeakyReLU
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # the body each tensor-core body superseded, which phase 3 runs beside it on
-# the same operands (`conv3d_to1`'s "mma" superseded its "fma" body)
-SUPERSEDED = {"wgmma": "mma", "narrow": "fma", "mma": "fma"}
+# the same operands (`conv3d_to1`'s and `conv3d_from1`'s "mma" superseded
+# their "fma" bodies, as the fp32 "tf32x3" bodies did)
+SUPERSEDED = {"wgmma": "mma", "narrow": "fma", "mma": "fma", "tf32x3": "fma"}
 TOL_SUMS = 1e-3
 TOL_DW = {torch.float32: 1e-3, torch.bfloat16: 1e-2}
 TRAIN_LAUNCHES = {"conv3d_same": 155, "conv3d_to1": 10, "conv3d_from1": 12,
@@ -341,7 +358,8 @@ def phase_kernels(dev) -> dict:
                                                   conv3d_fused_stats_earlier_body,
                                                   conv3d_fused_stats_plain)
     from sivae_torch.kernels.conv3d_small import (conv3d_from1, conv3d_from1_body,
-                                                  conv3d_from1_plain, conv3d_to1, conv3d_to1_body,
+                                                  conv3d_from1_earlier_body, conv3d_from1_plain,
+                                                  conv3d_to1, conv3d_to1_body,
                                                   conv3d_to1_earlier_body, conv3d_to1_plain)
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -389,7 +407,8 @@ def phase_kernels(dev) -> dict:
 
     for dtype in (torch.float32, torch.bfloat16):
         isz = 4 if dtype == torch.float32 else 2
-        flagship8 = [(8,) + FLAGSHIP_CONV] + FAMILY_CONV_SITES if dtype == torch.bfloat16 else []
+        flagship8 = ([(8,) + FLAGSHIP_CONV] + FAMILY_CONV_SITES if dtype == torch.bfloat16
+                     else FP32_CONV_SITES)
         for b, ci, co, sp in [(2,) + site for site in CONV_SITES] + flagship8:
             x = torch.randn((b,) + sp + (ci,), generator=gen, device=dev).to(dtype)
             w = _he((3, 3, 3, ci, co), 27 * ci, gen, dev, dtype)
@@ -406,10 +425,11 @@ def phase_kernels(dev) -> dict:
                 lambda: F.conv3d(x_cl, w_cl, padding=1),
                 (x.numel() + w.numel() + n_vox * co) * isz, 2.0 * n_vox * 27 * ci * co,
                 x.numel(), body,
-                (lambda: conv3d_same_earlier_body(x, w)) if body in ("wgmma", "narrow") else None,
+                (lambda: conv3d_same_earlier_body(x, w)) if body in SUPERSEDED else None,
                 blocks)
 
-        to1_more = STENCIL_BF16_SITES + FAMILY_STENCIL_SITES if dtype == torch.bfloat16 else []
+        to1_more = (STENCIL_BF16_SITES + FAMILY_STENCIL_SITES if dtype == torch.bfloat16
+                    else FP32_STENCIL_SITES)
         for b, c, sp in [(2,) + site for site in SMALL_SITES] + to1_more:
             n_vox = b * sp[0] * sp[1] * sp[2]
             x = torch.randn((b,) + sp + (c,), generator=gen, device=dev).to(dtype)
@@ -423,18 +443,20 @@ def phase_kernels(dev) -> dict:
                 (x.numel() + w.numel() + n_vox) * isz, 2.0 * n_vox * 27 * c, x.numel(),
                 body, (lambda: conv3d_to1_earlier_body(x, w)) if body == "mma" else None)
 
-        from1_more = STENCIL_BF16_SITES + FAMILY_STENCIL_SITES if dtype == torch.bfloat16 else []
+        from1_more = (STENCIL_BF16_SITES + FAMILY_STENCIL_SITES + FROM1_BF16_SITES
+                      if dtype == torch.bfloat16 else FP32_STENCIL_SITES + FP32_FROM1_SITES)
         for b, c, sp in [(2,) + site for site in SMALL_SITES] + from1_more:
             n_vox = b * sp[0] * sp[1] * sp[2]
             x = torch.randn((b,) + sp + (1,), generator=gen, device=dev).to(dtype)
             w = _he((3, 3, 3, 1, c), 27, gen, dev, dtype)
             x_cl = x.permute(0, 4, 1, 2, 3)
             w_cl = w.permute(4, 3, 0, 1, 2).contiguous()
+            body = conv3d_from1_body(x, c)
             run("conv3d_from1", f"1->{c}@{grid_name(sp)}" + _batch_tag(b), dtype,
                 lambda: conv3d_from1(x, w), lambda: conv3d_from1_plain(x, w),
                 lambda: F.conv3d(x_cl, w_cl, padding=1),
                 (x.numel() + w.numel() + n_vox * c) * isz, 2.0 * n_vox * 27 * c, x.numel(),
-                conv3d_from1_body(x, c))
+                body, (lambda: conv3d_from1_earlier_body(x, w)) if body in SUPERSEDED else None)
 
         fused_more = FUSED_BF16_SITES if dtype == torch.bfloat16 else []
         for b, ci, co, sp in [(2,) + site for site in FUSED_SITES] + fused_more:
@@ -552,44 +574,32 @@ def synthetic_volumes(dev, n_vol: int = 32):
     return src, preprocess_batch(torch.from_numpy(src.voxels).to(dev))
 
 
-def phase_path(dev, src, vox) -> dict:
+def eval_path(dev, model, vox, labels, vid, tid, tag: str) -> dict:
+    """The eval / CBIR main path through `model` at batch 8, counted: encode
+    every volume, retrieve, reconstruct every volume with its report; the
+    launches asserted, then throughput windows and one profile window of each
+    entry point. Returns the counted launches."""
     import numpy as np
 
     from sivae_torch.eval.latent_probe import encode_dataset
     from sivae_torch.eval.recon_quality import reconstruction_report
     from sivae_torch.eval.retrieval import retrieval_precision_at_k
     from sivae_torch.kernels import build
-    from sivae_torch.models.registry import get_model_config, make_model
-    from sivae_torch.models.resnet_vae import reparameterize
 
-    cfg32 = get_model_config("spatial_1200")
-    cfg = dataclasses.replace(cfg32, dtype=torch.bfloat16)
     batch, n_vol = 8, vox.shape[0]
-    model = make_model(cfg, device=dev, seed=0)
-    # fold 4 of 5 by patient, without scikit-learn (not on every card's
-    # machine): the volumes of every fifth patient id are the queries
-    pids = sorted(set(src.pids))
-    is_val = np.array([pids.index(p) % 5 == 4 for p in src.pids])
-    vid, tid = np.flatnonzero(is_val), np.flatnonzero(~is_val)
-    log(f"[path] spatial_1200 {cfg.input_shape} bf16, {n_vol} volumes in {n_vol // batch} "
-        f"full batches of {batch}; retrieval {len(vid)} queries against {len(tid)}")
-
-    # warm-up of both paths (cuDNN plans the transposed convs on first use);
-    # its launches are not counted
+    # warm-up of both entry points (cuDNN plans the transposed convs on first
+    # use); its launches are not counted
     encode_dataset(model, vox[:batch], batch_size=batch)
     reconstruction_report(model, vox[:batch], batch_size=batch)
     torch.cuda.synchronize()
 
-    # the main path, counted: encode every volume, retrieve, reconstruct
-    # every volume with its report
     n_b = n_vol // batch
     torch.cuda.reset_peak_memory_stats(dev)
     build.reset_launches()
     z = encode_dataset(model, vox, batch_size=batch)
     torch.cuda.synchronize()
     enc_counts = dict(build.launches)
-    p_at_k = retrieval_precision_at_k(z[vid], src.labels[vid], z[tid], src.labels[tid], k=10,
-                                      device=dev)
+    p_at_k = retrieval_precision_at_k(z[vid], labels[vid], z[tid], labels[tid], k=10, device=dev)
     report = reconstruction_report(model, vox, batch_size=batch)
     torch.cuda.synchronize()
     counts = dict(build.launches)
@@ -598,20 +608,20 @@ def phase_path(dev, src, vox) -> dict:
     want = {"conv3d_same": 8 * n_b, "conv3d_to1": 0, "conv3d_from1": n_b,
             "conv3d_fused_stats": 0}
     if enc_counts != want:
-        raise SystemExit(f"chip_smoke: encode launches {enc_counts}, expected {want}")
+        raise SystemExit(f"chip_smoke: {tag} encode launches {enc_counts}, expected {want}")
     want = {"conv3d_same": 13 * n_b, "conv3d_to1": n_b, "conv3d_from1": n_b,
             "conv3d_fused_stats": 0}
     if rec_counts != want:
-        raise SystemExit(f"chip_smoke: reconstruct launches {rec_counts}, expected {want}")
+        raise SystemExit(f"chip_smoke: {tag} reconstruct launches {rec_counts}, expected {want}")
 
-    if not (np.all(np.isfinite(z)) and z.shape == (n_vol, cfg.latent_dim)):
-        raise SystemExit(f"chip_smoke: bad latents {z.shape}")
+    if not (np.all(np.isfinite(z)) and z.shape == (n_vol, model.cfg.latent_dim)):
+        raise SystemExit(f"chip_smoke: {tag} bad latents {z.shape}")
     if not (all(math.isfinite(v) for v in report.values()) and report["n"] == n_vol):
-        raise SystemExit(f"chip_smoke: bad report {report}")
+        raise SystemExit(f"chip_smoke: {tag} bad report {report}")
     report["retrieval_p_at_k"] = p_at_k
-    log(f"[path] launches encode {enc_counts} reconstruct {rec_counts}; "
+    log(f"[path] {tag} launches encode {enc_counts} reconstruct {rec_counts}; "
         f"peak memory {peak_gib:.2f} GiB")
-    log(f"[path] report {json.dumps(report)}")
+    log(f"[path] {tag} report {json.dumps(report)}")
 
     # throughput: REPEATS windows of each over the same full batches (the
     # host reads the latents / the report at the end of each window)
@@ -626,17 +636,42 @@ def phase_path(dev, src, vox) -> dict:
             torch.cuda.synchronize()
             rates.append(n_vol / (time.perf_counter() - t0))
         rates.sort()
-        log(f"[path] {what} {n_vol} vols x {REPEATS} windows: median "
+        log(f"[path] {tag} {what} {n_vol} vols x {REPEATS} windows: median "
             f"{rates[REPEATS // 2]:.2f} vol/s, min {rates[0]:.2f}, max {rates[-1]:.2f}")
 
     x8 = vox[:batch]
-    profile_window(f"encode of {batch} volumes",
+    profile_window(f"{tag} encode of {batch} volumes",
                    lambda: encode_dataset(model, x8, batch_size=batch))
-    profile_window(f"reconstruction report of {batch} volumes",
+    profile_window(f"{tag} reconstruction report of {batch} volumes",
                    lambda: reconstruction_report(model, x8, batch_size=batch))
+    return {k: enc_counts[k] + rec_counts[k] for k in enc_counts}
+
+
+def phase_path(dev, src, vox) -> tuple:
+    """The eval path in bf16 (`--bf16`) and in fp32 (the eval CLI's
+    default), then the fp32 kernel path against the plain path on the CPU.
+    Returns the counted launches of each."""
+    import numpy as np
+
+    from sivae_torch.models.registry import get_model_config, make_model
+    from sivae_torch.models.resnet_vae import reparameterize
+
+    cfg32 = get_model_config("spatial_1200")
+    n_vol = vox.shape[0]
+    # fold 4 of 5 by patient, without scikit-learn (not on every card's
+    # machine): the volumes of every fifth patient id are the queries
+    pids = sorted(set(src.pids))
+    is_val = np.array([pids.index(p) % 5 == 4 for p in src.pids])
+    vid, tid = np.flatnonzero(is_val), np.flatnonzero(~is_val)
+    log(f"[path] spatial_1200 {cfg32.input_shape}, {n_vol} volumes in {n_vol // 8} full batches "
+        f"of 8; retrieval {len(vid)} queries against {len(tid)}")
+    model = make_model(dataclasses.replace(cfg32, dtype=torch.bfloat16), device=dev, seed=0)
+    counts16 = eval_path(dev, model, vox, src.labels, vid, tid, "bf16")
+    del model
+    model32 = make_model(cfg32, device=dev, seed=0)
+    counts32 = eval_path(dev, model32, vox, src.labels, vid, tid, "fp32")
 
     # kernel path (fp32, TF32 off, card) against the plain path (CPU)
-    model32 = make_model(cfg32, device=dev, seed=0)
     x1 = vox[:1]
     with torch.no_grad():
         mu_k, lv_k = model32.encode(x1)
@@ -653,7 +688,7 @@ def phase_path(dev, src, vox) -> dict:
         f"reconstruction rel {e_rec:.3e} (limit 1e-3)")
     if not (e_mu <= 1e-3 and e_rec <= 1e-3):
         raise SystemExit("chip_smoke: kernel path disagrees with the plain path")
-    return {k: enc_counts[k] + rec_counts[k] for k in enc_counts}
+    return counts16, counts32
 
 
 def profile_window(what: str, fn, top: int = 10) -> None:
@@ -1166,10 +1201,12 @@ def _add_counts(a: dict, b: dict) -> dict:
 
 def site_bodies(dev) -> dict:
     """The body conv3d_same's dispatch takes at each bf16 site launched since
-    the counters were last set to 0, "Ci->Co": body (fresh operands, which
-    are aligned, as the model's are)."""
+    the counters were last set to 0, "Ci->Co": body, and conv3d_from1's at
+    each bf16 one, "from1 1->C": body (fresh operands, which are aligned, as
+    the model's are)."""
     from sivae_torch.kernels import build
     from sivae_torch.kernels.conv3d import conv3d_same_body
+    from sivae_torch.kernels.conv3d_small import conv3d_from1_body
 
     bodies = {}
     for site in build.conv3d_same_sites:
@@ -1177,12 +1214,19 @@ def site_bodies(dev) -> dict:
         ops = [torch.empty(s, dtype=torch.bfloat16, device=dev)
                for s in ((1, 1, 1, 1, ci), (3, 3, 3, ci, co), (1, 1, 1, 1, co))]
         bodies[f"{ci}->{co}"] = conv3d_same_body(*ops)
+    for site in build.conv3d_from1_sites:
+        if site.endswith(" bfloat16"):
+            c = int(site.split("@")[0].split("->")[1])
+            x = torch.empty((1, 1, 1, 1, 1), dtype=torch.bfloat16, device=dev)
+            bodies[f"from1 1->{c}"] = conv3d_from1_body(x, c)
     return bodies
 
 
 def _require_tensor_core_bodies(what: str, bodies: dict) -> None:
     """Every bf16 pairing of the FC and spatial_150 paths, forward and input
-    gradient, runs a tensor-core body ("wgmma", "mma" or "narrow")."""
+    gradient, runs a tensor-core body ("wgmma", "mma" or "narrow"), and so
+    does every bf16 conv3d_from1 site (the stems, and the input gradients of
+    the C -> 1 tails)."""
     slow = {k: v for k, v in bodies.items() if v == "fma"}
     if slow:
         raise SystemExit(f"chip_smoke: {what} ran the fma body at {slow}")
@@ -1202,8 +1246,8 @@ def fc_forward_check(dev, real) -> None:
     """One whole fc_150 forward, eval mode, on the volumes `real`: encode, and
     decode of the fp32 forward's mu, in bf16 (its convs run the "narrow" and
     C->1 / 1->C tensor-core bodies) against the same weights in fp32 on the
-    card (every conv on the "fma" bodies: the two forwards share no kernel
-    body)."""
+    card (its convs on the fp32 bodies, "fma" and "tf32x3": the two forwards
+    share no kernel)."""
     from sivae_torch.kernels import build
     from sivae_torch.models.registry import get_model_config, make_model
 
@@ -1223,7 +1267,7 @@ def fc_forward_check(dev, real) -> None:
           and rec16.shape == real.shape and bool(torch.isfinite(rec16).all()))
     log(f"[families] fc_150 forward, eval, {real.shape[0]} volumes: bf16 vs fp32 on the card, "
         f"mu rel {e_mu:.3e}, reconstruction rel {e_rec:.3e} (limit {TOL_FC_FORWARD}); bf16 "
-        f"launches {dict(build.launches)}; conv3d_same bodies {json.dumps(bodies)} "
+        f"launches {dict(build.launches)}; bodies {json.dumps(bodies)} "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("chip_smoke: fc_150 bf16 forward disagrees with its fp32 forward")
@@ -1358,7 +1402,7 @@ def phase_families(dev, real) -> dict:
         hist = trainer.logger.history
         finite = all(math.isfinite(v) for vals in hist.values() for v in vals)
         log(f"[families] {preset} epoch (2 steps, 1 validation step, checkpoint, the model's "
-            f"build) {epoch_s:.2f} s; launches {counts} (expected {want}); conv3d_same bodies "
+            f"build) {epoch_s:.2f} s; launches {counts} (expected {want}); bodies "
             f"{json.dumps(bodies)}; run files missing {missing}; last epoch "
             f"{json.dumps({k: v[-1] for k, v in hist.items()})}")
         if counts != want or missing or not finite or trainer.state.step != 2:
@@ -1388,8 +1432,8 @@ def phase_families(dev, real) -> dict:
     torch.cuda.synchronize()
     counts, bodies = dict(build.launches), site_bodies(dev)
     log(f"[families] classifier spatial_150 bf16 batch 8: losses {losses}, predict_all accuracy "
-        f"{acc:.3f} over {len(preds)} volumes; launches {counts} (expected {want}); conv3d_same "
-        f"bodies {json.dumps(bodies)}")
+        f"{acc:.3f} over {len(preds)} volumes; launches {counts} (expected {want}); bodies "
+        f"{json.dumps(bodies)}")
     _require_tensor_core_bodies("the classifier", bodies)
     if (counts != want or len(losses) != 3 or not all(math.isfinite(v) for v in losses)
             or preds.shape != (24,) or not np.array_equal(labels, src.labels)):
@@ -1420,7 +1464,7 @@ def main(argv=None):
     if "grad" in want:
         phase_gradients(dev)
     src, vox = synthetic_volumes(dev) if want & {"path", "train", "families"} else (None, None)
-    path_n = phase_path(dev, src, vox) if "path" in want else {}
+    path_n, path32_n = phase_path(dev, src, vox) if "path" in want else ({}, {})
     stage_n = phase_stage(dev) if "stage" in want else {}
     train_n = phase_train(dev, vox[:8]) if "train" in want else {}
     real = vox[:8].clone() if "families" in want else None
@@ -1442,7 +1486,8 @@ def main(argv=None):
     kernels = []
     for kname, site in head.items():
         r = rows[(kname, site, torch.bfloat16)]
-        per_path = {"eval_path": path_n[kname], "fused_stage": stage_n[kname],
+        per_path = {"eval_path": path_n[kname], "eval_path_fp32": path32_n[kname],
+                    "fused_stage": stage_n[kname],
                     "train_step": train_n[kname], "trainer": trainer_n[kname],
                     "families": families_n[kname]}
         launches = sum(per_path.values())

@@ -7,7 +7,7 @@
 // once to the output type. (The Pallas kernel rounds the running sum to the
 // activation type after every depth tap.)
 //
-// Four bodies, chosen here by shape, type and alignment:
+// Five bodies, chosen here by shape, type and alignment:
 // - "wgmma" (conv3d_wgmma.cuh): bf16 with Ci % 64 == 0 and Co % 64 == 0. At
 //   the flagship site (64->64 at 80x96x80, batch 8) 1.09 TFLOP against
 //   ~1.26 GB moved: the tensor-core rate bounds it. Warp-specialised: one
@@ -22,35 +22,48 @@
 //   reads each haloed input plane into shared memory once and multiplies
 //   with mma.sync, K padded to 16 and N to 8. H100 80GB HBM3, 700 W: 0.37 ms
 //   there (cuDNN 1.9 ms, the fma body 8.9 ms; chip_smoke.py phase 3).
-// - "fma" (conv3d_body.cuh): fp32 and the channel counts no other body
-//   takes, on CUDA cores.
+// - "tf32x3" (conv3d_tf32x3.cuh): fp32 with Ci % 32 == 0 and Co % 32 == 0
+//   (every fp32 site of spatial_1200 and spatial_1200_fullsize). One TF32
+//   product would miss the fp32 tolerance (11 significand bits: ~3e-4 of
+//   the largest output at K = 1728); each operand is split into a TF32 big
+//   and small part and three wgmma tf32 products (small*big, big*small,
+//   big*big) hold fp32 accuracy at a third of the 495 TF/s TF32 rate. The
+//   structure of the "wgmma" body, in fp32, with the weights split and
+//   transposed once per call into a scratch tensor the caller allocates.
+// - "fma" (conv3d_body.cuh): fp32 at the channel counts tf32x3 does not
+//   take, and bf16 at those no other body takes, on CUDA cores.
 // The fused conv + statistics kernel (conv3d_fused.cu) instantiates the
 // mma, fma and wgmma bodies with their optional parts; the conv here has
 // none.
 
 #include "conv3d_body.cuh"
 #include "conv3d_narrow.cuh"
+#include "conv3d_tf32x3.cuh"
 #include "conv3d_wgmma.cuh"
 
 extern "C" {
 
 // Which body a call with these arguments runs: 2 = wgmma, 1 = mma, 3 = narrow,
-// 0 = fma.
+// 4 = tf32x3, 0 = fma.
 int sivae_conv3d_same_body(const void* x, const void* w, const void* y, int Ci, int Co, int dtype) {
   if (sivae::wgmma_eligible(x, w, y, Ci, Co, dtype)) return 2;
+  if (sivae::tf32x3_eligible(x, w, y, Ci, Co, dtype)) return 4;
   if (sivae::mma_eligible(x, w, y, Ci, Co, dtype)) return 1;
   return sivae::narrow_eligible(x, y, Ci, Co, dtype) ? 3 : 0;
 }
 
 // x (B,D,H,W,Ci), w (3,3,3,Ci,Co), y (B,D,H,W,Co), all contiguous, one dtype,
-// B*D*H*W < 2^31.
+// B*D*H*W < 2^31; scratch: 3 * 27 * Ci * Co floats for an fp32 call (the
+// tf32x3 body's split weights), else unused.
 // Returns cudaGetLastError() after the launch.
 int sivae_conv3d_same(const void* x, const void* w, void* y, int B, int D, int H, int W, int Ci,
-                      int Co, int dtype, void* stream) {
+                      int Co, int dtype, void* scratch, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const sivae::Fusion none = {nullptr, nullptr, 0.f, nullptr, nullptr};
   if (sivae::wgmma_eligible(x, w, y, Ci, Co, dtype))
     return sivae::launch_conv3d_wgmma<false, false>(x, w, y, B, D, H, W, Ci, Co, none, s);
+  if (sivae::tf32x3_eligible(x, w, y, Ci, Co, dtype))
+    return sivae::launch_conv3d_tf32x3(x, w, y, scratch, B, D, H, W, Ci, Co, s);
   if (!sivae::mma_eligible(x, w, y, Ci, Co, dtype) && sivae::narrow_eligible(x, y, Ci, Co, dtype))
     return sivae::launch_conv3d_narrow(x, w, y, B, D, H, W, Ci, Co, s);
   return sivae::launch_conv3d<false, false, 3>(x, w, y, B, D, H, W, Ci, Co, dtype, none, s);
@@ -75,9 +88,9 @@ int sivae_conv3d_same_wgmma(const void* x, const void* w, void* y, int B, int D,
 }
 
 // The same conv through the bodies of conv3d_body.cuh only (mma or fma, never
-// wgmma or narrow): the body each of those two superseded on its operands
-// (mma for wgmma's, fma for narrow's), its time beside the new one's, for
-// measurements and tests. No model path calls it.
+// wgmma, narrow or tf32x3): the body each of those superseded on its
+// operands (mma for wgmma's, fma for narrow's and tf32x3's), its time beside
+// the new one's, for measurements and tests. No model path calls it.
 int sivae_conv3d_same_mma(const void* x, const void* w, void* y, int B, int D, int H, int W,
                           int Ci, int Co, int dtype, void* stream) {
   const sivae::Fusion none = {nullptr, nullptr, 0.f, nullptr, nullptr};

@@ -12,14 +12,18 @@
 //   output tile per block, 8 warps of 32x32, mma.sync m16n8k16 on ldmatrix
 //   fragments with fp32 accumulators; per K-step one line buffer of input
 //   rows serves the 3 kw taps of a (kd, kh) (details above the kernel).
-// - conv3d_fma_kernel: every other case of the fused kernel, and of the
-//   conv what the wgmma and narrow bodies do not take either (fp32, channel
-//   counts not a multiple of 4, above 64, or misaligned). A 64x64 tile per
-//   block, 4x4 outputs per thread, fp32 FMA on CUDA cores. What bounds it at
-//   narrow channels: a 64-column tile whatever Co is, 16-channel chunks and
-//   every tap's rows gathered again by scalar loads (12->12 at 80x96x80,
-//   batch 8: 8.9 ms on an H100 80GB HBM3 at 700 W, against 0.070 ms of
-//   bytes); the "narrow" body (conv3d_narrow.cuh) took those shapes over.
+// - conv3d_fma_kernel: every other case of the fused kernel (its fp32
+//   among them), and of the conv what the wgmma, narrow and tf32x3 bodies
+//   do not take either (fp32 with Ci or Co not a multiple of 32;
+//   bf16 channel counts not a multiple of 4, above 64, or misaligned). A
+//   64x64 tile per block, 4x4 outputs per thread, fp32 FMA on CUDA cores.
+//   What bounds it at narrow channels: a 64-column tile whatever Co is,
+//   16-channel chunks and every tap's rows gathered again by scalar loads
+//   (12->12 at 80x96x80, batch 8: 8.9 ms on an H100 80GB HBM3 at 700 W,
+//   against 0.070 ms of bytes); the "narrow" body (conv3d_narrow.cuh) took
+//   those shapes over. In fp32 at 64 channels the CUDA cores' 67 TF/s hold
+//   it (64->64 at 80x96x80, batch 2: 11.1 ms, cuDNN 6.7 ms); the "tf32x3"
+//   body (conv3d_tf32x3.cuh) took those shapes over.
 //
 // kPrologue: the input passes through g(x) = leaky_relu(x * a[c] + b[c]) in
 // fp32, rounded once to the conv type, before it is multiplied. The padding

@@ -15,28 +15,33 @@
 //   voxel on the tensor cores and the 27 taps are summed from shared
 //   memory, so each input byte is read about once; C = 12's 24-byte rows
 //   arrive by cp.async, the others by TMA.
-//   "fma" (conv3d_to1_kernel below; fp32, where TF32 would not hold the fp32
-//   tolerance, and every other C): eight threads per output voxel, each
+//   "fma" (conv3d_to1_kernel below; fp32, not yet redesigned, and every
+//   other C): eight threads per output voxel, each
 //   owning 16-byte chunks of the C contiguous channels; fp32 FMAs against the
 //   27xC weights held in shared memory, then a shuffle reduce. The 27x
 //   re-reads of overlapping windows hit L1/L2, which is what bounds it; at
 //   C = 12 only two of the eight threads have channels (12->1 at 80x96x80,
 //   batch 8, on an H100 80GB HBM3 at 700 W: 3.6 ms, where the mma body
 //   takes 0.18 ms; chip_smoke.py phase 3).
-// - 1 -> C replaces _small_in_impl (_small_in_kernel). Two bodies:
-//   "mma" (conv3d_from1_mma.cuh; bf16, C = 16, 32 or 64, a 16-byte aligned
-//   output): the 27-tap window sum is a matrix product per voxel,
-//   y[v, c] = sum_t x[v + off_t] w[t, c] with K = 27 padded to 32, on the
-//   tensor cores, the weights resident in registers and the output leaving
-//   as 16-byte stores of staged tiles; what is left is the output stream.
-//   "fma" (conv3d_from1_kernel below; fp32, where TF32 would not hold the
-//   fp32 tolerance, and every other C): one thread per (voxel, group of 8
-//   channels), the 27 input scalars in registers, the 27xC weights in
-//   shared memory. Every FMA reads its weight from shared memory (the 8
-//   threads of a voxel 8 floats apart: groups g and g + 4 share a bank), and
-//   those reads bound it, not its output stream: at 1 -> 64, 80x96x80,
-//   batch 2, 2.1e9 4-byte reads, twice over for the conflict, are ~0.57 ms
-//   at 128 B/clk per SM.
+// - 1 -> C replaces _small_in_impl (_small_in_kernel). Three bodies:
+//   "mma" (conv3d_from1_mma.cuh; bf16, C a multiple of 4 up to 64, a
+//   16-byte aligned output): the 27-tap window sum is a matrix product per
+//   voxel, y[v, c] = sum_t x[v + off_t] w[t, c] with K = 27 padded to 32 and
+//   N = C padded to a multiple of 8, on the tensor cores, the weights
+//   resident in registers and the output leaving as 16-byte (8-byte where a
+//   row is not a multiple of 16 bytes) stores of staged tiles; what is left
+//   is the output stream.
+//   "tf32x3" (the same file; fp32 at the same C): the same product on
+//   m16n8k8 tf32, each operand split into a TF32 big and small part and
+//   three products a k-step (small*big, big*small, big*big), which holds
+//   fp32 accuracy where one TF32 product would not (conv3d_tf32x3.cuh).
+//   "fma" (conv3d_from1_kernel below; every other C): one thread per
+//   (voxel, group of 8 channels), the 27 input scalars in registers, the
+//   27xC weights in shared memory. Every FMA reads its weight from shared
+//   memory (the 8 threads of a voxel 8 floats apart: groups g and g + 4
+//   share a bank), and those reads bound it, not its output stream: at
+//   1 -> 64, 80x96x80, batch 2, fp32, 2.1e9 4-byte reads, twice over for
+//   the conflict, are ~0.57 ms at 128 B/clk per SM.
 // All accumulate in fp32 and round once. Odd channel counts (C not a
 // multiple of the 16-byte vector) take the same walk with scalar accesses.
 
@@ -222,23 +227,33 @@ int sivae_conv3d_to1_fma(const void* x, const void* w, void* y, int B, int D, in
   return static_cast<int>(cudaGetLastError());
 }
 
-// Which body a 1 -> C call writing into y runs: 1 = mma (tensor-core tap
-// product), 0 = fma.
-int sivae_conv3d_from1_body(const void* y, int C, int dtype) {
-  return sivae::from1_mma_eligible(y, C, dtype) ? 1 : 0;
-}
-
-// x (B,D,H,W), w (3,3,3,C), y (B,D,H,W,C); contiguous, one dtype, B*D*H*W < 2^31.
-int sivae_conv3d_from1(const void* x, const void* w, void* y, int B, int D, int H, int W, int C,
-                       int dtype, void* stream) {
+// The 1 -> C conv through the CUDA-core body whatever the dispatch would
+// choose: the body the tensor-core ones superseded (bf16 at C = 12, 24, 48;
+// fp32 at every C), its time beside the new one's, for measurements and
+// tests. No model path calls it.
+int sivae_conv3d_from1_fma(const void* x, const void* w, void* y, int B, int D, int H, int W,
+                           int C, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (sivae::from1_mma_eligible(y, C, dtype))
-    return sivae::launch_from1_mma(x, w, y, B, D, H, W, C, s);
   if (dtype == sivae::kFloat32)
     sivae::launch_from1<float>(x, w, y, B, D, H, W, C, s);
   else
     sivae::launch_from1<__nv_bfloat16>(x, w, y, B, D, H, W, C, s);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Which body a 1 -> C call writing into y runs: 1 = mma (bf16 tensor-core
+// tap product), 2 = tf32x3 (its fp32 form), 0 = fma.
+int sivae_conv3d_from1_body(const void* y, int C, int dtype) {
+  return sivae::from1_mma_body(y, C, dtype);
+}
+
+// x (B,D,H,W), w (3,3,3,C), y (B,D,H,W,C); contiguous, one dtype, B*D*H*W < 2^31.
+int sivae_conv3d_from1(const void* x, const void* w, void* y, int B, int D, int H, int W, int C,
+                       int dtype, void* stream) {
+  if (sivae::from1_mma_body(y, C, dtype) != 0)
+    return sivae::launch_from1_mma(x, w, y, B, D, H, W, C, dtype,
+                                   static_cast<cudaStream_t>(stream));
+  return sivae_conv3d_from1_fma(x, w, y, B, D, H, W, C, dtype, stream);
 }
 
 }  // extern "C"

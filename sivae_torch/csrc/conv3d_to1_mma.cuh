@@ -290,7 +290,7 @@ inline int launch_to1_mma(const void* x, const void* w, void* y, int B, int D, i
   const CUtensorMapSwizzle swizzle = kp == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
                                      : kp == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
                                                 : CU_TENSOR_MAP_SWIZZLE_32B;
-  if (!encode_bf16_map(&xmap, x, 5, dims, strides, box, swizzle))
+  if (!encode_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, 5, dims, strides, box, swizzle))
     return static_cast<int>(cudaErrorInvalidValue);
   if (kp == 64) return launch_to1_mma_c<64, true>(xmap, x, w, y, B, D, H, W, C, s);
   if (kp == 32) return launch_to1_mma_c<32, true>(xmap, x, w, y, B, D, H, W, C, s);

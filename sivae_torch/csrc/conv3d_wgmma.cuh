@@ -488,8 +488,10 @@ inline int launch_conv3d_wgmma(const void* x, const void* w, void* y, int B, int
   const cuuint64_t wdims[2] = {static_cast<cuuint64_t>(Co), static_cast<cuuint64_t>(27) * Ci};
   const cuuint64_t wstr[1] = {static_cast<cuuint64_t>(Co) * 2};
   const cuuint32_t wbox[2] = {GN, GK};
-  if (!encode_bf16_map(&xmap, x, 2, xdims, xstr, xbox, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !encode_bf16_map(&wmap, w, 2, wdims, wstr, wbox, CU_TENSOR_MAP_SWIZZLE_128B))
+  if (!encode_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, 2, xdims, xstr, xbox,
+                  CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !encode_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, w, 2, wdims, wstr, wbox,
+                  CU_TENSOR_MAP_SWIZZLE_128B))
     return static_cast<int>(cudaErrorInvalidValue);
   if (shape == 0) shape = wgmma_block_shape(n_vox, Co, kStats);
   if (Co % (GN * (shape % 10)) != 0) return static_cast<int>(cudaErrorInvalidValue);

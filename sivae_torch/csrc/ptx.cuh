@@ -1,6 +1,6 @@
-// PTX the kernels share, for sm_90a: cp.async, ldmatrix and mma.sync (any
-// tensor-core card), and Hopper's mbarrier, TMA tensor copies, wgmma and the
-// host-side tensor-map encoder.
+// PTX the kernels share, for sm_90a: cp.async, ldmatrix, mma.sync (bf16 and
+// tf32) and the tf32 split (any tensor-core card), and Hopper's mbarrier,
+// TMA tensor copies, wgmma and the host-side tensor-map encoder.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time, nothing links
@@ -53,6 +53,37 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], 
       "{%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a (16x8 tf32, row) * b (8x8 tf32, col), fp32 accumulators. A tf32
+// operand is a 32-bit register whose low 13 mantissa bits the tensor core
+// ignores.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// v = big + small, each a tf32 value: big = tf32(v) rounded to nearest, ties
+// away from zero (cvt.rna), small = tf32(v - big) (v - big is exact in
+// fp32). big * big' + big * small' + small * big' then carries ~22 of the 24
+// bits of an fp32 product (small * small' is below fp32's last bit).
+// cross is big where big is finite and 0 where it is not (v is inf or NaN),
+// and small is 0 there too: the two cross products are written
+// small * cross' + cross * small', so that an infinite v gives
+// big * big' = +-inf and two zeros, as one fp32 product would, and not
+// inf - inf or inf * 0 = NaN.
+__device__ __forceinline__ void split_tf32(float v, unsigned& big, unsigned& small,
+                                           unsigned& cross) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(v));
+  const float b = __uint_as_float(big);
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(__fsub_rn(v, b)));
+  const bool finite = fabsf(b) <= 3.402823466e38f;
+  small = finite ? small : 0u;
+  cross = finite ? big : 0u;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -138,6 +169,48 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const unsigne
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d (64 x N fp32, N / 2 per thread) += a (64 x 8 tf32 in registers, each
+// warp's 16 rows in the mma.sync m16n8k8 A layout) * b (8 x N tf32 in
+// shared memory, K-major: tf32 has no transposed B), N = 64 or 32
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2], const unsigned (&a)[4],
+                                              uint64_t b);
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<64>(float (&d)[32], const unsigned (&a)[4],
+                                                  uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<32>(float (&d)[16], const unsigned (&a)[4],
+                                                  uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 // --- host side: tensor maps ---------------------------------------------------
 
 typedef CUresult (*TensorMapEncodeFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -163,18 +236,19 @@ inline TensorMapEncodeFn tensor_map_encoder() {
   return fn;
 }
 
-// A bf16 tensor map over `rank` dimensions (innermost first; `strides` in
-// bytes for dimensions 1 .. rank-1), out-of-bounds elements read as zeros.
-inline bool encode_bf16_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
-                            const cuuint64_t* strides, const cuuint32_t* box,
-                            CUtensorMapSwizzle swizzle) {
+// A tensor map of `type` elements over `rank` dimensions (innermost first;
+// `strides` in bytes for dimensions 1 .. rank-1), out-of-bounds elements
+// read as zeros.
+inline bool encode_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, int rank,
+                       const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+                       CUtensorMapSwizzle swizzle) {
   const TensorMapEncodeFn encode = tensor_map_encoder();
   if (encode == nullptr) return false;
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, static_cast<cuuint32_t>(rank),
-                const_cast<void*>(ptr), dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode(map, type, static_cast<cuuint32_t>(rank), const_cast<void*>(ptr), dims, strides,
+                box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
 }
 
 }  // namespace sivae

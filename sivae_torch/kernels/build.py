@@ -40,7 +40,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: name -> argument types (all return int)
 SIGNATURES = {
-    "sivae_conv3d_same": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "sivae_conv3d_same": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     "sivae_conv3d_same_mma": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "sivae_conv3d_same_wgmma": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "sivae_conv3d_same_wgmma_shape": [_I, _I, _I, _I, _I],
@@ -50,6 +50,7 @@ SIGNATURES = {
     "sivae_conv3d_to1_fma": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "sivae_conv3d_from1_body": [_P, _I, _I],
     "sivae_conv3d_from1": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "sivae_conv3d_from1_fma": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "sivae_conv3d_fused_stats_body": [_P, _P, _I, _I, _I],
     "sivae_conv3d_fused_stats": [_P, _P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "sivae_conv3d_fused_stats_mma": [_P, _P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -67,9 +68,11 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 launches: Dict[str, int] = {"conv3d_same": 0, "conv3d_to1": 0, "conv3d_from1": 0,
                             "conv3d_fused_stats": 0}
 
-# conv3d_same's launches keyed by site, "Ci->Co@DxHxW b B": which shapes a
-# path sends through the kernel, and how often
+# conv3d_same's launches keyed by site, "Ci->Co@DxHxW b B", and
+# conv3d_from1's, "1->C@DxHxW b B dtype": which shapes a path sends through
+# the kernel, and how often
 conv3d_same_sites: Dict[str, int] = {}
+conv3d_from1_sites: Dict[str, int] = {}
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
@@ -79,6 +82,7 @@ def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
     conv3d_same_sites.clear()
+    conv3d_from1_sites.clear()
 
 
 def _nvcc() -> str:

@@ -6,7 +6,7 @@ which is the same kernel on the flipped, IO-swapped weights (`_bwd`,
 `sivae_tpu/kernels/conv3d.py:134-149`).
 
 The kernel (`csrc/conv3d.cu`) is an implicit GEMM over M = B*D*H*W voxels,
-N = Co, K = 27*Ci. Four bodies, chosen in C by shape, type and alignment
+N = Co, K = 27*Ci. Five bodies, chosen in C by shape, type and alignment
 (`conv3d_same_body` names the one a call runs):
 - "wgmma", bf16 with Ci % 64 == 0 and Co % 64 == 0 (the spatial_1200
   sites). At the flagship site (64->64 at 80x96x80, batch 8) 1.09 TFLOP is
@@ -30,7 +30,19 @@ N = Co, K = 27*Ci. Four bodies, chosen in C by shape, type and alignment
   0.37 ms at 12->12 and 0.35 ms at 16->16 (80x96x80, batch 8), against
   cuDNN's 1.9 / 1.2 ms and the CUDA-core body's 8.9 / 8.9 ms;
   `conv3d_same_narrow_plain` is its algorithm in PyTorch.
-- "fma", fp32 and channel counts the others do not take, on the CUDA cores.
+- "tf32x3", fp32 with Ci % 32 == 0 and Co % 32 == 0 (every fp32 site of
+  spatial_1200 and spatial_1200_fullsize; `csrc/conv3d_tf32x3.cuh`): the
+  "wgmma" body's structure on `wgmma` TF32, the weights split and
+  transposed into a scratch tensor per call. One TF32 product keeps
+  11 significand bits and misses the fp32 tolerance (~3e-4 of the largest
+  output at K = 1728, `tests/test_torch_kernels.py` pins it); each operand
+  is split into big = tf32(v) and small = tf32(v - big) and three products,
+  small*big + big*small + big*big, hold fp32 accuracy (~2e-7 there) at a
+  third of the 495 TF/s TF32 rate, against the 67 TF/s of the CUDA cores
+  that held the "fma" body. `conv3d_same_tf32x3_plain` is its algorithm in
+  PyTorch.
+- "fma", the channel counts the others do not take (fp32 ones among them),
+  on the CUDA cores.
 All apply SAME padding without a padded copy, sum all 27 taps in fp32 and
 round once. The Pallas v1 rounds after each depth tap, so bf16 comparisons
 against it allow for that.
@@ -67,6 +79,50 @@ def conv3d_same_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         sl = widen(xp[:, kd:kd + d, kh:kh + h, kw:kw + wd, :])
         acc += torch.matmul(sl, w[kd, kh, kw].to(acc.dtype))
     return acc.to(x.dtype)
+
+
+def tf32_round(v: torch.Tensor) -> torch.Tensor:
+    """fp32 -> the nearest TF32 value (10 stored mantissa bits), ties away
+    from zero, as `cvt.rna.tf32.f32`: integer ops on the bits, the 13 dropped
+    bits rounded on the magnitude. Zero, denormals and signs round the same
+    way; inf and NaN pass unchanged; a value that rounds past the largest
+    finite one becomes inf."""
+    bits = v.float().contiguous().view(torch.int32)
+    mag = bits & 0x7FFFFFFF
+    rounded = ((mag + 0x1000) & ~0x1FFF) | (bits & ~0x7FFFFFFF)
+    return torch.where(mag >= 0x7F800000, bits, rounded).view(torch.float32)
+
+
+def tf32_split(v: torch.Tensor):
+    """(big, small, cross), the kernels' `split_tf32`: v = big + small, both
+    TF32, big = tf32(v), small = tf32(v - big) (the difference is exact in
+    fp32); where big is not finite small is 0 and cross (big elsewhere) is
+    0, so that the cross products small * cross' + cross * small' of an
+    infinite value are 0 and not inf - inf or inf * 0."""
+    big = tf32_round(v)
+    finite = torch.isfinite(big)
+    small = torch.where(finite, tf32_round(v.float() - big), 0.0)
+    return big, small, torch.where(finite, big, 0.0)
+
+
+def conv3d_same_tf32x3_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The "tf32x3" body's algorithm in PyTorch, for the tests: x and w split
+    into TF32 parts (`tf32_split`), and for each tap small*cross' +
+    cross*small' + big*big' (each product of two TF32 values is exact in
+    fp32) summed in fp32; small*small' is dropped. fp32 in and out. Same
+    function as `conv3d_same_plain` to ~fp32 accuracy, where one TF32
+    product (`tf32_round` of both operands) is off by ~3e-4 of the largest
+    output at K = 1728."""
+    b, d, h, wd, _ = x.shape
+    xb, xs, xc = (F.pad(p, (0, 0, 1, 1, 1, 1, 1, 1)) for p in tf32_split(x))
+    wb, ws, wc = tf32_split(w)
+    acc = torch.zeros((b, d, h, wd, w.shape[-1]), dtype=torch.float32, device=x.device)
+    for kd, kh, kw in _taps():
+        sl = (slice(None), slice(kd, kd + d), slice(kh, kh + h), slice(kw, kw + wd))
+        acc += torch.matmul(xs[sl], wc[kd, kh, kw])
+        acc += torch.matmul(xc[sl], ws[kd, kh, kw])
+        acc += torch.matmul(xb[sl], wb[kd, kh, kw])
+    return acc
 
 
 def conv3d_same_narrow_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -152,7 +208,11 @@ def conv3d_same_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         _check_shapes(x, w)
         return conv3d_same_plain(x, w)
-    y = _launch("sivae_conv3d_same", x, w)
+    # fp32: room for the weights' three TF32 parts, transposed (the tf32x3
+    # body's B operand), which the kernel fills before its conv
+    scratch = (torch.empty(3 * w.numel(), dtype=torch.float32, device=x.device)
+               if x.dtype == torch.float32 else None)
+    y = _launch("sivae_conv3d_same", x, w, None if scratch is None else scratch.data_ptr())
     build.launches["conv3d_same"] += 1
     b, d, h, wd, ci = x.shape
     site = f"{ci}->{w.shape[-1]}@{d}x{h}x{wd} b{b}"
@@ -163,9 +223,10 @@ def conv3d_same_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def conv3d_same_earlier_body(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The conv on a CUDA tensor through the body that the dispatch's choice
     superseded: "mma" on the operands the "wgmma" body takes, "fma" on those
-    the "narrow" body takes (whatever the dispatch would choose, never wgmma
-    or narrow): for timing the two bodies side by side and for the card
-    tests. No model path calls it and it counts no launch."""
+    the "narrow" and "tf32x3" bodies take (whatever the dispatch would
+    choose, never wgmma, narrow or tf32x3): for timing the two bodies side by
+    side and for the card tests. No model path calls it and it counts no
+    launch."""
     return _launch("sivae_conv3d_same_mma", x, w)
 
 
@@ -203,13 +264,13 @@ def _launch(entry: str, x: torch.Tensor, w: torch.Tensor, *more: int) -> torch.T
     return y
 
 
-BODIES = ("fma", "mma", "wgmma", "narrow")
+BODIES = ("fma", "mma", "wgmma", "narrow", "tf32x3")
 WGMMA_SHAPES = (11, 21, 12, 22)   # 128x64, 256x64, 128x128, 256x128 outputs a block
 
 
 def conv3d_same_body(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor) -> str:
     """Which kernel body a CUDA call on these tensors runs: "wgmma", "mma",
-    "narrow" or "fma"."""
+    "narrow", "tf32x3" or "fma"."""
     used = build.library().sivae_conv3d_same_body(
         x.data_ptr(), w.data_ptr(), y.data_ptr(), x.shape[-1], w.shape[-1], build.dtype_code(x))
     return BODIES[used]

@@ -27,13 +27,18 @@ arrives by TMA where a voxel row is a multiple of 16 bytes and by 8-byte
 `cp.async` where it is not (C = 12: 24 bytes). On an H100 80GB HBM3 at
 700 W (`chip_smoke.py` phase 3, 80x96x80, batch 8): 12->1 in 0.18 ms
 against the CUDA-core body's 3.6 ms, cuDNN's 7.2 ms and a 0.038 ms bound.
-`conv3d_from1` (C = 16, 32 or 64) multiplies each output voxel's 27-tap
-window (padded to 32) by the 32 x C weights held in registers, so its own
-output stream is what is left (`conv3d_from1_gemm_plain`). Their fp32 and
-other-C bodies ("fma") do the ~1.7e10 multiply-adds on CUDA cores (~0.5 ms
-at 67 TF/s counting 2 per FMA); the 1 -> C one is held there by its
-shared-memory weight reads, one per FMA (1 -> 12 at 80x96x80, batch 8:
-0.42 ms). `csrc/conv3d_small.cu` says how each body is laid out. All
+`conv3d_from1` (C a multiple of 4 up to 64) multiplies each output voxel's
+27-tap window (padded to 32) by the 32 x C weights (C padded to a multiple
+of 8), so its own output stream is what is left
+(`conv3d_from1_gemm_plain`); rows of 24 bytes (C = 12) leave in 8-byte
+pieces. In fp32 the same product runs as "tf32x3": one TF32 product (11
+significand bits) would not hold the fp32 tolerance, so each operand is
+split into a TF32 big and small part and each k-step multiplies
+small*big + big*small + big*big, which holds fp32 accuracy at a third of
+the TF32 rate (`conv3d_from1_tf32x3_plain`; `csrc/conv3d_tf32x3.cuh` says
+why). Their other bodies ("fma": `conv3d_to1` in fp32, both at other C) do
+the ~1.7e10 multiply-adds on CUDA cores (~0.5 ms at 67 TF/s counting 2 per
+FMA). `csrc/conv3d_small.cu` says how each body is laid out. All
 accumulate in fp32 and round once.
 
 The wrappers take the plain version for a CPU tensor and launch the kernel
@@ -47,7 +52,7 @@ import torch
 import torch.nn.functional as F
 
 from sivae_torch.kernels import build
-from sivae_torch.kernels.conv3d import _taps
+from sivae_torch.kernels.conv3d import _taps, tf32_split
 from sivae_torch.utils.dtypes import wide_dtype, widen
 
 # the kernels keep the 27 x C weights in 48 KB of static shared memory
@@ -100,6 +105,19 @@ def conv3d_from1_gemm_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     w32 = torch.zeros((32, c), dtype=torch.float32, device=x.device)
     w32[:27] = w[:, :, :, 0, :].reshape(27, c).float()
     return (cols @ w32).reshape(x.shape[:4] + (c,)).to(x.dtype)
+
+
+def conv3d_from1_tf32x3_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The "tf32x3" body's algorithm in PyTorch, for the tests: the 27-tap
+    windows (padded to 32) and the (32, C) weights split into TF32 parts
+    (`tf32_split`), small*cross' + cross*small' + big*big' (exact products
+    of TF32 values) summed in fp32. fp32 in and out."""
+    c = w.shape[-1]
+    ab, as_, ac = tf32_split(_unfold27(x[..., 0].float()))         # (N, 32)
+    w32 = torch.zeros((32, c), dtype=torch.float32, device=x.device)
+    w32[:27] = w[:, :, :, 0, :].reshape(27, c).float()
+    wb, ws, wc = tf32_split(w32)
+    return (as_ @ wc + ac @ ws + ab @ wb).reshape(x.shape[:4] + (c,))
 
 
 def _unfold27(v: torch.Tensor, flip: bool = False) -> torch.Tensor:
@@ -223,20 +241,33 @@ def conv3d_to1_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def conv3d_from1_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The 1 -> C stencil itself, outside autograd: plain version or kernel."""
+def _check_from1(x: torch.Tensor, w: torch.Tensor) -> None:
     if x.dim() != 5 or x.shape[-1] != 1 or w.shape[:4] != (3, 3, 3, 1) or w.dim() != 5:
         raise ValueError(f"conv3d_from1: bad shapes x{tuple(x.shape)} w{tuple(w.shape)}")
+
+
+def conv3d_from1_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The 1 -> C stencil itself, outside autograd: plain version or kernel."""
+    _check_from1(x, w)
     if x.device.type == "cpu":
         return conv3d_from1_plain(x, w)
+    c = w.shape[-1]
+    y = _from1_launch("conv3d_from1", x, w)
+    build.launches["conv3d_from1"] += 1
+    b, d, h, wd = x.shape[:4]
+    site = f"1->{c}@{d}x{h}x{wd} b{b} {str(x.dtype).replace('torch.', '')}"
+    build.conv3d_from1_sites[site] = build.conv3d_from1_sites.get(site, 0) + 1
+    return y
+
+
+def _from1_launch(entry: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     c = w.shape[-1]
     if c > MAX_CHANNELS:
         raise ValueError(f"conv3d_from1 takes at most {MAX_CHANNELS} channels, got {c}")
     w27 = w[:, :, :, 0, :].contiguous()
     build.require_cuda(x, w27)
     y = torch.empty(x.shape[:4] + (c,), dtype=x.dtype, device=x.device)
-    _launch("conv3d_from1", x, w27, y, c)
-    build.launches["conv3d_from1"] += 1
+    _launch(entry, x, w27, y, c)
     return y
 
 
@@ -249,12 +280,24 @@ def conv3d_to1_earlier_body(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _to1_launch("conv3d_to1_fma", x, w)
 
 
+def conv3d_from1_earlier_body(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """`conv3d_from1` on a CUDA tensor through the CUDA-core body ("fma"),
+    whatever the dispatch would choose: the body the tensor-core ones
+    superseded (bf16 at C = 12, 24 and 48, fp32 at every C), timed beside
+    them, and for the card tests. No model path calls it and it counts no
+    launch."""
+    _check_from1(x, w)
+    return _from1_launch("conv3d_from1_fma", x, w)
+
+
+FROM1_BODIES = ("fma", "mma", "tf32x3")
+
+
 def conv3d_from1_body(x: torch.Tensor, c: int) -> str:
     """Which kernel body a CUDA `conv3d_from1` call on x with c output
     channels runs (into the output it allocates, which is aligned): "mma"
-    (tensor-core tap product) or "fma"."""
-    used = build.library().sivae_conv3d_from1_body(None, c, build.dtype_code(x))
-    return "mma" if used else "fma"
+    (bf16 tensor-core tap product), "tf32x3" (its fp32 form) or "fma"."""
+    return FROM1_BODIES[build.library().sivae_conv3d_from1_body(None, c, build.dtype_code(x))]
 
 
 def conv3d_to1_body(x: torch.Tensor) -> str:

@@ -21,15 +21,16 @@ import torch
 from sivae_torch.kernels import build
 from sivae_torch.kernels.conv3d import (WGMMA_SHAPES, conv3d_same, conv3d_same_body,
                                         conv3d_same_earlier_body, conv3d_same_narrow_plain,
-                                        conv3d_same_plain, conv3d_same_wgmma_blocks,
-                                        conv3d_same_wgmma_shape)
+                                        conv3d_same_plain, conv3d_same_tf32x3_plain,
+                                        conv3d_same_wgmma_blocks, conv3d_same_wgmma_shape)
 from sivae_torch.kernels.conv3d_fused import (conv3d_fused_stats, conv3d_fused_stats_body,
                                               conv3d_fused_stats_earlier_body,
                                               conv3d_fused_stats_plain,
                                               conv3d_fused_stats_wgmma_blocks,
                                               conv3d_fused_stats_wgmma_shape, conv3d_stats)
 from sivae_torch.kernels.conv3d_small import (conv3d_from1, conv3d_from1_body,
-                                              conv3d_from1_gemm_plain, conv3d_from1_plain,
+                                              conv3d_from1_earlier_body, conv3d_from1_gemm_plain,
+                                              conv3d_from1_plain, conv3d_from1_tf32x3_plain,
                                               conv3d_to1, conv3d_to1_body,
                                               conv3d_to1_contract_first_plain,
                                               conv3d_to1_earlier_body, conv3d_to1_plain)
@@ -82,7 +83,12 @@ def test_kernel_matches_plain_and_counts_one_launch(cuda_device, dtype, kern, pl
 # chunks, a grid large enough for several rounds of blocks (36864 voxels x
 # 128 channels). The narrow body marches 16-wide patches along d: every
 # pairing of the FC and spatial_150 forwards and input gradients at a grid no
-# patch divides (7 wide, 6 high), Co > 32 in two channel halves.
+# patch divides (7 wide, 6 high), Co > 32 in two channel halves. The fp32
+# "tf32x3" body walks 128 or 256 consecutive voxels a block, as "wgmma": the
+# spatial_1200 pairings (64-256 channels, forward and input gradient) and
+# spatial_1200_fullsize's 32 channels (32-wide blocks where Co is not a
+# multiple of 64), at grids no tile divides, a row longer than a block,
+# 128-row blocks (a grid too small to fill the card) and 256-row ones.
 BODY_CASES = [
     ((1, 3, 5, 7, 64), 64, "wgmma", torch.bfloat16),        # M = 105: one ragged block
     ((3, 5, 7, 9, 64), 128, "wgmma", torch.bfloat16),       # M = 945, 63 voxels a plane
@@ -106,7 +112,19 @@ BODY_CASES = [
     ((2, 5, 6, 7, 64), 32, "narrow", torch.bfloat16),       # fc_600's 32 -> 64 dgrad
     ((3, 20, 37, 41, 12), 12, "narrow", torch.bfloat16),    # several patches and segments
     ((2, 5, 6, 7, 5), 12, "fma", torch.bfloat16),           # Ci not a multiple of 4
-    ((2, 5, 6, 7, 12), 12, "fma", torch.float32),
+    ((2, 5, 6, 7, 12), 12, "fma", torch.float32),           # Ci not a multiple of 32
+    ((2, 5, 6, 7, 64), 64, "tf32x3", torch.float32),
+    ((1, 3, 5, 7, 64), 128, "tf32x3", torch.float32),       # M = 105: one ragged block
+    ((3, 4, 6, 5, 128), 64, "tf32x3", torch.float32),       # the 128 -> 64 dgrad
+    ((2, 3, 4, 5, 128), 256, "tf32x3", torch.float32),
+    ((3, 4, 6, 5, 256), 128, "tf32x3", torch.float32),      # the 256 -> 128 dgrad
+    ((1, 3, 4, 5, 256), 256, "tf32x3", torch.float32),
+    ((2, 5, 6, 7, 32), 32, "tf32x3", torch.float32),        # fullsize: 32-wide tiles
+    ((2, 5, 6, 7, 32), 64, "tf32x3", torch.float32),
+    ((2, 5, 6, 7, 64), 32, "tf32x3", torch.float32),
+    ((1, 2, 3, 200, 64), 64, "tf32x3", torch.float32),      # a row longer than a block
+    ((1, 32, 36, 32, 64), 64, "tf32x3", torch.float32),     # 256-row blocks, several rounds
+    ((1, 32, 36, 32, 32), 32, "tf32x3", torch.float32),     # 256 x 32 blocks
 ]
 
 
@@ -114,8 +132,8 @@ BODY_CASES = [
 @pytest.mark.parametrize("x_shape,co,body,dtype", BODY_CASES)
 def test_conv3d_same_bodies_match_plain(cuda_device, x_shape, co, body, dtype):
     """Each body the dispatch chooses, and the body it superseded on the same
-    operands ("mma" for wgmma's, "fma" for narrow's), against the plain
-    version and against each other."""
+    operands ("mma" for wgmma's, "fma" for narrow's and tf32x3's), against
+    the plain version and against each other."""
     gen = torch.Generator(device=cuda_device).manual_seed(3)
     x = torch.randn(x_shape, generator=gen, device=cuda_device).to(dtype)
     w = (0.1 * torch.randn((3, 3, 3, x_shape[-1], co), generator=gen,
@@ -136,6 +154,8 @@ def test_conv3d_same_bodies_match_plain(cuda_device, x_shape, co, body, dtype):
     assert (got.float() - earlier.float()).abs().max().item() <= tol
     if body == "narrow":  # its own algorithm, in PyTorch, on the same bf16 values
         assert (got.float() - conv3d_same_narrow_plain(x, w).float()).abs().max().item() <= tol
+    if body == "tf32x3":  # its own algorithm, in PyTorch (split operands, three products)
+        assert (got - conv3d_same_tf32x3_plain(x, w)).abs().max().item() <= tol
 
 
 @pytest.mark.gpu
@@ -175,7 +195,7 @@ def test_conv3d_to1_bodies_match_plain(cuda_device, x_shape, body):
     w = (0.1 * torch.randn((3, 3, 3, x_shape[-1], 1), generator=gen,
                            device=cuda_device)).bfloat16()
     assert conv3d_to1_body(x) == body
-    assert conv3d_to1_body(x.float()) == "fma"  # TF32 would not hold the fp32 tolerance
+    assert conv3d_to1_body(x.float()) == "fma"  # its fp32 body is not redesigned yet
     got = conv3d_to1(x, w)
     before = dict(build.launches)
     earlier = conv3d_to1_earlier_body(x, w)  # the CUDA-core body on the same operands
@@ -192,28 +212,95 @@ def test_conv3d_to1_bodies_match_plain(cuda_device, x_shape, body):
 
 # (B, D, H, W) and C of conv3d_from1 in bf16: the mma body marches 16 x 16
 # patches along d, so H and W below, at and above one patch, D = 1, B = 1
-# and 3, every C it takes; C = 5 and 48 fall to the CUDA-core body
+# and 3, C = 16, 32 and 64 (16-byte output pieces), 12 (24-byte rows in
+# 8-byte pieces), 24 and 48 (N padded to the next n8 tile); C = 5 falls to
+# the CUDA-core body
 FROM1_CASES = [((1, 1, 3, 4), 64, "mma"), ((3, 5, 7, 9), 64, "mma"), ((1, 9, 16, 16), 64, "mma"),
                ((2, 3, 17, 33), 64, "mma"), ((1, 90, 18, 20), 16, "mma"),
-               ((2, 4, 35, 6), 32, "mma"), ((2, 4, 5, 6), 5, "fma"), ((1, 4, 5, 6), 48, "fma")]
+               ((2, 4, 35, 6), 32, "mma"), ((2, 4, 5, 6), 5, "fma"), ((1, 4, 5, 6), 48, "mma"),
+               ((2, 6, 19, 37), 12, "mma"), ((1, 1, 3, 4), 12, "mma"), ((3, 5, 17, 21), 24, "mma"),
+               ((2, 3, 17, 33), 48, "mma"), ((1, 4, 5, 6), 4, "mma"), ((1, 4, 18, 20), 20, "mma")]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape,c,body", FROM1_CASES)
 def test_conv3d_from1_bodies_match_plain(cuda_device, shape, c, body):
     """Each body against the plain version and against the tensor-core
-    body's algorithm in PyTorch (the same bf16 inputs, fp32 sums)."""
+    body's algorithm in PyTorch (the same bf16 inputs, fp32 sums); the
+    CUDA-core body it superseded on the same operands too."""
     gen = torch.Generator(device=cuda_device).manual_seed(6)
     x = torch.randn(shape + (1,), generator=gen, device=cuda_device).bfloat16()
     w = (0.3 * torch.randn((3, 3, 3, 1, c), generator=gen, device=cuda_device)).bfloat16()
     assert conv3d_from1_body(x, c) == body
-    assert conv3d_from1_body(x.float(), c) == "fma"  # TF32 would not hold the fp32 tolerance
+    # fp32 takes the three-product TF32 form of the same tap product
+    assert conv3d_from1_body(x.float(), c) == ("tf32x3" if body == "mma" else "fma")
     got = conv3d_from1(x, w)
+    before = dict(build.launches)
+    earlier = conv3d_from1_earlier_body(x, w)
     torch.cuda.synchronize()
+    assert build.launches == before  # the measuring entry counts nothing
     for want in (conv3d_from1_plain(x, w).float(), conv3d_from1_gemm_plain(x, w).float()):
         assert got.shape == want.shape
-        assert (got.float() - want).abs().max().item() <= TOL[torch.bfloat16] * max(
-            1.0, want.abs().max().item())
+        tol = TOL[torch.bfloat16] * max(1.0, want.abs().max().item())
+        assert (got.float() - want).abs().max().item() <= tol
+        assert (earlier.float() - want).abs().max().item() <= tol
+
+
+# (B, D, H, W) and C of conv3d_from1 in fp32: the "tf32x3" body at the
+# stems' C (12 and 16 of the FC and spatial_150 families, 32 and 64 of
+# spatial_1200_fullsize and spatial_1200) and at C = 20 (N padded), at grids
+# no patch divides
+FROM1_FP32_CASES = [((2, 6, 19, 37), 12), ((1, 90, 18, 20), 16), ((2, 4, 35, 6), 32),
+                    ((3, 5, 7, 9), 64), ((2, 3, 17, 33), 64), ((1, 4, 18, 20), 20)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,c", FROM1_FP32_CASES)
+def test_conv3d_from1_tf32x3_body_matches_plain(cuda_device, shape, c):
+    """The fp32 tap product against the plain version, its own algorithm in
+    PyTorch and the CUDA-core body it superseded, at the fp32 tolerance."""
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    x = torch.randn(shape + (1,), generator=gen, device=cuda_device)
+    w = 0.3 * torch.randn((3, 3, 3, 1, c), generator=gen, device=cuda_device)
+    assert conv3d_from1_body(x, c) == "tf32x3"
+    before = build.launches["conv3d_from1"]
+    got = conv3d_from1(x, w)
+    earlier = conv3d_from1_earlier_body(x, w)
+    torch.cuda.synchronize()
+    assert build.launches["conv3d_from1"] == before + 1
+    want = conv3d_from1_plain(x, w)
+    tol = TOL[torch.float32] * max(1.0, want.abs().max().item())
+    for out in (got, earlier, conv3d_from1_tf32x3_plain(x, w)):
+        assert out.shape == want.shape and out.dtype == torch.float32
+        assert (out - want).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kern,plain,x_shape,w_shape", [
+    (conv3d_same, conv3d_same_plain, (2, 5, 6, 7, 64), (3, 3, 3, 64, 64)),
+    (conv3d_same, conv3d_same_plain, (2, 5, 6, 7, 32), (3, 3, 3, 32, 32)),
+    (conv3d_from1, conv3d_from1_plain, (2, 5, 6, 7, 1), (3, 3, 3, 1, 64)),
+    (conv3d_from1, conv3d_from1_plain, (2, 5, 6, 7, 1), (3, 3, 3, 1, 12))])
+def test_tf32x3_bodies_propagate_inf_and_nan_as_fp32(cuda_device, kern, plain, x_shape,
+                                                      w_shape):
+    """An inf and a NaN in the input: the fp32 tensor-core bodies give inf
+    (of the product's sign) and NaN where the plain version does, not the
+    inf - inf = NaN of a naive split, and the other outputs within the fp32
+    tolerance."""
+    gen = torch.Generator(device=cuda_device).manual_seed(10)
+    x = torch.randn(x_shape, generator=gen, device=cuda_device)
+    w = 0.1 * torch.randn(w_shape, generator=gen, device=cuda_device)
+    x[0, 1, 2, 3, 0] = float("inf")
+    x[-1, -2, 1, 1, -1] = float("nan")
+    got, want = kern(x, w), plain(x, w)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(torch.isposinf(got), torch.isposinf(want))
+    assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+    assert torch.isposinf(want).any() and torch.isneginf(want).any() and torch.isnan(want).any()
+    fin = torch.isfinite(want)
+    tol = TOL[torch.float32] * max(1.0, want[fin].abs().max().item())
+    assert (got[fin] - want[fin]).abs().max().item() <= tol
 
 
 # x shape, Co: the tensor-core body in bf16 inside one plane (16 * 8 = 128
@@ -328,8 +415,11 @@ GRAD_CASES = [  # differentiable wrapper, plain version, x shape, w shape
     (conv3d_same, conv3d_same_plain, (3, 5, 7, 9, 128), (3, 3, 3, 128, 256)),  # dgrad 256 -> 128
     (conv3d_same, conv3d_same_plain, (2, 4, 5, 6, 3), (3, 3, 3, 3, 4)),
     (conv3d_same, conv3d_same_plain, (2, 5, 6, 7, 12), (3, 3, 3, 12, 24)),  # dgrad 24 -> 12, narrow
+    (conv3d_same, conv3d_same_plain, (2, 5, 6, 7, 32), (3, 3, 3, 32, 64)),  # fp32: 32-wide dgrad
     (conv3d_to1, conv3d_to1_plain, (2, 6, 8, 10, 64), (3, 3, 3, 64, 1)),
+    (conv3d_to1, conv3d_to1_plain, (2, 5, 6, 7, 12), (3, 3, 3, 12, 1)),    # dx: from1 at C = 12
     (conv3d_from1, conv3d_from1_plain, (2, 6, 8, 10, 1), (3, 3, 3, 1, 64)),
+    (conv3d_from1, conv3d_from1_plain, (2, 5, 6, 7, 1), (3, 3, 3, 1, 12)),
     (conv3d_stats, _stats_plain, (2, 6, 7, 9, 64), (3, 3, 3, 64, 64)),
     (conv3d_stats, _stats_plain, (2, 4, 5, 6, 3), (3, 3, 3, 3, 4)),
 ]

@@ -18,10 +18,12 @@ from sivae_tpu.kernels.conv3d import conv3d_same_pallas
 from sivae_tpu.kernels.conv3d_small import conv3d_from1 as jax_from1
 from sivae_tpu.kernels.conv3d_small import conv3d_to1 as jax_to1
 from sivae_torch.kernels import build
-from sivae_torch.kernels.conv3d import conv3d_same, conv3d_same_narrow_plain, conv3d_same_plain
+from sivae_torch.kernels.conv3d import (conv3d_same, conv3d_same_narrow_plain, conv3d_same_plain,
+                                        conv3d_same_tf32x3_plain, tf32_round, tf32_split)
 from sivae_torch.kernels.conv3d_small import (conv3d_from1, conv3d_from1_gemm_plain,
-                                              conv3d_from1_plain, conv3d_to1,
-                                              conv3d_to1_contract_first_plain, conv3d_to1_plain)
+                                              conv3d_from1_plain, conv3d_from1_tf32x3_plain,
+                                              conv3d_to1, conv3d_to1_contract_first_plain,
+                                              conv3d_to1_plain)
 
 torch.set_num_threads(2)
 
@@ -160,6 +162,102 @@ def test_from1_gemm_plain_matches_pallas_bf16():
     assert got.dtype == torch.bfloat16
     want = np.asarray(jax_from1(xj, wj, True).astype(jnp.float32))
     np.testing.assert_allclose(got.float().numpy(), want, atol=0.05, rtol=0.05)
+
+
+# C = 12 and 24: the bf16 tensor-core body's N padded to the next n8 tile,
+# and C = 12's 24-byte output rows
+@pytest.mark.parametrize("c", [12, 24])
+def test_from1_gemm_plain_matches_pallas_bf16_at_narrow_c(c):
+    x, w = _inputs(14, (1, 5, 7, 9), 1, c)
+    (xt, xj), (wt, wj) = _bf16(x), _bf16(w)
+    got = conv3d_from1_gemm_plain(xt, wt)
+    assert got.dtype == torch.bfloat16
+    want = np.asarray(jax_from1(xj, wj, True).astype(jnp.float32))
+    np.testing.assert_allclose(got.float().numpy(), want, atol=0.05, rtol=0.05)
+
+
+# the fp32 tensor-core bodies ("tf32x3"): each operand split into TF32 big
+# and small parts, three products a k-step. fp32 tolerance 1e-4 *
+# max(1, max|ref|), the kernels' own (chip_smoke.py, test_torch_cuda.py);
+# K = 27 * 64 = 1728 is where one TF32 product misses it
+TF32_CONV_SHAPES = CONV_SHAPES + [((1, 3, 4, 5), 64, 8)]
+
+
+def _within(got: np.ndarray, want: np.ndarray, tol: float) -> float:
+    """max |got - want| / max(1, max |want|), asserted <= tol."""
+    rel = np.abs(got - want).max() / max(1.0, np.abs(want).max())
+    assert rel <= tol, rel
+    return rel
+
+
+@pytest.mark.parametrize("shape,cin,cout", TF32_CONV_SHAPES)
+def test_conv3d_tf32x3_plain_matches_pallas(shape, cin, cout):
+    x, w = _inputs(0, shape, cin, cout)
+    got = conv3d_same_tf32x3_plain(torch.from_numpy(x), torch.from_numpy(w))
+    assert got.dtype == torch.float32
+    want = np.asarray(conv3d_same_pallas(jnp.asarray(x), jnp.asarray(w), True))
+    _within(got.numpy(), want, 1e-4)
+
+
+def test_one_tf32_product_misses_the_fp32_tolerance_at_k1728():
+    """Why the fp32 bodies take three products: one TF32 product (both
+    operands rounded to TF32, fp32 sums) over K = 1728 is off by more than
+    1e-4 of the largest output (He-scaled weights, seeded); the three-product
+    split holds it with room (~2e-7)."""
+    shape, cin, cout = TF32_CONV_SHAPES[-1]
+    rng = np.random.RandomState(15)
+    x = rng.randn(*shape, cin).astype(np.float32)
+    w = (rng.randn(3, 3, 3, cin, cout) * np.sqrt(2.0 / (27 * cin))).astype(np.float32)
+    want = np.asarray(conv3d_same_pallas(jnp.asarray(x), jnp.asarray(w), True))
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    one = conv3d_same_plain(tf32_round(xt), tf32_round(wt)).numpy()
+    rel_one = np.abs(one - want).max() / np.abs(want).max()
+    assert rel_one > 1e-4, rel_one
+    assert _within(conv3d_same_tf32x3_plain(xt, wt).numpy(), want, 1e-4) < 1e-2 * rel_one
+
+
+@pytest.mark.parametrize("shape,c", CONTRACT_SHAPES + [((1, 5, 7, 9), 12)])
+def test_from1_tf32x3_plain_matches_pallas(shape, c):
+    x, w = _inputs(11, shape, 1, c)
+    got = conv3d_from1_tf32x3_plain(torch.from_numpy(x), torch.from_numpy(w))
+    assert got.dtype == torch.float32 and got.shape == shape + (c,)
+    want = np.asarray(jax_from1(jnp.asarray(x), jnp.asarray(w), True))
+    _within(got.numpy(), want, 1e-4)
+
+
+def _bits(v: float) -> int:
+    return int(np.array(v, dtype=np.float32).view(np.int32))
+
+
+def test_tf32_round_ties_signs_zero_denormals_inf():
+    """Round to nearest on the 13 dropped bits, ties away from zero, as
+    cvt.rna.tf32.f32; the split leaves inf as big = inf, small = cross = 0."""
+    one, ulp = 1.0, 2.0 ** -10            # a TF32 ulp at 1
+    cases = [
+        (one, one), (-one, -one), (0.0, 0.0),
+        (one + ulp / 2, one + ulp), (-(one + ulp / 2), -(one + ulp)),         # ties: away
+        (one + ulp / 2 - 2.0 ** -23, one), (one + ulp / 2 + 2.0 ** -23, one + ulp),
+        (one + 1.5 * ulp, one + 2 * ulp),                                       # tie, odd below
+        (float(np.inf), float(np.inf)), (float(-np.inf), float(-np.inf)),
+    ]
+    got = tf32_round(torch.tensor([a for a, _ in cases], dtype=torch.float32))
+    assert got.tolist() == [b for _, b in cases]
+    # -0 keeps its sign; denormals (bit patterns) round on the same 13 bits
+    neg0 = tf32_round(torch.tensor([-0.0]))
+    assert _bits(neg0.item()) == _bits(-0.0)
+    neg_tie = -0x7FFFF000                                    # bits 0x80001000: -(a tie)
+    den = torch.tensor([0x1, 0xFFF, 0x1000, 0x1FFF, 0x3000, neg_tie],
+                       dtype=torch.int32).view(torch.float32)
+    out = tf32_round(den).view(torch.int32).tolist()
+    assert out == [0, 0, 0x2000, 0x2000, 0x4000, neg_tie + 0x1000]     # 0x80002000
+    assert np.isnan(tf32_round(torch.tensor([float("nan")])).item())
+    assert tf32_round(torch.tensor([3.4028235e38])).item() == float("inf")  # past the largest
+    big, small, cross = tf32_split(torch.tensor([float("inf"), -float("inf"), 1.0 + 2.0 ** -20]))
+    assert big.tolist()[:2] == [float("inf"), -float("inf")]
+    assert small.tolist()[:2] == cross.tolist()[:2] == [0.0, 0.0]
+    assert big[2].item() == cross[2].item() == 1.0 and small[2].item() == 2.0 ** -20
+    for v in (big, small, cross):                            # the low 13 bits are clear
+        assert not (v.view(torch.int32) & 0x1FFF).any()
 
 
 def test_cpu_tensors_take_plain_versions_and_count_nothing():
