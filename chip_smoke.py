@@ -16,15 +16,19 @@ failure exits non-zero and prints no result):
    165 TF/s, a third of the TF32 rate: what fp32-accurate work costs on the
    tensor cores); for `conv3d_same` rows that the wgmma body takes, its
    block shape and the superseded mma.sync body's error and time on the same
-   operands, for rows that the narrow or tf32x3 body takes the superseded
-   "fma" body's, and for `conv3d_to1` and `conv3d_from1` rows on a
+   operands, for rows that the narrow, tf32x3 or narrow_tf32x3 body takes
+   the superseded "fma" body's, and for `conv3d_to1` and `conv3d_from1` rows on a
    tensor-core body ("mma", "tf32x3") their "fma" body's. Times are
    device times: the timed calls wait on the card behind other queued work,
    so a kernel shorter than its launch path is not timed by that path. The
    flagship sites of `conv3d_same`, `conv3d_to1` and `conv3d_from1` are also
-   run at batch 8, the batch both main paths run, in bf16 and fp32 (the
-   stem also at C = 12 in fp32 and C = 24 in bf16), and the two stencils at
-   C = 16 and 32. The fused conv +
+   run at batch 8, the batch both main paths run, in bf16 and fp32 (both
+   stencils also at C = 12 in fp32, the stem at C = 24 in bf16), and the two
+   stencils at C = 16 and 32. In fp32 at batch 8, `conv3d_same` also runs
+   at the FC and spatial_150 sites of the "narrow_tf32x3" body (12->12 and
+   16->16 at 80x96x80; 12->12, 12->24, 24->12, 16->32 at 40x48x40; 24->32
+   at 20x24x20; 48->48 at 5x6x5). Each row prints its share of the bound
+   (bound / kernel ms). The fused conv +
    statistics kernel runs with and without its prologue at the flagship site
    (with it also at batch 8) and at two shapes whose tiles straddle (b, d)
    planes; its library yardstick is the unfused stage (elementwise prologue,
@@ -47,14 +51,21 @@ failure exits non-zero and prints no result):
    runs once with the launch counters set to 0: encode every volume at
    batch 8, cosine-kNN retrieval (every fifth patient's volumes as queries),
    reconstruction report of every volume at batch 8. The counters must grow
-   by exactly 8 conv3d + 1 from1 per encoded batch and 13 conv3d + 1 to1 +
-   1 from1 per reconstructed batch. Then encode and reconstruct throughput
+   by exactly the counts derived from the model's modules (8 conv3d + 1
+   from1 per encoded batch and 13 conv3d + 1 to1 + 1 from1 per
+   reconstructed batch), and each kernel's body at every site the run
+   launched is printed; the run fails if one of them is "fma" where every
+   channel count is a multiple of 4. Then encode and reconstruct throughput
    over the same 4 full batches, 5 windows each (median, min, max), peak
    memory, and a torch.profiler window over one batch through each entry
    point (encode, reconstruction report): device time by kernel and the
    idle share. Then one volume in fp32 on the card (every conv through the
    kernels) against the same model and volume on the CPU (plain versions):
-   relative error of mu and of the reconstruction <= 1e-3.
+   relative error of mu and of the reconstruction <= 1e-3. Then the same
+   fp32 eval path (counted, bodies, throughput, profiles, the CPU check) for
+   fc_150, the z600 preset's model (seed 0 weights, the same volumes): the
+   eval CLI's usage line `--model fc_150`, whose convs run the
+   "narrow_tf32x3" body and its C -> 1 tail the fp32 "tf32x3" one.
 6. The fused stage (the path of the fused conv + statistics kernel, which is
    on no model path): at the flagship site, batch 8, bf16, with the counters
    at 0, one fused stage forward (prologue -> conv -> batch statistics from
@@ -72,10 +83,12 @@ failure exits non-zero and prints no result):
    moved; peak memory; one validation step with finite metrics; a
    torch.profiler window over one step. Then one fp32 step of `tiny_spatial`
    (no dropout, zero_noise, a fixed numpy noise batch) on the card through
-   the kernels against the same step on the CPU through the plain versions:
-   lossE and lossD within 1e-4 relative, both Adams' first moments within
-   1e-3 * max|m| per tensor (max|m| not below 1e-2 of the model's largest:
-   gradients that are zero in exact arithmetic hold cancellation noise).
+   the kernels against the same step on the CPU through the plain versions,
+   the card's ReLU / LeakyReLU branches replayed on the CPU (`KinkReplay`;
+   each element whose branch flips must be a rounding tie): lossE and lossD
+   within 1e-4 relative, both Adams' first moments within 1e-3 * max|m| per
+   tensor (max|m| not below 1e-2 of the model's largest: gradients that are
+   zero in exact arithmetic hold cancellation noise).
 
 8. The training entry point at full width (`sivae_torch/cli/train.py`,
    below its split): the z1200 preset (spatial_1200 at 80x96x80, bf16
@@ -114,10 +127,11 @@ failure exits non-zero and prints no result):
    narrow body and 32->64 on "mma"; both stencils at C = 12), bf16, batch 8.
    Before the steps, one whole fc_150 forward (eval mode, encode, and decode
    of the fp32 forward's mu) in bf16 against the same weights in fp32 on the
-   card, which share no kernel: relative error <= 5e-2 of the largest
-   fp32 value (`TOL_FC_FORWARD` says why). Every counted bf16 run of the
-   phase prints the body of each `conv3d_same` and `conv3d_from1` site it
-   launched, forward and input gradient, and fails if one is "fma".
+   card, which share no kernel body: relative error <= 5e-2 of the largest
+   fp32 value (`TOL_FC_FORWARD` says why). Every counted run of the phase
+   prints the body of each `conv3d_same`, `conv3d_to1` and `conv3d_from1`
+   site it launched, forward and input gradient, and fails if one is
+   "fma".
 
 `--only kernels,grad,path,stage,train,trainer,families` runs a subset while
 working on one phase; it ends with `{"ok": false, "partial": ...}`, never
@@ -190,11 +204,14 @@ FAMILY_CONV_SITES = [(8, 12, 12, (80, 96, 80)), (8, 12, 12, (40, 48, 40)),
                      (8, 64, 32, (20, 24, 20)), (8, 32, 64, (20, 24, 20))]
 FAMILY_STENCIL_SITES = [(8, 12, (80, 96, 80))]
 # fp32 only (the eval CLI's default, `--no-bf16` training), at the eval
-# path's batch: the flagship conv, and the tail and stem of spatial_1200;
-# the stem also at the FC families' C = 12
-FP32_CONV_SITES = [(8, 64, 64, (80, 96, 80))]
-FP32_STENCIL_SITES = [(8, 64, (80, 96, 80))]
-FP32_FROM1_SITES = [(8, 12, (80, 96, 80))]
+# path's batch: the flagship conv, then the FC and spatial_150 sites of the
+# "narrow_tf32x3" body (fc_150 / spatial_150: 12->12, 12->24 and its input
+# gradient 24->12, 24->32, 48->48; fc_600: 16->16, 16->32); both stencils
+# at spatial_1200's C = 64 and the FC families' C = 12
+FP32_CONV_SITES = [(8, 64, 64, (80, 96, 80)), (8, 12, 12, (80, 96, 80)), (8, 16, 16, (80, 96, 80)),
+                   (8, 12, 12, (40, 48, 40)), (8, 12, 24, (40, 48, 40)), (8, 24, 12, (40, 48, 40)),
+                   (8, 16, 32, (40, 48, 40)), (8, 24, 32, (20, 24, 20)), (8, 48, 48, (5, 6, 5))]
+FP32_STENCIL_SITES = [(8, 64, (80, 96, 80)), (8, 12, (80, 96, 80))]
 # bf16 only: the stem at C = 24, another width of the tap product's padded N
 FROM1_BF16_SITES = [(8, 24, (80, 96, 80))]
 SLOPE = 0.2                  # the model's LeakyReLU
@@ -202,7 +219,8 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # the body each tensor-core body superseded, which phase 3 runs beside it on
 # the same operands (`conv3d_to1`'s and `conv3d_from1`'s "mma" superseded
 # their "fma" bodies, as the fp32 "tf32x3" bodies did)
-SUPERSEDED = {"wgmma": "mma", "narrow": "fma", "mma": "fma", "tf32x3": "fma"}
+SUPERSEDED = {"wgmma": "mma", "narrow": "fma", "mma": "fma", "tf32x3": "fma",
+              "narrow_tf32x3": "fma"}
 TOL_SUMS = 1e-3
 TOL_DW = {torch.float32: 1e-3, torch.bfloat16: 1e-2}
 TRAIN_LAUNCHES = {"conv3d_same": 155, "conv3d_to1": 10, "conv3d_from1": 12,
@@ -399,11 +417,12 @@ def phase_kernels(dev) -> dict:
         tag = f"{name} {site} {dtype_name(dtype)}"
         log(f"[kernel] {tag:52s} {body:5s} max_abs {err:.3e} max_rel {rel:.3e}{sums} "
             f"{'ok' if ok else 'FAIL'} | kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
-            f"library {lib_ms:.3f} ms bound {b_ms:.3f} ms ({b_by}){old}")
+            f"library {lib_ms:.3f} ms bound {b_ms:.3f} ms ({b_by}, {b_ms / ms:.0%} of it){old}")
         if not ok:
             failures.append(tag)
         rows[(name, site, dtype)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                         library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+                                         library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                                         body=body)
 
     for dtype in (torch.float32, torch.bfloat16):
         isz = 4 if dtype == torch.float32 else 2
@@ -441,10 +460,10 @@ def phase_kernels(dev) -> dict:
                 lambda: conv3d_to1(x, w), lambda: conv3d_to1_plain(x, w),
                 lambda: F.conv3d(x_cl, w_cl, padding=1),
                 (x.numel() + w.numel() + n_vox) * isz, 2.0 * n_vox * 27 * c, x.numel(),
-                body, (lambda: conv3d_to1_earlier_body(x, w)) if body == "mma" else None)
+                body, (lambda: conv3d_to1_earlier_body(x, w)) if body in SUPERSEDED else None)
 
         from1_more = (STENCIL_BF16_SITES + FAMILY_STENCIL_SITES + FROM1_BF16_SITES
-                      if dtype == torch.bfloat16 else FP32_STENCIL_SITES + FP32_FROM1_SITES)
+                      if dtype == torch.bfloat16 else FP32_STENCIL_SITES)
         for b, c, sp in [(2,) + site for site in SMALL_SITES] + from1_more:
             n_vox = b * sp[0] * sp[1] * sp[2]
             x = torch.randn((b,) + sp + (1,), generator=gen, device=dev).to(dtype)
@@ -577,8 +596,9 @@ def synthetic_volumes(dev, n_vol: int = 32):
 def eval_path(dev, model, vox, labels, vid, tid, tag: str) -> dict:
     """The eval / CBIR main path through `model` at batch 8, counted: encode
     every volume, retrieve, reconstruct every volume with its report; the
-    launches asserted, then throughput windows and one profile window of each
-    entry point. Returns the counted launches."""
+    launches asserted against the counts derived from the model's modules
+    and each site's body checked, then throughput windows and one profile
+    window of each entry point. Returns the counted launches."""
     import numpy as np
 
     from sivae_torch.eval.latent_probe import encode_dataset
@@ -605,12 +625,12 @@ def eval_path(dev, model, vox, labels, vid, tid, tag: str) -> dict:
     counts = dict(build.launches)
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     rec_counts = {k: counts[k] - enc_counts[k] for k in counts}
-    want = {"conv3d_same": 8 * n_b, "conv3d_to1": 0, "conv3d_from1": n_b,
-            "conv3d_fused_stats": 0}
+    bodies = site_bodies(dev)
+    e, d = conv_sites(model.encoder), conv_sites(model.decoder)
+    want = {k: n_b * e[k] for k in e}
     if enc_counts != want:
         raise SystemExit(f"chip_smoke: {tag} encode launches {enc_counts}, expected {want}")
-    want = {"conv3d_same": 13 * n_b, "conv3d_to1": n_b, "conv3d_from1": n_b,
-            "conv3d_fused_stats": 0}
+    want = {k: n_b * (e[k] + d[k]) for k in e}
     if rec_counts != want:
         raise SystemExit(f"chip_smoke: {tag} reconstruct launches {rec_counts}, expected {want}")
 
@@ -620,7 +640,8 @@ def eval_path(dev, model, vox, labels, vid, tid, tag: str) -> dict:
         raise SystemExit(f"chip_smoke: {tag} bad report {report}")
     report["retrieval_p_at_k"] = p_at_k
     log(f"[path] {tag} launches encode {enc_counts} reconstruct {rec_counts}; "
-        f"peak memory {peak_gib:.2f} GiB")
+        f"peak memory {peak_gib:.2f} GiB; bodies {json.dumps(bodies)}")
+    _require_tensor_core_bodies(f"the {tag} eval path", bodies)
     log(f"[path] {tag} report {json.dumps(report)}")
 
     # throughput: REPEATS windows of each over the same full batches (the
@@ -648,13 +669,13 @@ def eval_path(dev, model, vox, labels, vid, tid, tag: str) -> dict:
 
 
 def phase_path(dev, src, vox) -> tuple:
-    """The eval path in bf16 (`--bf16`) and in fp32 (the eval CLI's
-    default), then the fp32 kernel path against the plain path on the CPU.
-    Returns the counted launches of each."""
+    """The eval path of spatial_1200 in bf16 (`--bf16`) and in fp32 (the
+    eval CLI's default), then of fc_150 in fp32, each fp32 model's kernel
+    path against its plain path on the CPU. Returns the counted launches of
+    each."""
     import numpy as np
 
     from sivae_torch.models.registry import get_model_config, make_model
-    from sivae_torch.models.resnet_vae import reparameterize
 
     cfg32 = get_model_config("spatial_1200")
     n_vol = vox.shape[0]
@@ -668,11 +689,22 @@ def phase_path(dev, src, vox) -> tuple:
     model = make_model(dataclasses.replace(cfg32, dtype=torch.bfloat16), device=dev, seed=0)
     counts16 = eval_path(dev, model, vox, src.labels, vid, tid, "bf16")
     del model
-    model32 = make_model(cfg32, device=dev, seed=0)
-    counts32 = eval_path(dev, model32, vox, src.labels, vid, tid, "fp32")
+    counts32 = {}
+    for name, tag in (("spatial_1200", "fp32"), ("fc_150", "fc_150 fp32")):
+        model32 = make_model(get_model_config(name), device=dev, seed=0)
+        counts32[tag] = eval_path(dev, model32, vox, src.labels, vid, tid, tag)
+        card_vs_cpu_eval(model32, vox[:1], tag)
+        del model32
+        torch.cuda.empty_cache()
+    return counts16, counts32["fp32"], counts32["fc_150 fp32"]
 
-    # kernel path (fp32, TF32 off, card) against the plain path (CPU)
-    x1 = vox[:1]
+
+def card_vs_cpu_eval(model32, x1, tag: str) -> None:
+    """One volume's encode and reconstruction in fp32 through the kernels
+    (TF32 off, card) against the same model on the CPU (plain versions):
+    relative error of mu and of the reconstruction <= 1e-3."""
+    from sivae_torch.models.resnet_vae import reparameterize
+
     with torch.no_grad():
         mu_k, lv_k = model32.encode(x1)
         rec_k = model32.decode(reparameterize(mu_k, lv_k, val_eps=0.1))
@@ -684,11 +716,10 @@ def phase_path(dev, src, vox) -> tuple:
         rec_p = cpu_model.decode(reparameterize(mu_p, lv_p, val_eps=0.1))
         t_cpu = time.perf_counter() - t0
     e_mu, e_rec = _rel(mu_k, mu_p), _rel(rec_k, rec_p)
-    log(f"[path] fp32 kernels vs plain (CPU, {t_cpu:.1f} s): mu rel {e_mu:.3e}, "
+    log(f"[path] {tag} kernels vs plain (CPU, {t_cpu:.1f} s): mu rel {e_mu:.3e}, "
         f"reconstruction rel {e_rec:.3e} (limit 1e-3)")
     if not (e_mu <= 1e-3 and e_rec <= 1e-3):
-        raise SystemExit("chip_smoke: kernel path disagrees with the plain path")
-    return counts16, counts32
+        raise SystemExit(f"chip_smoke: the {tag} kernel path disagrees with the plain path")
 
 
 def profile_window(what: str, fn, top: int = 10) -> None:
@@ -908,10 +939,54 @@ def phase_train(dev, real) -> dict:
     return counts
 
 
+class KinkReplay:
+    """The branch every ReLU / LeakyReLU element takes (input > 0), recorded
+    in the card's step and replayed in the CPU reference's. An input that is
+    0 to within fp32 rounding falls on either side of the kink as the sums'
+    order decides, and the two steps would then differentiate two different
+    branches of a piecewise-linear function: one element of tiny_fc's
+    decoder-tail ReLU (-1.8e-7 on the card, 3.4e-6 on the CPU, of a largest
+    11) moved Adam's first moments by up to 6.5e-3 of a tensor's largest.
+    Each element whose branch the CPU's own input would flip is counted and
+    must be such a tie: the two inputs within 1e-4 of the tensor's largest
+    (the forward tolerance). The BN + activation backward derives its own
+    mask, which the replay does not reach."""
+
+    def __init__(self):
+        self.record, self.calls, self.at, self.flips, self.gap = True, [], 0, 0, 0.0
+
+    def _act(self, x, slope, orig, *args, **kwargs):
+        if self.record:
+            self.calls.append(x.detach().float().cpu())
+            return orig(x, *args, **kwargs)
+        card = self.calls[self.at]
+        self.at += 1
+        mask = card > 0
+        flip = mask != (x.detach() > 0)
+        if flip.any():
+            scale = max(card.abs().max().item(), x.detach().abs().max().item(), 1e-30)
+            self.flips += int(flip.sum())
+            self.gap = max(self.gap, (card - x.detach().float())[flip].abs().max().item() / scale)
+        return torch.where(mask, x, x * slope)
+
+    def __enter__(self):
+        self._orig = F.relu, F.leaky_relu
+        relu, leaky = self._orig
+        F.relu = lambda x, inplace=False: self._act(x, 0.0, relu, inplace)
+        F.leaky_relu = lambda x, negative_slope=0.01, inplace=False: self._act(
+            x, negative_slope, leaky, negative_slope, inplace)
+        return self
+
+    def __exit__(self, *exc):
+        F.relu, F.leaky_relu = self._orig
+        self.record = False
+
+
 def card_vs_cpu_step(dev, cfg, max_floored: int) -> None:
     """One fp32 Soft-IntroVAE step of `cfg` (no dropout, zero_noise, a fixed
     numpy noise batch, batch 4, weights of seed 3) on the card through the
-    kernels against the same step on the CPU through the plain versions:
+    kernels against the same step on the CPU through the plain versions, the
+    card's ReLU / LeakyReLU branches replayed on the CPU (`KinkReplay`):
     lossE and lossD within 1e-4 relative, every first moment within 1e-3 *
     max|m| per tensor. A tensor whose gradient is zero or nearly so in exact
     arithmetic (a conv bias or a 1-channel conv weight in front of a BN,
@@ -930,14 +1005,15 @@ def card_vs_cpu_step(dev, cfg, max_floored: int) -> None:
     rng = np.random.RandomState(11)
     real_t = torch.from_numpy(rng.rand(4, 1, *cfg.input_shape).astype(np.float32))
     fixed = rng.randn(4, cfg.latent_dim).astype(np.float32)
-    done = {}
+    done, kinks = {}, KinkReplay()
     for where in (dev, torch.device("cpu")):
         m_t = make_model(cfg, device=where, seed=3)
         s_t = create_train_state(m_t, seed=0)
         f_t = make_soft_intro_train_step(m_t, SoftIntroLossConfig(), OptimConfig(), 1,
                                          cfg.input_shape, zero_noise=True, fixed_noise=fixed)
         build.reset_launches()
-        _, met = f_t(s_t, real_t.to(where))
+        with kinks:  # records on the card, replays on the CPU
+            _, met = f_t(s_t, real_t.to(where))
         names = {p: k for k, p in m_t.named_parameters()}
         moments = {names[p]: s["exp_avg"].detach().cpu()
                    for opt in (s_t.opt_e, s_t.opt_d) for p, s in opt.state.items()}
@@ -961,8 +1037,11 @@ def card_vs_cpu_step(dev, cfg, max_floored: int) -> None:
     log(f"[train] {tag}, kernels (card) vs plain (CPU): lossE rel {rel_e:.2e}, "
         f"lossD rel {rel_d:.2e} (limit 1e-4); first moments of {len(mom_p)} tensors worst "
         f"{worst[0]:.2e} of max|m| at {worst[1]} (limit 1e-3); held to the floor {floor:.2e}: "
-        f"{len(floored)} tensors (at most {max_floored}) {floored}; card launches {n_k}")
-    if rel_e > 1e-4 or rel_d > 1e-4 or bad or len(floored) > max_floored:
+        f"{len(floored)} tensors (at most {max_floored}) {floored}; activation branches the "
+        f"CPU took otherwise: {kinks.flips} of {len(kinks.calls)} calls' elements, card vs CPU "
+        f"input gap {kinks.gap:.2e} of the largest (limit 1e-4); card launches {n_k}")
+    if (rel_e > 1e-4 or rel_d > 1e-4 or bad or len(floored) > max_floored
+            or kinks.at != len(kinks.calls) or kinks.gap > 1e-4):
         raise SystemExit(f"chip_smoke: the card's {tag} disagrees with the CPU's: {bad}")
 
 
@@ -1200,34 +1279,43 @@ def _add_counts(a: dict, b: dict) -> dict:
 
 
 def site_bodies(dev) -> dict:
-    """The body conv3d_same's dispatch takes at each bf16 site launched since
-    the counters were last set to 0, "Ci->Co": body, and conv3d_from1's at
-    each bf16 one, "from1 1->C": body (fresh operands, which are aligned, as
+    """The body each kernel's dispatch takes at each site launched since the
+    counters were last set to 0, keyed "Ci->Co dtype" (conv3d_same), "to1
+    C->1 dtype" and "from1 1->C dtype" (fresh operands, which are aligned, as
     the model's are)."""
     from sivae_torch.kernels import build
     from sivae_torch.kernels.conv3d import conv3d_same_body
-    from sivae_torch.kernels.conv3d_small import conv3d_from1_body
+    from sivae_torch.kernels.conv3d_small import conv3d_from1_body, conv3d_to1_body
+
+    def parse(site):
+        chans, rest = site.split("@")
+        ci, co = (int(c) for c in chans.split("->"))
+        return ci, co, getattr(torch, rest.split()[-1])
 
     bodies = {}
     for site in build.conv3d_same_sites:
-        ci, co = (int(c) for c in site.split("@")[0].split("->"))
-        ops = [torch.empty(s, dtype=torch.bfloat16, device=dev)
+        ci, co, dt = parse(site)
+        ops = [torch.empty(s, dtype=dt, device=dev)
                for s in ((1, 1, 1, 1, ci), (3, 3, 3, ci, co), (1, 1, 1, 1, co))]
-        bodies[f"{ci}->{co}"] = conv3d_same_body(*ops)
+        bodies[f"{ci}->{co} {dtype_name(dt)}"] = conv3d_same_body(*ops)
+    for site in build.conv3d_to1_sites:
+        c, _, dt = parse(site)
+        x = torch.empty((1, 1, 1, 1, c), dtype=dt, device=dev)
+        bodies[f"to1 {c}->1 {dtype_name(dt)}"] = conv3d_to1_body(x)
     for site in build.conv3d_from1_sites:
-        if site.endswith(" bfloat16"):
-            c = int(site.split("@")[0].split("->")[1])
-            x = torch.empty((1, 1, 1, 1, 1), dtype=torch.bfloat16, device=dev)
-            bodies[f"from1 1->{c}"] = conv3d_from1_body(x, c)
+        _, c, dt = parse(site)
+        x = torch.empty((1, 1, 1, 1, 1), dtype=dt, device=dev)
+        bodies[f"from1 1->{c} {dtype_name(dt)}"] = conv3d_from1_body(x, c)
     return bodies
 
 
 def _require_tensor_core_bodies(what: str, bodies: dict) -> None:
-    """Every bf16 pairing of the FC and spatial_150 paths, forward and input
-    gradient, runs a tensor-core body ("wgmma", "mma" or "narrow"), and so
-    does every bf16 conv3d_from1 site (the stems, and the input gradients of
-    the C -> 1 tails)."""
-    slow = {k: v for k, v in bodies.items() if v == "fma"}
+    """Every site of a path whose channel counts are all multiples of 4 runs
+    a tensor-core body, in bf16 and in fp32, forward and input gradient:
+    conv3d_same ("wgmma", "mma", "narrow", "tf32x3", "narrow_tf32x3"),
+    conv3d_to1 and conv3d_from1 ("mma", "tf32x3"). "fma" there fails."""
+    slow = {k: v for k, v in bodies.items() if v == "fma"
+            and all(int(c) % 4 == 0 for c in k.split()[-2].split("->") if c != "1")}
     if slow:
         raise SystemExit(f"chip_smoke: {what} ran the fma body at {slow}")
 
@@ -1246,8 +1334,8 @@ def fc_forward_check(dev, real) -> None:
     """One whole fc_150 forward, eval mode, on the volumes `real`: encode, and
     decode of the fp32 forward's mu, in bf16 (its convs run the "narrow" and
     C->1 / 1->C tensor-core bodies) against the same weights in fp32 on the
-    card (its convs on the fp32 bodies, "fma" and "tf32x3": the two forwards
-    share no kernel)."""
+    card (its convs on the fp32 bodies, "narrow_tf32x3" and "tf32x3": the two
+    forwards share no kernel body)."""
     from sivae_torch.kernels import build
     from sivae_torch.models.registry import get_model_config, make_model
 
@@ -1464,7 +1552,7 @@ def main(argv=None):
     if "grad" in want:
         phase_gradients(dev)
     src, vox = synthetic_volumes(dev) if want & {"path", "train", "families"} else (None, None)
-    path_n, path32_n = phase_path(dev, src, vox) if "path" in want else ({}, {})
+    path_n, path32_n, fc32_n = phase_path(dev, src, vox) if "path" in want else ({}, {}, {})
     stage_n = phase_stage(dev) if "stage" in want else {}
     train_n = phase_train(dev, vox[:8]) if "train" in want else {}
     real = vox[:8].clone() if "families" in want else None
@@ -1487,6 +1575,7 @@ def main(argv=None):
     for kname, site in head.items():
         r = rows[(kname, site, torch.bfloat16)]
         per_path = {"eval_path": path_n[kname], "eval_path_fp32": path32_n[kname],
+                    "eval_path_fc150_fp32": fc32_n[kname],
                     "fused_stage": stage_n[kname],
                     "train_step": train_n[kname], "trainer": trainer_n[kname],
                     "families": families_n[kname]}
@@ -1500,7 +1589,8 @@ def main(argv=None):
                                            if k[0] == kname),
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                        "site": f"{site} batch 2 bf16"})
+                        "site": f"{site} batch 2 bf16",
+                        "bodies": sorted({v["body"] for k, v in rows.items() if k[0] == kname})})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -27,6 +27,26 @@ inline int device_sms() {
   return sms;
 }
 
+// Planes per segment of a block that marches along d (the C -> 1 and 1 -> C
+// bodies, the narrow conv): per_sm blocks run on an SM at a time, so the kernel lasts
+// (rounds of blocks over the SMs) x (planes a block reads, 2 of them halo); take the
+// split of D that makes that product least.
+inline int plane_seg_len(int patches, int D, int per_sm) {
+  const int sms = device_sms() * per_sm;
+  int best_len = D;
+  long long best = -1;
+  for (int segs = 1; segs <= D; ++segs) {
+    const int len = (D + segs - 1) / segs;
+    const long long blocks = static_cast<long long>(patches) * ((D + len - 1) / len);
+    const long long cost = (blocks + sms - 1) / sms * (len + 2);
+    if (best < 0 || cost < best) {
+      best = cost;
+      best_len = len;
+    }
+  }
+  return best_len;
+}
+
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 

@@ -7,7 +7,7 @@
 // once to the output type. (The Pallas kernel rounds the running sum to the
 // activation type after every depth tap.)
 //
-// Five bodies, chosen here by shape, type and alignment:
+// Six bodies, chosen here by shape, type and alignment:
 // - "wgmma" (conv3d_wgmma.cuh): bf16 with Ci % 64 == 0 and Co % 64 == 0. At
 //   the flagship site (64->64 at 80x96x80, batch 8) 1.09 TFLOP against
 //   ~1.26 GB moved: the tensor-core rate bounds it. Warp-specialised: one
@@ -30,31 +30,51 @@
 //   big*big) hold fp32 accuracy at a third of the 495 TF/s TF32 rate. The
 //   structure of the "wgmma" body, in fp32, with the weights split and
 //   transposed once per call into a scratch tensor the caller allocates.
-// - "fma" (conv3d_body.cuh): fp32 at the channel counts tf32x3 does not
-//   take, and bf16 at those no other body takes, on CUDA cores.
+// - "narrow_tf32x3" (conv3d_narrow_tf32x3.cuh): the other fp32 shapes with
+//   Ci and Co multiples of 4 up to 64 (the fp32 convs of the FC family and
+//   of spatial_150: 12/16/24/32/48 channels, the eval CLI's default and
+//   `--no-bf16` training). tf32x3's split products and warp roles, K = Ci
+//   rounded up to 8; where Co <= 32 the 3 kw taps are one wgmma's N (a
+//   wgmma costs about the same at N = 16 as at 64, so a third as many),
+//   their shifts summed after the loop. Each stage's weights, split and
+//   laid out by the launch, arrive as one bulk copy, and so does the input
+//   line where Ci % 8 == 4.
+// - "fma" (conv3d_body.cuh): fp32 at the channel counts neither tf32x3
+//   form takes, and bf16 at those no other body takes, on CUDA cores.
 // The fused conv + statistics kernel (conv3d_fused.cu) instantiates the
 // mma, fma and wgmma bodies with their optional parts; the conv here has
 // none.
 
 #include "conv3d_body.cuh"
 #include "conv3d_narrow.cuh"
+#include "conv3d_narrow_tf32x3.cuh"
 #include "conv3d_tf32x3.cuh"
 #include "conv3d_wgmma.cuh"
 
 extern "C" {
 
 // Which body a call with these arguments runs: 2 = wgmma, 1 = mma, 3 = narrow,
-// 4 = tf32x3, 0 = fma.
+// 4 = tf32x3, 5 = narrow_tf32x3, 0 = fma.
 int sivae_conv3d_same_body(const void* x, const void* w, const void* y, int Ci, int Co, int dtype) {
   if (sivae::wgmma_eligible(x, w, y, Ci, Co, dtype)) return 2;
   if (sivae::tf32x3_eligible(x, w, y, Ci, Co, dtype)) return 4;
   if (sivae::mma_eligible(x, w, y, Ci, Co, dtype)) return 1;
-  return sivae::narrow_eligible(x, y, Ci, Co, dtype) ? 3 : 0;
+  if (sivae::narrow_eligible(x, y, Ci, Co, dtype)) return 3;
+  return sivae::narrow_tf32x3_eligible(x, w, y, Ci, Co, dtype) ? 5 : 0;
+}
+
+// Floats of scratch an fp32 call needs (the split weights of either tf32x3
+// form); 0 for bf16.
+int sivae_conv3d_same_scratch(int Ci, int Co, int dtype) {
+  if (dtype != sivae::kFloat32) return 0;
+  const long long wide = 3LL * 27 * Ci * Co;
+  const long long narrow = Ci <= 64 && Co <= 64 ? sivae::narrow_tf32x3_scratch(Ci, Co) : 0;
+  return static_cast<int>(wide > narrow ? wide : narrow);
 }
 
 // x (B,D,H,W,Ci), w (3,3,3,Ci,Co), y (B,D,H,W,Co), all contiguous, one dtype,
-// B*D*H*W < 2^31; scratch: 3 * 27 * Ci * Co floats for an fp32 call (the
-// tf32x3 body's split weights), else unused.
+// B*D*H*W < 2^31; scratch: sivae_conv3d_same_scratch() floats, 16-byte
+// aligned, for an fp32 call, else unused.
 // Returns cudaGetLastError() after the launch.
 int sivae_conv3d_same(const void* x, const void* w, void* y, int B, int D, int H, int W, int Ci,
                       int Co, int dtype, void* scratch, void* stream) {
@@ -66,6 +86,8 @@ int sivae_conv3d_same(const void* x, const void* w, void* y, int B, int D, int H
     return sivae::launch_conv3d_tf32x3(x, w, y, scratch, B, D, H, W, Ci, Co, s);
   if (!sivae::mma_eligible(x, w, y, Ci, Co, dtype) && sivae::narrow_eligible(x, y, Ci, Co, dtype))
     return sivae::launch_conv3d_narrow(x, w, y, B, D, H, W, Ci, Co, s);
+  if (sivae::narrow_tf32x3_eligible(x, w, y, Ci, Co, dtype))
+    return sivae::launch_conv3d_narrow_tf32x3(x, w, y, scratch, B, D, H, W, Ci, Co, s);
   return sivae::launch_conv3d<false, false, 3>(x, w, y, B, D, H, W, Ci, Co, dtype, none, s);
 }
 
@@ -88,9 +110,9 @@ int sivae_conv3d_same_wgmma(const void* x, const void* w, void* y, int B, int D,
 }
 
 // The same conv through the bodies of conv3d_body.cuh only (mma or fma, never
-// wgmma, narrow or tf32x3): the body each of those superseded on its
-// operands (mma for wgmma's, fma for narrow's and tf32x3's), its time beside
-// the new one's, for measurements and tests. No model path calls it.
+// wgmma, narrow or either tf32x3 form): the body each of those superseded on
+// its operands (mma for wgmma's, fma for the others'), its time beside the
+// new one's, for measurements and tests. No model path calls it.
 int sivae_conv3d_same_mma(const void* x, const void* w, void* y, int B, int D, int H, int W,
                           int Ci, int Co, int dtype, void* stream) {
   const sivae::Fusion none = {nullptr, nullptr, 0.f, nullptr, nullptr};

@@ -45,7 +45,6 @@
 #include <stdint.h>
 
 #include "common.cuh"
-#include "conv3d_to1_mma.cuh"  // plane_seg_len
 #include "ptx.cuh"
 
 namespace sivae {

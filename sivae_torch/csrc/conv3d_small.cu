@@ -9,14 +9,20 @@
 // sum per output voxel) or 0.5 ms of CUDA-core time.
 //
 // - C -> 1 replaces sivae_tpu/kernels/conv3d_small.py:_small_out_impl
-//   (_small_out_kernel). Two bodies:
+//   (_small_out_kernel). Three bodies:
 //   "mma" (conv3d_to1_mma.cuh; bf16, C a multiple of 4 up to 64): the
 //   channels, padded to K = 16, 32 or 64, are contracted once per input
 //   voxel on the tensor cores and the 27 taps are summed from shared
 //   memory, so each input byte is read about once; C = 12's 24-byte rows
 //   arrive by cp.async, the others by TMA.
-//   "fma" (conv3d_to1_kernel below; fp32, not yet redesigned, and every
-//   other C): eight threads per output voxel, each
+//   "tf32x3" (the same file; fp32 at the same C): the same contraction on
+//   m16n8k8 tf32, each operand split into a TF32 big and small part and
+//   three products a k-step (small*big, big*small, big*big), which holds
+//   fp32 accuracy where one TF32 product would not (conv3d_tf32x3.cuh);
+//   every fp32 row of C % 4 == 0 is a multiple of 16 bytes, so all arrive
+//   by TMA.
+//   "fma" (conv3d_to1_kernel below; every other C): eight threads per
+//   output voxel, each
 //   owning 16-byte chunks of the C contiguous channels; fp32 FMAs against the
 //   27xC weights held in shared memory, then a shuffle reduce. The 27x
 //   re-reads of overlapping windows hit L1/L2, which is what bounds it; at
@@ -195,10 +201,11 @@ void launch_from1(const void* x, const void* w, void* y, int B, int D, int H, in
 
 extern "C" {
 
-// Which body a C -> 1 call with these arguments runs: 1 = mma (tensor-core
-// contraction), 0 = fma.
+// Which body a C -> 1 call with these arguments runs: 1 = mma (bf16
+// tensor-core contraction), 2 = tf32x3 (its fp32 form), 0 = fma.
 int sivae_conv3d_to1_body(const void* x, int C, int dtype) {
-  return sivae::to1_mma_eligible(x, C, dtype) ? 1 : 0;
+  if (sivae::to1_mma_eligible(x, C, dtype)) return 1;
+  return sivae::to1_tf32x3_eligible(x, C, dtype) ? 2 : 0;
 }
 
 // x (B,D,H,W,C), w (3,3,3,C), y (B,D,H,W); contiguous, one dtype, B*D*H*W < 2^31.
@@ -206,6 +213,8 @@ int sivae_conv3d_to1(const void* x, const void* w, void* y, int B, int D, int H,
                      int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (sivae::to1_mma_eligible(x, C, dtype)) return sivae::launch_to1_mma(x, w, y, B, D, H, W, C, s);
+  if (sivae::to1_tf32x3_eligible(x, C, dtype))
+    return sivae::launch_to1_tf32x3(x, w, y, B, D, H, W, C, s);
   if (dtype == sivae::kFloat32)
     sivae::launch_to1<float>(x, w, y, B, D, H, W, C, s);
   else
@@ -214,9 +223,9 @@ int sivae_conv3d_to1(const void* x, const void* w, void* y, int B, int D, int H,
 }
 
 // The C -> 1 conv through the CUDA-core body whatever the dispatch would
-// choose: the body the tensor-core one superseded at C = 12 (and 24, 48), its
-// time beside the new one's, for measurements and tests. No model path calls
-// it.
+// choose: the body the tensor-core ones superseded (bf16 at C = 12, 24, 48;
+// fp32 at every C), its time beside the new one's, for measurements and
+// tests. No model path calls it.
 int sivae_conv3d_to1_fma(const void* x, const void* w, void* y, int B, int D, int H, int W, int C,
                          int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);

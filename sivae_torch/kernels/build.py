@@ -45,6 +45,7 @@ SIGNATURES = {
     "sivae_conv3d_same_wgmma": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "sivae_conv3d_same_wgmma_shape": [_I, _I, _I, _I, _I],
     "sivae_conv3d_same_body": [_P, _P, _P, _I, _I, _I],
+    "sivae_conv3d_same_scratch": [_I, _I, _I],
     "sivae_conv3d_to1_body": [_P, _I, _I],
     "sivae_conv3d_to1": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "sivae_conv3d_to1_fma": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
@@ -68,10 +69,11 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 launches: Dict[str, int] = {"conv3d_same": 0, "conv3d_to1": 0, "conv3d_from1": 0,
                             "conv3d_fused_stats": 0}
 
-# conv3d_same's launches keyed by site, "Ci->Co@DxHxW b B", and
-# conv3d_from1's, "1->C@DxHxW b B dtype": which shapes a path sends through
-# the kernel, and how often
+# the launches of conv3d_same keyed by site, "Ci->Co@DxHxW b B dtype", of
+# conv3d_to1, "C->1@...", and of conv3d_from1, "1->C@...": which shapes and
+# types a path sends through each kernel, and how often
 conv3d_same_sites: Dict[str, int] = {}
+conv3d_to1_sites: Dict[str, int] = {}
 conv3d_from1_sites: Dict[str, int] = {}
 
 _lib: Optional[ctypes.CDLL] = None
@@ -81,8 +83,8 @@ _lock = threading.Lock()
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
-    conv3d_same_sites.clear()
-    conv3d_from1_sites.clear()
+    for sites in (conv3d_same_sites, conv3d_to1_sites, conv3d_from1_sites):
+        sites.clear()
 
 
 def _nvcc() -> str:
@@ -165,6 +167,13 @@ def dtype_code(t: torch.Tensor) -> int:
         return DTYPE_CODES[t.dtype]
     except KeyError:
         raise TypeError(f"kernel takes float32 or bfloat16, got {t.dtype}") from None
+
+
+def count_site(sites: Dict[str, int], x: torch.Tensor, ci: int, co: int) -> None:
+    """One launch at the site "Ci->Co@DxHxW bB dtype" of the NDHWC input x."""
+    b, d, h, w = x.shape[:4]
+    key = f"{ci}->{co}@{d}x{h}x{w} b{b} {str(x.dtype).replace('torch.', '')}"
+    sites[key] = sites.get(key, 0) + 1
 
 
 def require_cuda(*tensors: torch.Tensor) -> None:

@@ -6,7 +6,7 @@ which is the same kernel on the flipped, IO-swapped weights (`_bwd`,
 `sivae_tpu/kernels/conv3d.py:134-149`).
 
 The kernel (`csrc/conv3d.cu`) is an implicit GEMM over M = B*D*H*W voxels,
-N = Co, K = 27*Ci. Five bodies, chosen in C by shape, type and alignment
+N = Co, K = 27*Ci. Six bodies, chosen in C by shape, type and alignment
 (`conv3d_same_body` names the one a call runs):
 - "wgmma", bf16 with Ci % 64 == 0 and Co % 64 == 0 (the spatial_1200
   sites). At the flagship site (64->64 at 80x96x80, batch 8) 1.09 TFLOP is
@@ -41,8 +41,16 @@ N = Co, K = 27*Ci. Five bodies, chosen in C by shape, type and alignment
   third of the 495 TF/s TF32 rate, against the 67 TF/s of the CUDA cores
   that held the "fma" body. `conv3d_same_tf32x3_plain` is its algorithm in
   PyTorch.
-- "fma", the channel counts the others do not take (fp32 ones among them),
-  on the CUDA cores.
+- "narrow_tf32x3", the other fp32 shapes with Ci and Co multiples of 4 up
+  to 64 (the fp32 convs of the FC family and spatial_150: 12/16/24/32/48
+  channels, the eval CLI's default; `csrc/conv3d_narrow_tf32x3.cuh`):
+  tf32x3's split products and warp roles, K = Ci rounded up to 8, and where
+  Co <= 32 the 3 kw taps in N (one wgmma m64n48k8 for three m64n16k8: at
+  N <= 64 a wgmma costs about the same whatever N), the kw shifts summed
+  after the loop. At 12->12, 80x96x80, batch 8, the bound is 0.23 ms
+  (3.8e10 fp32 flops at 165 TF/s; 472 MB is 0.14 ms);
+  `conv3d_same_narrow_tf32x3_plain` is its algorithm in PyTorch.
+- "fma", the channel counts the others do not take, on the CUDA cores.
 All apply SAME padding without a padded copy, sum all 27 taps in fp32 and
 round once. The Pallas v1 rounds after each depth tap, so bf16 comparisons
 against it allow for that.
@@ -123,6 +131,42 @@ def conv3d_same_tf32x3_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         acc += torch.matmul(xc[sl], ws[kd, kh, kw])
         acc += torch.matmul(xb[sl], wb[kd, kh, kw])
     return acc
+
+
+def conv3d_same_narrow_tf32x3_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The "narrow_tf32x3" body's algorithm in PyTorch, for the tests: x and
+    w split into TF32 parts (`tf32_split`), the input channels zero-padded to
+    Kp (Ci rounded up to 8), and per k8 step small*cross' + cross*small' +
+    big*big' (exact products of TF32 values) summed in fp32; small*small' is
+    dropped. Where Co <= 32 (the kernel's kw taps in N) each kw's sum Z_kw
+    runs over (kd, kh), 32-channel chunk and k8 step, and the output is Z_1
+    + Z_0 + Z_2; where Co > 32 one sum runs over (kd, kh), chunk, kw and k8
+    step in that order. fp32 in and out. Same function as
+    `conv3d_same_plain` to ~fp32 accuracy."""
+    b, d, h, wd, ci = x.shape
+    co = w.shape[-1]
+    kp = -(-ci // 8) * 8
+    xs = [F.pad(p, (0, kp - ci, 1, 1, 1, 1, 1, 1)) for p in tf32_split(x)]
+    ws = [F.pad(p, (0, 0, 0, kp - ci)) for p in tf32_split(w)]
+    pairs = ((xs[1], ws[2]), (xs[2], ws[1]), (xs[0], ws[0]))  # s*c', c*s', b*b'
+
+    def taps_sum(kws):
+        acc = torch.zeros((b, d, h, wd, co), dtype=torch.float32, device=x.device)
+        for kd in range(3):
+            for kh in range(3):
+                for c0 in range(0, kp, 32):
+                    for kw in kws:
+                        for k0 in range(c0, min(c0 + 32, kp), 8):
+                            sl = (slice(None), slice(kd, kd + d), slice(kh, kh + h),
+                                  slice(kw, kw + wd), slice(k0, k0 + 8))
+                            for xa, wa in pairs:
+                                acc += torch.matmul(xa[sl], wa[kd, kh, kw, k0:k0 + 8])
+        return acc
+
+    if co <= 32:
+        z = [taps_sum((kw,)) for kw in range(3)]
+        return z[1] + z[0] + z[2]
+    return taps_sum((0, 1, 2))
 
 
 def conv3d_same_narrow_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -208,25 +252,23 @@ def conv3d_same_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         _check_shapes(x, w)
         return conv3d_same_plain(x, w)
-    # fp32: room for the weights' three TF32 parts, transposed (the tf32x3
-    # body's B operand), which the kernel fills before its conv
-    scratch = (torch.empty(3 * w.numel(), dtype=torch.float32, device=x.device)
-               if x.dtype == torch.float32 else None)
+    # fp32: room for the weights' three TF32 parts, laid out as the B operand
+    # of the tf32x3 forms, which the launch fills before its conv
+    n = build.library().sivae_conv3d_same_scratch(x.shape[-1], w.shape[-1], build.dtype_code(x))
+    scratch = torch.empty(n, dtype=torch.float32, device=x.device) if n else None
     y = _launch("sivae_conv3d_same", x, w, None if scratch is None else scratch.data_ptr())
     build.launches["conv3d_same"] += 1
-    b, d, h, wd, ci = x.shape
-    site = f"{ci}->{w.shape[-1]}@{d}x{h}x{wd} b{b}"
-    build.conv3d_same_sites[site] = build.conv3d_same_sites.get(site, 0) + 1
+    build.count_site(build.conv3d_same_sites, x, x.shape[-1], w.shape[-1])
     return y
 
 
 def conv3d_same_earlier_body(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The conv on a CUDA tensor through the body that the dispatch's choice
     superseded: "mma" on the operands the "wgmma" body takes, "fma" on those
-    the "narrow" and "tf32x3" bodies take (whatever the dispatch would
-    choose, never wgmma, narrow or tf32x3): for timing the two bodies side by
-    side and for the card tests. No model path calls it and it counts no
-    launch."""
+    the "narrow", "tf32x3" and "narrow_tf32x3" bodies take (whatever the
+    dispatch would choose, never one of those four): for timing the two
+    bodies side by side and for the card tests. No model path calls it and
+    it counts no launch."""
     return _launch("sivae_conv3d_same_mma", x, w)
 
 
@@ -264,13 +306,13 @@ def _launch(entry: str, x: torch.Tensor, w: torch.Tensor, *more: int) -> torch.T
     return y
 
 
-BODIES = ("fma", "mma", "wgmma", "narrow", "tf32x3")
+BODIES = ("fma", "mma", "wgmma", "narrow", "tf32x3", "narrow_tf32x3")
 WGMMA_SHAPES = (11, 21, 12, 22)   # 128x64, 256x64, 128x128, 256x128 outputs a block
 
 
 def conv3d_same_body(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor) -> str:
     """Which kernel body a CUDA call on these tensors runs: "wgmma", "mma",
-    "narrow", "tf32x3" or "fma"."""
+    "narrow", "tf32x3", "narrow_tf32x3" or "fma"."""
     used = build.library().sivae_conv3d_same_body(
         x.data_ptr(), w.data_ptr(), y.data_ptr(), x.shape[-1], w.shape[-1], build.dtype_code(x))
     return BODIES[used]

@@ -27,6 +27,9 @@ arrives by TMA where a voxel row is a multiple of 16 bytes and by 8-byte
 `cp.async` where it is not (C = 12: 24 bytes). On an H100 80GB HBM3 at
 700 W (`chip_smoke.py` phase 3, 80x96x80, batch 8): 12->1 in 0.18 ms
 against the CUDA-core body's 3.6 ms, cuDNN's 7.2 ms and a 0.038 ms bound.
+In fp32, `conv3d_to1` runs the same contraction as "tf32x3" (below):
+every fp32 row of C % 4 == 0 is a multiple of 16 bytes and arrives by TMA
+(`conv3d_to1_tf32x3_plain`).
 `conv3d_from1` (C a multiple of 4 up to 64) multiplies each output voxel's
 27-tap window (padded to 32) by the 32 x C weights (C padded to a multiple
 of 8), so its own output stream is what is left
@@ -36,7 +39,7 @@ significand bits) would not hold the fp32 tolerance, so each operand is
 split into a TF32 big and small part and each k-step multiplies
 small*big + big*small + big*big, which holds fp32 accuracy at a third of
 the TF32 rate (`conv3d_from1_tf32x3_plain`; `csrc/conv3d_tf32x3.cuh` says
-why). Their other bodies ("fma": `conv3d_to1` in fp32, both at other C) do
+why). Their other bodies ("fma", both at other C) do
 the ~1.7e10 multiply-adds on CUDA cores (~0.5 ms at 67 TF/s counting 2 per
 FMA). `csrc/conv3d_small.cu` says how each body is laid out. All
 accumulate in fp32 and round once.
@@ -75,13 +78,38 @@ def conv3d_to1_contract_first_plain(x: torch.Tensor, w: torch.Tensor) -> torch.T
     the channels once per input voxel, Z[v, t] = sum_c x[v, c] w[t, c] in
     fp32, then sum the 27 shifted taps of Z and round once. Same function as
     `conv3d_to1_plain`, another order of the fp32 sums."""
-    b, d, h, wd, c = x.shape
+    c = x.shape[-1]
     z = torch.matmul(x.float(), w[..., 0].reshape(27, c).float().t())   # (B, D, H, W, 27)
+    return _tap_sum(z).to(x.dtype)[..., None]
+
+
+def conv3d_to1_tf32x3_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The "tf32x3" body's algorithm in PyTorch, for the tests: x (channels
+    zero-padded to a multiple of 8) and the (27, C) weights split into TF32
+    parts (`tf32_split`); Z[v, t] sums, k8 step by k8 step, small*cross' +
+    cross*small' + big*big' (exact products of TF32 values) in fp32; then
+    the 27 shifted taps of Z. fp32 in and out."""
+    c = x.shape[-1]
+    kp = -(-c // 8) * 8
+    xs = [F.pad(p, (0, kp - c)) for p in tf32_split(x.float())]
+    ws = [F.pad(p, (0, kp - c)) for p in tf32_split(w[..., 0].reshape(27, c).float())]
+    z = torch.zeros(x.shape[:4] + (27,), dtype=torch.float32, device=x.device)
+    for k0 in range(0, kp, 8):
+        k = slice(k0, k0 + 8)
+        for xa, wa in ((xs[1], ws[2]), (xs[2], ws[1]), (xs[0], ws[0])):  # s*c', c*s', b*b'
+            z += torch.matmul(xa[..., k], wa[:, k].t())
+    return _tap_sum(z)[..., None]
+
+
+def _tap_sum(z: torch.Tensor) -> torch.Tensor:
+    """z (B, D, H, W, 27) fp32 -> (B, D, H, W): out[v] = sum_t z[v + off_t, t],
+    taps in `_taps()` order, zero outside the volume."""
+    b, d, h, wd = z.shape[:4]
     zp = F.pad(z, (0, 0, 1, 1, 1, 1, 1, 1))
-    acc = torch.zeros((b, d, h, wd), dtype=torch.float32, device=x.device)
+    acc = torch.zeros((b, d, h, wd), dtype=torch.float32, device=z.device)
     for t, (kd, kh, kw) in enumerate(_taps()):
         acc += zp[:, kd:kd + d, kh:kh + h, kw:kw + wd, t]
-    return acc.to(x.dtype)[..., None]
+    return acc
 
 
 def conv3d_from1_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -238,6 +266,7 @@ def conv3d_to1_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return conv3d_to1_plain(x, w)
     y = _to1_launch("conv3d_to1", x, w)
     build.launches["conv3d_to1"] += 1
+    build.count_site(build.conv3d_to1_sites, x, x.shape[-1], 1)
     return y
 
 
@@ -254,9 +283,7 @@ def conv3d_from1_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     c = w.shape[-1]
     y = _from1_launch("conv3d_from1", x, w)
     build.launches["conv3d_from1"] += 1
-    b, d, h, wd = x.shape[:4]
-    site = f"1->{c}@{d}x{h}x{wd} b{b} {str(x.dtype).replace('torch.', '')}"
-    build.conv3d_from1_sites[site] = build.conv3d_from1_sites.get(site, 0) + 1
+    build.count_site(build.conv3d_from1_sites, x, 1, c)
     return y
 
 
@@ -273,9 +300,9 @@ def _from1_launch(entry: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def conv3d_to1_earlier_body(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """`conv3d_to1` on a CUDA tensor through the CUDA-core body ("fma"),
-    whatever the dispatch would choose: the body the tensor-core one
-    superseded at C = 12, timed beside it, and for the card tests. No model
-    path calls it and it counts no launch."""
+    whatever the dispatch would choose: the body the tensor-core ones
+    superseded (bf16 at C = 12, fp32 at every C), timed beside them, and for
+    the card tests. No model path calls it and it counts no launch."""
     _check_to1(x, w)
     return _to1_launch("conv3d_to1_fma", x, w)
 
@@ -290,7 +317,7 @@ def conv3d_from1_earlier_body(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _from1_launch("conv3d_from1_fma", x, w)
 
 
-FROM1_BODIES = ("fma", "mma", "tf32x3")
+FROM1_BODIES = TO1_BODIES = ("fma", "mma", "tf32x3")
 
 
 def conv3d_from1_body(x: torch.Tensor, c: int) -> str:
@@ -301,7 +328,7 @@ def conv3d_from1_body(x: torch.Tensor, c: int) -> str:
 
 
 def conv3d_to1_body(x: torch.Tensor) -> str:
-    """Which kernel body a CUDA `conv3d_to1` call on x runs: "mma" (tensor-core
-    channel contraction) or "fma"."""
-    used = build.library().sivae_conv3d_to1_body(x.data_ptr(), x.shape[-1], build.dtype_code(x))
-    return "mma" if used else "fma"
+    """Which kernel body a CUDA `conv3d_to1` call on x runs: "mma" (bf16
+    tensor-core channel contraction), "tf32x3" (its fp32 form) or "fma"."""
+    return TO1_BODIES[build.library().sivae_conv3d_to1_body(x.data_ptr(), x.shape[-1],
+                                                              build.dtype_code(x))]

@@ -21,8 +21,9 @@ import torch
 from sivae_torch.kernels import build
 from sivae_torch.kernels.conv3d import (WGMMA_SHAPES, conv3d_same, conv3d_same_body,
                                         conv3d_same_earlier_body, conv3d_same_narrow_plain,
-                                        conv3d_same_plain, conv3d_same_tf32x3_plain,
-                                        conv3d_same_wgmma_blocks, conv3d_same_wgmma_shape)
+                                        conv3d_same_narrow_tf32x3_plain, conv3d_same_plain,
+                                        conv3d_same_tf32x3_plain, conv3d_same_wgmma_blocks,
+                                        conv3d_same_wgmma_shape)
 from sivae_torch.kernels.conv3d_fused import (conv3d_fused_stats, conv3d_fused_stats_body,
                                               conv3d_fused_stats_earlier_body,
                                               conv3d_fused_stats_plain,
@@ -33,7 +34,8 @@ from sivae_torch.kernels.conv3d_small import (conv3d_from1, conv3d_from1_body,
                                               conv3d_from1_plain, conv3d_from1_tf32x3_plain,
                                               conv3d_to1, conv3d_to1_body,
                                               conv3d_to1_contract_first_plain,
-                                              conv3d_to1_earlier_body, conv3d_to1_plain)
+                                              conv3d_to1_earlier_body, conv3d_to1_plain,
+                                              conv3d_to1_tf32x3_plain)
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 CASES = [  # kernel, plain version, x shape, w shape
@@ -88,7 +90,14 @@ def test_kernel_matches_plain_and_counts_one_launch(cuda_device, dtype, kern, pl
 # spatial_1200 pairings (64-256 channels, forward and input gradient) and
 # spatial_1200_fullsize's 32 channels (32-wide blocks where Co is not a
 # multiple of 64), at grids no tile divides, a row longer than a block,
-# 128-row blocks (a grid too small to fill the card) and 256-row ones.
+# 128-row blocks (a grid too small to fill the card) and 256-row ones. Its
+# narrow form, "narrow_tf32x3", at the fp32 pairings of the FC and
+# spatial_150 forwards and input gradients (12/16/24/32/48 channels: K of one
+# chunk of 2 or 3 k8 steps, or of two chunks; the kw taps in N at Co <= 32,
+# N = 48, 72, 96, and one wgmma a tap at Co = 48; the input line by bulk copy
+# at Ci = 12, by TMA at 16-64), at several blocks and rounds of blocks, a row
+# longer than a block, planes of one row and a 20 x 37 x 41 grid; Ci = 5
+# stays on "fma".
 BODY_CASES = [
     ((1, 3, 5, 7, 64), 64, "wgmma", torch.bfloat16),        # M = 105: one ragged block
     ((3, 5, 7, 9, 64), 128, "wgmma", torch.bfloat16),       # M = 945, 63 voxels a plane
@@ -112,7 +121,20 @@ BODY_CASES = [
     ((2, 5, 6, 7, 64), 32, "narrow", torch.bfloat16),       # fc_600's 32 -> 64 dgrad
     ((3, 20, 37, 41, 12), 12, "narrow", torch.bfloat16),    # several patches and segments
     ((2, 5, 6, 7, 5), 12, "fma", torch.bfloat16),           # Ci not a multiple of 4
-    ((2, 5, 6, 7, 12), 12, "fma", torch.float32),           # Ci not a multiple of 32
+    ((2, 5, 6, 7, 12), 12, "narrow_tf32x3", torch.float32),  # Ci not a multiple of 32
+    ((2, 5, 6, 7, 5), 12, "fma", torch.float32),            # Ci not a multiple of 4
+    ((2, 5, 6, 7, 12), 24, "narrow_tf32x3", torch.float32),
+    ((2, 5, 6, 7, 24), 12, "narrow_tf32x3", torch.float32),
+    ((2, 5, 6, 7, 16), 32, "narrow_tf32x3", torch.float32),
+    ((2, 1, 1, 300, 12), 16, "narrow_tf32x3", torch.float32),  # rows of one voxel's planes
+    ((2, 5, 6, 7, 16), 16, "narrow_tf32x3", torch.float32),
+    ((2, 5, 6, 7, 24), 32, "narrow_tf32x3", torch.float32),
+    ((2, 5, 6, 7, 32), 48, "narrow_tf32x3", torch.float32),
+    ((2, 5, 6, 7, 48), 48, "narrow_tf32x3", torch.float32),  # two chunks, the second of 16
+    ((2, 5, 6, 7, 64), 12, "narrow_tf32x3", torch.float32),
+    ((3, 20, 37, 41, 12), 12, "narrow_tf32x3", torch.float32),  # several rounds of blocks
+    ((1, 32, 36, 32, 16), 16, "narrow_tf32x3", torch.float32),
+    ((1, 2, 3, 200, 12), 24, "narrow_tf32x3", torch.float32),   # a row longer than a block
     ((2, 5, 6, 7, 64), 64, "tf32x3", torch.float32),
     ((1, 3, 5, 7, 64), 128, "tf32x3", torch.float32),       # M = 105: one ragged block
     ((3, 4, 6, 5, 128), 64, "tf32x3", torch.float32),       # the 128 -> 64 dgrad
@@ -132,8 +154,8 @@ BODY_CASES = [
 @pytest.mark.parametrize("x_shape,co,body,dtype", BODY_CASES)
 def test_conv3d_same_bodies_match_plain(cuda_device, x_shape, co, body, dtype):
     """Each body the dispatch chooses, and the body it superseded on the same
-    operands ("mma" for wgmma's, "fma" for narrow's and tf32x3's), against
-    the plain version and against each other."""
+    operands ("mma" for wgmma's, "fma" for the others'), against the plain
+    version and against each other."""
     gen = torch.Generator(device=cuda_device).manual_seed(3)
     x = torch.randn(x_shape, generator=gen, device=cuda_device).to(dtype)
     w = (0.1 * torch.randn((3, 3, 3, x_shape[-1], co), generator=gen,
@@ -156,6 +178,8 @@ def test_conv3d_same_bodies_match_plain(cuda_device, x_shape, co, body, dtype):
         assert (got.float() - conv3d_same_narrow_plain(x, w).float()).abs().max().item() <= tol
     if body == "tf32x3":  # its own algorithm, in PyTorch (split operands, three products)
         assert (got - conv3d_same_tf32x3_plain(x, w)).abs().max().item() <= tol
+    if body == "narrow_tf32x3":  # the same, K padded to 8s in 32-channel chunks
+        assert (got - conv3d_same_narrow_tf32x3_plain(x, w)).abs().max().item() <= tol
 
 
 @pytest.mark.gpu
@@ -195,7 +219,8 @@ def test_conv3d_to1_bodies_match_plain(cuda_device, x_shape, body):
     w = (0.1 * torch.randn((3, 3, 3, x_shape[-1], 1), generator=gen,
                            device=cuda_device)).bfloat16()
     assert conv3d_to1_body(x) == body
-    assert conv3d_to1_body(x.float()) == "fma"  # its fp32 body is not redesigned yet
+    # fp32 takes the three-product TF32 form of the same contraction
+    assert conv3d_to1_body(x.float()) == ("tf32x3" if body == "mma" else "fma")
     got = conv3d_to1(x, w)
     before = dict(build.launches)
     earlier = conv3d_to1_earlier_body(x, w)  # the CUDA-core body on the same operands
@@ -208,6 +233,36 @@ def test_conv3d_to1_bodies_match_plain(cuda_device, x_shape, body):
     assert (earlier.float() - want).abs().max().item() <= tol
     if body == "mma":  # its own algorithm, in PyTorch, on the same bf16 values
         assert (got.float() - conv3d_to1_contract_first_plain(x, w).float()).abs().max() <= tol
+
+
+# fp32 shapes of conv3d_to1: the "tf32x3" body at the tails' C (12 and 16 of
+# the FC and spatial_150 families, 64 of spatial_1200), at 24 and 48 (a box
+# wider than the channels; 48 in two 32-channel sub-buffers), at grids no
+# patch divides, D = 1 and B = 3
+TO1_FP32_CASES = [(2, 6, 19, 37, 12), (1, 90, 18, 20, 16), (3, 5, 17, 21, 24),
+                  (1, 4, 5, 6, 48), (2, 3, 17, 33, 64), (1, 1, 3, 4, 12)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_shape", TO1_FP32_CASES)
+def test_conv3d_to1_tf32x3_body_matches_plain(cuda_device, x_shape):
+    """The fp32 channel contraction against the plain version, its own
+    algorithm in PyTorch and the CUDA-core body it superseded, at the fp32
+    tolerance."""
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    x = torch.randn(x_shape, generator=gen, device=cuda_device)
+    w = 0.1 * torch.randn((3, 3, 3, x_shape[-1], 1), generator=gen, device=cuda_device)
+    assert conv3d_to1_body(x) == "tf32x3"
+    before = build.launches["conv3d_to1"]
+    got = conv3d_to1(x, w)
+    earlier = conv3d_to1_earlier_body(x, w)
+    torch.cuda.synchronize()
+    assert build.launches["conv3d_to1"] == before + 1
+    want = conv3d_to1_plain(x, w)
+    tol = TOL[torch.float32] * max(1.0, want.abs().max().item())
+    for out in (got, earlier, conv3d_to1_tf32x3_plain(x, w)):
+        assert out.shape == want.shape and out.dtype == torch.float32
+        assert (out - want).abs().max().item() <= tol
 
 
 # (B, D, H, W) and C of conv3d_from1 in bf16: the mma body marches 16 x 16
@@ -280,7 +335,11 @@ def test_conv3d_from1_tf32x3_body_matches_plain(cuda_device, shape, c):
     (conv3d_same, conv3d_same_plain, (2, 5, 6, 7, 64), (3, 3, 3, 64, 64)),
     (conv3d_same, conv3d_same_plain, (2, 5, 6, 7, 32), (3, 3, 3, 32, 32)),
     (conv3d_from1, conv3d_from1_plain, (2, 5, 6, 7, 1), (3, 3, 3, 1, 64)),
-    (conv3d_from1, conv3d_from1_plain, (2, 5, 6, 7, 1), (3, 3, 3, 1, 12))])
+    (conv3d_from1, conv3d_from1_plain, (2, 5, 6, 7, 1), (3, 3, 3, 1, 12)),
+    (conv3d_same, conv3d_same_plain, (2, 5, 6, 7, 12), (3, 3, 3, 12, 24)),   # narrow_tf32x3
+    (conv3d_same, conv3d_same_plain, (2, 5, 6, 7, 48), (3, 3, 3, 48, 48)),
+    (conv3d_to1, conv3d_to1_plain, (2, 5, 6, 7, 12), (3, 3, 3, 12, 1)),      # to1 tf32x3
+    (conv3d_to1, conv3d_to1_plain, (2, 5, 6, 7, 64), (3, 3, 3, 64, 1))])
 def test_tf32x3_bodies_propagate_inf_and_nan_as_fp32(cuda_device, kern, plain, x_shape,
                                                       w_shape):
     """An inf and a NaN in the input: the fp32 tensor-core bodies give inf
@@ -414,10 +473,13 @@ GRAD_CASES = [  # differentiable wrapper, plain version, x shape, w shape
     (conv3d_same, conv3d_same_plain, (2, 6, 8, 10, 64), (3, 3, 3, 64, 128)),  # dgrad 128 -> 64
     (conv3d_same, conv3d_same_plain, (3, 5, 7, 9, 128), (3, 3, 3, 128, 256)),  # dgrad 256 -> 128
     (conv3d_same, conv3d_same_plain, (2, 4, 5, 6, 3), (3, 3, 3, 3, 4)),
-    (conv3d_same, conv3d_same_plain, (2, 5, 6, 7, 12), (3, 3, 3, 12, 24)),  # dgrad 24 -> 12, narrow
+    # dgrad 24 -> 12: "narrow" in bf16, "narrow_tf32x3" in fp32, forward and dx
+    (conv3d_same, conv3d_same_plain, (2, 5, 6, 7, 12), (3, 3, 3, 12, 24)),
+    (conv3d_same, conv3d_same_plain, (2, 5, 6, 7, 16), (3, 3, 3, 16, 48)),  # dgrad 48 -> 16
     (conv3d_same, conv3d_same_plain, (2, 5, 6, 7, 32), (3, 3, 3, 32, 64)),  # fp32: 32-wide dgrad
     (conv3d_to1, conv3d_to1_plain, (2, 6, 8, 10, 64), (3, 3, 3, 64, 1)),
     (conv3d_to1, conv3d_to1_plain, (2, 5, 6, 7, 12), (3, 3, 3, 12, 1)),    # dx: from1 at C = 12
+    (conv3d_to1, conv3d_to1_plain, (2, 5, 6, 7, 16), (3, 3, 3, 16, 1)),
     (conv3d_from1, conv3d_from1_plain, (2, 6, 8, 10, 1), (3, 3, 3, 1, 64)),
     (conv3d_from1, conv3d_from1_plain, (2, 5, 6, 7, 1), (3, 3, 3, 1, 12)),
     (conv3d_stats, _stats_plain, (2, 6, 7, 9, 64), (3, 3, 3, 64, 64)),

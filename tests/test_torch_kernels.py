@@ -8,6 +8,8 @@ Tolerances: fp32 atol 1e-4 (as tests/test_pallas_conv.py). bf16 atol/rtol
 0.05: the plain version sums all 27 taps in fp32 and rounds once, the
 Pallas v1 rounds its running sum to bf16 after every depth tap."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,12 +20,13 @@ from sivae_tpu.kernels.conv3d import conv3d_same_pallas
 from sivae_tpu.kernels.conv3d_small import conv3d_from1 as jax_from1
 from sivae_tpu.kernels.conv3d_small import conv3d_to1 as jax_to1
 from sivae_torch.kernels import build
-from sivae_torch.kernels.conv3d import (conv3d_same, conv3d_same_narrow_plain, conv3d_same_plain,
+from sivae_torch.kernels.conv3d import (conv3d_same, conv3d_same_narrow_plain,
+                                        conv3d_same_narrow_tf32x3_plain, conv3d_same_plain,
                                         conv3d_same_tf32x3_plain, tf32_round, tf32_split)
 from sivae_torch.kernels.conv3d_small import (conv3d_from1, conv3d_from1_gemm_plain,
                                               conv3d_from1_plain, conv3d_from1_tf32x3_plain,
                                               conv3d_to1, conv3d_to1_contract_first_plain,
-                                              conv3d_to1_plain)
+                                              conv3d_to1_plain, conv3d_to1_tf32x3_plain)
 
 torch.set_num_threads(2)
 
@@ -39,6 +42,15 @@ def _inputs(seed, shape, cin, cout):
     return x, w
 
 
+@functools.lru_cache(maxsize=None)
+def _pallas_ref(fn, seed, shape, cin, cout):
+    """fp32 `fn` (a Pallas original, in interpret mode) on `_inputs(seed,
+    shape, cin, cout)`, run once per inputs: several tests hold their plain
+    versions to the same reference."""
+    x, w = _inputs(seed, shape, cin, cout)
+    return np.asarray(fn(jnp.asarray(x), jnp.asarray(w), True))
+
+
 def _bf16(a: np.ndarray):
     """The same bf16 values for both stacks."""
     t = torch.from_numpy(a).to(torch.bfloat16)
@@ -49,7 +61,7 @@ def _bf16(a: np.ndarray):
 def test_conv3d_plain_matches_pallas(shape, cin, cout):
     x, w = _inputs(0, shape, cin, cout)
     got = conv3d_same_plain(torch.from_numpy(x), torch.from_numpy(w)).numpy()
-    want = np.asarray(conv3d_same_pallas(jnp.asarray(x), jnp.asarray(w), True))
+    want = _pallas_ref(conv3d_same_pallas, 0, shape, cin, cout)
     np.testing.assert_allclose(got, want, atol=1e-4)
 
 
@@ -66,7 +78,7 @@ def test_conv3d_plain_matches_pallas_bf16(shape, cin, cout):
 def test_to1_plain_matches_pallas(shape, c):
     x, w = _inputs(0, shape, c, 1)
     got = conv3d_to1_plain(torch.from_numpy(x), torch.from_numpy(w)).numpy()
-    want = np.asarray(jax_to1(jnp.asarray(x), jnp.asarray(w), True))
+    want = _pallas_ref(jax_to1, 0, shape, c, 1)
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, atol=1e-4)
 
@@ -75,7 +87,7 @@ def test_to1_plain_matches_pallas(shape, c):
 def test_from1_plain_matches_pallas(shape, c):
     x, w = _inputs(1, shape, 1, c)
     got = conv3d_from1_plain(torch.from_numpy(x), torch.from_numpy(w)).numpy()
-    want = np.asarray(jax_from1(jnp.asarray(x), jnp.asarray(w), True))
+    want = _pallas_ref(jax_from1, 1, shape, 1, c)
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, atol=1e-4)
 
@@ -109,7 +121,7 @@ CONTRACT_SHAPES = [((1, 5, 7, 9), 16), ((2, 3, 5, 7), 64), ((1, 4, 18, 5), 32)]
 def test_to1_contract_first_plain_matches_pallas(shape, c):
     x, w = _inputs(4, shape, c, 1)
     got = conv3d_to1_contract_first_plain(torch.from_numpy(x), torch.from_numpy(w)).numpy()
-    want = np.asarray(jax_to1(jnp.asarray(x), jnp.asarray(w), True))
+    want = _pallas_ref(jax_to1, 4, shape, c, 1)
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, atol=1e-4)
 
@@ -140,7 +152,7 @@ def test_to1_contract_first_plain_matches_pallas_bf16():
 def test_from1_gemm_plain_matches_pallas(shape, c):
     x, w = _inputs(11, shape, 1, c)
     got = conv3d_from1_gemm_plain(torch.from_numpy(x), torch.from_numpy(w)).numpy()
-    want = np.asarray(jax_from1(jnp.asarray(x), jnp.asarray(w), True))
+    want = _pallas_ref(jax_from1, 11, shape, 1, c)
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, atol=1e-4)
 
@@ -195,7 +207,7 @@ def test_conv3d_tf32x3_plain_matches_pallas(shape, cin, cout):
     x, w = _inputs(0, shape, cin, cout)
     got = conv3d_same_tf32x3_plain(torch.from_numpy(x), torch.from_numpy(w))
     assert got.dtype == torch.float32
-    want = np.asarray(conv3d_same_pallas(jnp.asarray(x), jnp.asarray(w), True))
+    want = _pallas_ref(conv3d_same_pallas, 0, shape, cin, cout)
     _within(got.numpy(), want, 1e-4)
 
 
@@ -221,8 +233,50 @@ def test_from1_tf32x3_plain_matches_pallas(shape, c):
     x, w = _inputs(11, shape, 1, c)
     got = conv3d_from1_tf32x3_plain(torch.from_numpy(x), torch.from_numpy(w))
     assert got.dtype == torch.float32 and got.shape == shape + (c,)
-    want = np.asarray(jax_from1(jnp.asarray(x), jnp.asarray(w), True))
+    want = _pallas_ref(jax_from1, 11, shape, 1, c)
     _within(got.numpy(), want, 1e-4)
+
+
+# the fp32 bodies at the FC family's and spatial_150's channels: conv3d_same's
+# "narrow_tf32x3" (K = Ci rounded up to 8 in 32-channel chunks, 48 in two)
+# and conv3d_to1's "tf32x3" (K = C rounded up to 8, the 27 taps summed after)
+@pytest.mark.parametrize("cin,cout", [(12, 12), (12, 24), (24, 12), (32, 48), (48, 48)])
+def test_conv3d_narrow_tf32x3_plain_matches_pallas(cin, cout):
+    x, w = _inputs(16, (1, 3, 4, 5), cin, cout)
+    got = conv3d_same_narrow_tf32x3_plain(torch.from_numpy(x), torch.from_numpy(w))
+    assert got.dtype == torch.float32
+    want = _pallas_ref(conv3d_same_pallas, 16, (1, 3, 4, 5), cin, cout)
+    _within(got.numpy(), want, 1e-4)
+
+
+@pytest.mark.parametrize("shape,c", CONTRACT_SHAPES + [((1, 5, 7, 9), 12)])
+def test_to1_tf32x3_plain_matches_pallas(shape, c):
+    x, w = _inputs(4, shape, c, 1)
+    got = conv3d_to1_tf32x3_plain(torch.from_numpy(x), torch.from_numpy(w))
+    assert got.dtype == torch.float32 and got.shape == shape + (1,)
+    want = _pallas_ref(jax_to1, 4, shape, c, 1)
+    _within(got.numpy(), want, 1e-4)
+
+
+@pytest.mark.parametrize("plain,ref,cout", [
+    (conv3d_same_narrow_tf32x3_plain, conv3d_same_plain, 24),
+    (conv3d_same_tf32x3_plain, conv3d_same_plain, 24),
+    (conv3d_to1_tf32x3_plain, conv3d_to1_plain, 1)])
+def test_tf32x3_plains_propagate_inf_and_nan_as_fp32(plain, ref, cout):
+    """An inf and a NaN in the input (`tf32_split`: big = inf or NaN, small =
+    cross = 0): each three-product algorithm gives inf of the product's sign
+    and NaN exactly where fp32 does, not the inf - inf or inf * 0 = NaN of a
+    naive split, and the finite outputs within the fp32 tolerance."""
+    x, w = _inputs(18, (2, 3, 4, 5), 12, cout)
+    x[0, 1, 2, 3, 0] = np.inf
+    x[1, 1, 1, 1, 11] = -np.inf
+    x[-1, -2, 3, 1, 5] = np.nan
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    got, want = plain(xt, wt), ref(xt, wt)
+    for mark in (torch.isnan, torch.isposinf, torch.isneginf):
+        assert mark(want).any() and torch.equal(mark(got), mark(want))
+    fin = torch.isfinite(want)
+    _within(got[fin].numpy(), want[fin].numpy(), 1e-4)
 
 
 def _bits(v: float) -> int:

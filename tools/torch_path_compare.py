@@ -5,11 +5,11 @@ checkout of the port, so that two versions can be compared on one card.
 
 Imports `sivae_torch` from DIR (default: this checkout), builds its kernels
 there and prints, beside the card's name and power limit:
-- fp32 encode and reconstruct throughput (vol/s): spatial_1200 at 80x96x80,
-  seeded random weights (seed 0), batch 8, over 32 synthetic volumes (seed
-  7) as in `chip_smoke.py` phase 5; `encode_dataset` and
-  `reconstruction_report`, median / min / max of the windows after a
-  warm-up of each;
+- fp32 encode and reconstruct throughput (vol/s) of spatial_1200 and of
+  fc_150 (the z600 preset's model) at 80x96x80, seeded random weights (seed
+  0), batch 8, over 32 synthetic volumes (seed 7) as in `chip_smoke.py`
+  phase 5; `encode_dataset` and `reconstruction_report`, median / min / max
+  of the windows after a warm-up of each;
 - the z600 preset's train step (fc_150, bf16, batch 8, the first 8 of those
   volumes, the preset's loss weights): median / min / max s/step of as many
   steps after a warm-up step (its 1->12 stem and the C = 12 tails' input
@@ -71,23 +71,24 @@ def main() -> None:
     vox = preprocess_batch(torch.from_numpy(src.voxels).to(dev))
     n_vol, batch = vox.shape[0], 8
 
-    model = make_model(cfg, device=dev, seed=0)
-    for what, fn in (("encode", lambda: encode_dataset(model, vox, batch_size=batch)),
-                     ("reconstruct", lambda: reconstruction_report(model, vox,
-                                                                   batch_size=batch))):
-        fn()
-        rates = []
-        for _ in range(args.windows):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
+    for name in ("spatial_1200", "fc_150"):
+        model = make_model(get_model_config(name), device=dev, seed=0)
+        for what, fn in (("encode", lambda: encode_dataset(model, vox, batch_size=batch)),
+                         ("reconstruct", lambda: reconstruction_report(model, vox,
+                                                                       batch_size=batch))):
             fn()
-            torch.cuda.synchronize()
-            rates.append(n_vol / (time.perf_counter() - t0))
-        med, lo, hi = _median(rates)
-        print(f"[compare] {tag}: fp32 {what} {n_vol} vols x {args.windows} windows: median "
-              f"{med:.2f} vol/s, min {lo:.2f}, max {hi:.2f}", flush=True)
-    del model
-    torch.cuda.empty_cache()
+            rates = []
+            for _ in range(args.windows):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                rates.append(n_vol / (time.perf_counter() - t0))
+            med, lo, hi = _median(rates)
+            print(f"[compare] {tag}: {name} fp32 {what} {n_vol} vols x {args.windows} windows: "
+                  f"median {med:.2f} vol/s, min {lo:.2f}, max {hi:.2f}", flush=True)
+        del model
+        torch.cuda.empty_cache()
 
     spec = cli_train.PRESETS["z600"]
     fcfg = dataclasses.replace(get_model_config(spec["model"]), dtype=torch.bfloat16)
