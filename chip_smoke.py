@@ -28,13 +28,17 @@ failure exits non-zero and prints no result):
    at the FC and spatial_150 sites of the "narrow_tf32x3" body (12->12 and
    16->16 at 80x96x80; 12->12, 12->24, 24->12, 16->32 at 40x48x40; 24->32
    at 20x24x20; 48->48 at 5x6x5). Each row prints its share of the bound
-   (bound / kernel ms). The fused conv +
-   statistics kernel runs with and without its prologue at the flagship site
-   (with it also at batch 8) and at two shapes whose tiles straddle (b, d)
-   planes; its library yardstick is the unfused stage (elementwise prologue,
-   cuDNN conv, two reductions). `conv3d_to1`, `conv3d_from1` and
-   `conv3d_fused_stats` rows also name their body; the fused kernel's wgmma
-   rows show the earlier mma.sync body's error and time beside it.
+   (bound / kernel ms). In bf16 at batch 1, `conv3d_same` also runs at
+   spatial_1200_fullsize's encoder conv 32->64 at 80x96x80 (the wgmma body
+   in 32-channel chunks, as at fc_600's 32->64 at 20x24x20) and its input
+   gradient 64->32 ("narrow"). The fused conv + statistics kernel runs, in
+   bf16 ("wgmma") and fp32 ("tf32x3"), with and without its prologue at the
+   flagship site (with it also at batch 8) and at two shapes whose tiles
+   straddle (b, d) planes; its library yardstick is the unfused stage
+   (elementwise prologue, cuDNN conv with TF32 off in fp32, two reductions).
+   `conv3d_to1`, `conv3d_from1` and `conv3d_fused_stats` rows also name
+   their body; the fused kernel's wgmma rows show the earlier mma.sync
+   body's error and time beside it, its tf32x3 rows the "fma" body's.
    fp32 tolerance 1e-4 * max(1, max|plain|) (reassociation over K <= 6912);
    bf16 tolerance 1e-2 * max(1, max|plain|) (one output rounding; the plain
    version takes the same bf16 inputs and accumulates in fp32); plane sums
@@ -67,11 +71,12 @@ failure exits non-zero and prints no result):
    eval CLI's usage line `--model fc_150`, whose convs run the
    "narrow_tf32x3" body and its C -> 1 tail the fp32 "tf32x3" one.
 6. The fused stage (the path of the fused conv + statistics kernel, which is
-   on no model path): at the flagship site, batch 8, bf16, with the counters
-   at 0, one fused stage forward (prologue -> conv -> batch statistics from
-   the plane sums) and one conv + statistics forward and backward through
-   `conv3d_stats`; 3 launches expected. Both are held against the unfused
-   stage in library calls and timed beside it.
+   on no model path): at the flagship site, batch 8, in bf16 and then in
+   fp32, each with the counters at 0, one fused stage forward (prologue ->
+   conv -> batch statistics from the plane sums) and one conv + statistics
+   forward and backward through `conv3d_stats`; 3 launches expected each.
+   Both are held against the unfused stage in library calls (cuDNN with
+   TF32 off in fp32) and timed beside it.
 7. Training at full width: spatial_1200 at 80x96x80, batch 8, bf16 compute,
    fp32 parameters, dropout on, default loss config, the first 8 synthetic
    volumes. One warm-up step; one step with the counters at 0 (155
@@ -124,20 +129,22 @@ failure exits non-zero and prints no result):
    `predict_all` over them, counted. Phase 3 also holds the kernels at this
    phase's sites (conv3d_same on the narrow body at 80x96x80 and 40x48x40:
    12->12, 12->24, 24->12, 16->16, 16->32, 32->16; 64->32 at 20x24x20 on the
-   narrow body and 32->64 on "mma"; both stencils at C = 12), bf16, batch 8.
+   narrow body and 32->64 on "wgmma"; both stencils at C = 12), bf16, batch 8.
    Before the steps, one whole fc_150 forward (eval mode, encode, and decode
    of the fp32 forward's mu) in bf16 against the same weights in fp32 on the
    card, which share no kernel body: relative error <= 5e-2 of the largest
    fp32 value (`TOL_FC_FORWARD` says why). Every counted run of the phase
    prints the body of each `conv3d_same`, `conv3d_to1` and `conv3d_from1`
    site it launched, forward and input gradient, and fails if one is
-   "fma".
+   "fma", or if a bf16 `conv3d_same` site with Ci % 32 == 0 and Co % 64 == 0
+   (fc_600's 32->64) runs the superseded "mma" body and not "wgmma".
 
 `--only kernels,grad,path,stage,train,trainer,families` runs a subset while
 working on one phase; it ends with `{"ok": false, "partial": ...}`, never
 with the result.
 
-The next-to-last line is the per-kernel JSON record; the last line is
+The next-to-last line is the per-kernel JSON record (with every phase-3 row
+of each kernel under "rows"); the last line is
 `{"ok": true, "device": {...}}`.
 """
 
@@ -188,21 +195,24 @@ FLAGSHIP_CONV = (64, 64, (80, 96, 80))
 # stem at the main paths' batch, and the other channel counts of their
 # tensor-core bodies at a grid no patch divides
 STENCIL_BF16_SITES = [(8, 64, (80, 96, 80)), (2, 32, (20, 23, 37)), (2, 16, (20, 23, 37))]
-# bf16 only, (batch, Ci, Co, grid): the fused kernel with its prologue at the
-# stage phase's batch
-FUSED_BF16_SITES = [(8, 64, 64, (80, 96, 80))]
+# (batch, Ci, Co, grid), bf16 and fp32: the fused kernel with its prologue at
+# the stage phase's batch
+FUSED_B8_SITES = [(8, 64, 64, (80, 96, 80))]
 # bf16 only, at the families phase's batch: conv3d_same sites that no
 # earlier path reaches, those of the "narrow" body at 80x96x80 and 40x48x40
 # (fc_150 and spatial_150: 12->12, 12->24 and its input gradient 24->12;
 # fc_600: 16->16, 16->32 and its input gradient 32->16), fc_600's 64->32
-# (narrow, the input gradient of its 32->64 on "mma"); and the two stencils
-# at fc_150's C = 12
+# (narrow, the input gradient of its 32->64) and 32->64 (wgmma in 32-channel
+# chunks); and the two stencils at fc_150's C = 12
 FAMILY_CONV_SITES = [(8, 12, 12, (80, 96, 80)), (8, 12, 12, (40, 48, 40)),
                      (8, 12, 24, (40, 48, 40)), (8, 24, 12, (40, 48, 40)),
                      (8, 16, 16, (80, 96, 80)), (8, 16, 16, (40, 48, 40)),
                      (8, 16, 32, (40, 48, 40)), (8, 32, 16, (40, 48, 40)),
                      (8, 64, 32, (20, 24, 20)), (8, 32, 64, (20, 24, 20))]
 FAMILY_STENCIL_SITES = [(8, 12, (80, 96, 80))]
+# bf16 only, batch 1: spatial_1200_fullsize's encoder conv 32->64 at
+# 80x96x80 (wgmma in 32-channel chunks) and its input gradient 64->32 (narrow)
+FULLSIZE_CONV_SITES = [(1, 32, 64, (80, 96, 80)), (1, 64, 32, (80, 96, 80))]
 # fp32 only (the eval CLI's default, `--no-bf16` training), at the eval
 # path's batch: the flagship conv, then the FC and spatial_150 sites of the
 # "narrow_tf32x3" body (fc_150 / spatial_150: 12->12, 12->24 and its input
@@ -410,10 +420,10 @@ def phase_kernels(dev) -> dict:
         plain_ms = time_ms(plain, max(2, reps // 5))
         lib_ms = time_ms(lib_fn, reps)
         b_ms, b_by = bound(nbytes, flops, PEAK_FLOPS[dtype])
-        old = note
+        old, e_ms = note, None
         if earlier is not None:
-            old += (f" | superseded {SUPERSEDED[body]} body max_rel {e_rel:.3e} "
-                    f"{time_ms(earlier, reps):.3f} ms")
+            e_ms = time_ms(earlier, reps)
+            old += f" | superseded {SUPERSEDED[body]} body max_rel {e_rel:.3e} {e_ms:.3f} ms"
         tag = f"{name} {site} {dtype_name(dtype)}"
         log(f"[kernel] {tag:52s} {body:5s} max_abs {err:.3e} max_rel {rel:.3e}{sums} "
             f"{'ok' if ok else 'FAIL'} | kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
@@ -422,12 +432,12 @@ def phase_kernels(dev) -> dict:
             failures.append(tag)
         rows[(name, site, dtype)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                          library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                                         body=body)
+                                         body=body, superseded_ms=e_ms)
 
     for dtype in (torch.float32, torch.bfloat16):
         isz = 4 if dtype == torch.float32 else 2
-        flagship8 = ([(8,) + FLAGSHIP_CONV] + FAMILY_CONV_SITES if dtype == torch.bfloat16
-                     else FP32_CONV_SITES)
+        flagship8 = ([(8,) + FLAGSHIP_CONV] + FAMILY_CONV_SITES + FULLSIZE_CONV_SITES
+                     if dtype == torch.bfloat16 else FP32_CONV_SITES)
         for b, ci, co, sp in [(2,) + site for site in CONV_SITES] + flagship8:
             x = torch.randn((b,) + sp + (ci,), generator=gen, device=dev).to(dtype)
             w = _he((3, 3, 3, ci, co), 27 * ci, gen, dev, dtype)
@@ -477,8 +487,7 @@ def phase_kernels(dev) -> dict:
                 (x.numel() + w.numel() + n_vox * c) * isz, 2.0 * n_vox * 27 * c, x.numel(),
                 body, (lambda: conv3d_from1_earlier_body(x, w)) if body in SUPERSEDED else None)
 
-        fused_more = FUSED_BF16_SITES if dtype == torch.bfloat16 else []
-        for b, ci, co, sp in [(2,) + site for site in FUSED_SITES] + fused_more:
+        for b, ci, co, sp in [(2,) + site for site in FUSED_SITES] + FUSED_B8_SITES:
             n_vox = b * sp[0] * sp[1] * sp[2]
             x = torch.randn((b,) + sp + (ci,), generator=gen, device=dev).to(dtype)
             w = _he((3, 3, 3, ci, co), 27 * ci, gen, dev, dtype)
@@ -503,7 +512,7 @@ def phase_kernels(dev) -> dict:
                     lambda: conv3d_fused_stats_plain(x, w, a_, b_, SLOPE),
                     lambda: unfused_stage(x, w_cl, a_, b_, SLOPE), nbytes, flops, x.numel(),
                     body, (lambda: conv3d_fused_stats_earlier_body(x, w, a_, b_, SLOPE))
-                    if body == "wgmma" else None)
+                    if body in SUPERSEDED else None)
 
     if failures:
         raise SystemExit(f"chip_smoke: kernels disagree with their plain versions: {failures}")
@@ -763,13 +772,35 @@ def profile_window(what: str, fn, top: int = 10) -> None:
 
 def phase_stage(dev) -> dict:
     """One fused stage forward and one conv + statistics forward + backward
-    at the flagship site, batch 8, bf16, counted, each beside the same stage
-    in library calls (the yardstick, not a gate on speed)."""
+    at the flagship site, batch 8, in bf16 and then in fp32, each counted,
+    held against the same stage in library calls (cuDNN with TF32 off in
+    fp32) and timed beside it (the yardstick, not a gate on speed). Returns
+    the launches of both counted runs."""
     from sivae_torch.kernels import build
-    from sivae_torch.kernels.conv3d_fused import conv3d_fused_stats, conv3d_stats
+
+    total = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        total = _add_counts(total, _stage(dev, dtype))
+    build.reset_launches()
+    return total
+
+
+# the stage's gradients against the library stage's: in bf16 the Function
+# receives gy already rounded to bf16 and then adds the sums' cotangents,
+# where the library path adds all three in fp32 and rounds once, and the three
+# nearly cancel (the loss normalizes y), so 5e-2 of the largest; in fp32 only
+# the order of the sums differs (dw sums 4.9e6 products an element), so
+# phase 4's fp32 weight-gradient tolerance
+TOL_STAGE_GRAD = {torch.bfloat16: 5e-2, torch.float32: TOL_DW[torch.float32]}
+
+
+def _stage(dev, dtype) -> dict:
+    from sivae_torch.kernels import build
+    from sivae_torch.kernels.conv3d_fused import (conv3d_fused_stats, conv3d_fused_stats_body,
+                                                  conv3d_stats)
 
     c, sp = FLAGSHIP
-    b, dtype, eps = 8, torch.bfloat16, 1e-5
+    b, eps = 8, 1e-5
     n = b * sp[0] * sp[1] * sp[2]
     gen = torch.Generator(device=dev).manual_seed(2)
     x = torch.randn((b,) + sp + (c,), generator=gen, device=dev).to(dtype)
@@ -818,29 +849,29 @@ def phase_stage(dev) -> dict:
     counts = dict(build.launches)
     want = {"conv3d_same": 0, "conv3d_to1": 0, "conv3d_from1": 0, "conv3d_fused_stats": 3}
     if counts != want:
-        raise SystemExit(f"chip_smoke: stage launches {counts}, expected {want}")
+        raise SystemExit(f"chip_smoke: {dtype_name(dtype)} stage launches {counts}, "
+                         f"expected {want}")
 
     y_l, mean_l, var_l = library_stage()
     dx_l, dw_l = library_grad()
     # the gradients are held to their plain versions in the gradient phase;
-    # here they only have to be the library's up to bf16's handling of dy: the
-    # Function receives gy already rounded to bf16 and then adds the sums'
-    # cotangents, the library path adds all three in fp32 and rounds once, and
-    # the three nearly cancel (the loss normalizes y), so 5e-2 of the largest
+    # here they only have to be the library's (TOL_STAGE_GRAD says how far)
+    g_tol = TOL_STAGE_GRAD[dtype]
     checks = {"y": _compare(y, y_l, TOL[dtype]), "mean": _compare(mean, mean_l, TOL_SUMS),
-              "var": _compare(var, var_l, TOL_SUMS), "dx": _compare(dx, dx_l, 5e-2),
-              "dw": _compare(dw, dw_l, 5e-2)}
+              "var": _compare(var, var_l, TOL_SUMS), "dx": _compare(dx, dx_l, g_tol),
+              "dw": _compare(dw, dw_l, g_tol)}
     finite = all(torch.isfinite(t.float()).all().item() for t in (y, mean, var, dx, dw))
-    log("[stage] fused vs library stage, 64->64@80x96x80 batch 8 bf16: " + ", ".join(
+    tag = f"64->64@80x96x80 batch 8 {dtype_name(dtype)}"
+    log(f"[stage] fused ({conv3d_fused_stats_body(x, w)}) vs library stage, {tag}: " + ", ".join(
         f"{k} max_rel {v[1]:.2e}" for k, v in checks.items()) + f"; launches {counts}")
     if not finite or not all(v[2] for v in checks.values()):
-        raise SystemExit(f"chip_smoke: the fused stage disagrees with the library stage: {checks}")
+        raise SystemExit(f"chip_smoke: the {tag} fused stage disagrees with the library "
+                         f"stage: {checks}")
     del y, dx, dw, y_l, dx_l, dw_l
 
     t = {"fused stage": time_ms(fused_stage, 5), "library stage": time_ms(library_stage, 5),
          "fused stage grad": time_ms(fused_grad, 3), "library stage grad": time_ms(library_grad, 3)}
-    log("[stage] " + ", ".join(f"{k} {v:.3f} ms" for k, v in t.items()))
-    build.reset_launches()
+    log(f"[stage] {tag}: " + ", ".join(f"{k} {v:.3f} ms" for k, v in t.items()))
     return counts
 
 
@@ -1312,12 +1343,19 @@ def site_bodies(dev) -> dict:
 def _require_tensor_core_bodies(what: str, bodies: dict) -> None:
     """Every site of a path whose channel counts are all multiples of 4 runs
     a tensor-core body, in bf16 and in fp32, forward and input gradient:
-    conv3d_same ("wgmma", "mma", "narrow", "tf32x3", "narrow_tf32x3"),
-    conv3d_to1 and conv3d_from1 ("mma", "tf32x3"). "fma" there fails."""
+    conv3d_same ("wgmma", "narrow", "tf32x3", "narrow_tf32x3"), conv3d_to1
+    and conv3d_from1 ("mma", "tf32x3"). "fma" there fails, and so does
+    conv3d_same's superseded "mma" body at a bf16 site with Ci % 32 == 0 and
+    Co % 64 == 0, which the wgmma body takes."""
+    def chans(k):
+        return [int(c) for c in k.split()[-2].split("->")]
+
     slow = {k: v for k, v in bodies.items() if v == "fma"
-            and all(int(c) % 4 == 0 for c in k.split()[-2].split("->") if c != "1")}
+            and all(c % 4 == 0 for c in chans(k) if c != 1)}
+    slow.update({k: v for k, v in bodies.items() if v == "mma" and len(k.split()) == 2
+                 and k.endswith("bfloat16") and chans(k)[0] % 32 == 0 and chans(k)[1] % 64 == 0})
     if slow:
-        raise SystemExit(f"chip_smoke: {what} ran the fma body at {slow}")
+        raise SystemExit(f"chip_smoke: {what} ran the fma or a superseded body at {slow}")
 
 
 # bf16 forward against fp32 forward of the same FC weights: bf16 keeps 8
@@ -1590,7 +1628,9 @@ def main(argv=None):
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "site": f"{site} batch 2 bf16",
-                        "bodies": sorted({v["body"] for k, v in rows.items() if k[0] == kname})})
+                        "bodies": sorted({v["body"] for k, v in rows.items() if k[0] == kname}),
+                        "rows": [dict(site=k[1], dtype=dtype_name(k[2]), **v)
+                                 for k, v in rows.items() if k[0] == kname]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

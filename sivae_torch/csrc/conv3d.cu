@@ -7,15 +7,15 @@
 // once to the output type. (The Pallas kernel rounds the running sum to the
 // activation type after every depth tap.)
 //
-// Six bodies, chosen here by shape, type and alignment:
-// - "wgmma" (conv3d_wgmma.cuh): bf16 with Ci % 64 == 0 and Co % 64 == 0. At
+// Five bodies on the dispatch, chosen here by shape, type and alignment:
+// - "wgmma" (conv3d_wgmma.cuh): bf16 with Ci % 32 == 0 and Co % 64 == 0. At
 //   the flagship site (64->64 at 80x96x80, batch 8) 1.09 TFLOP against
 //   ~1.26 GB moved: the tensor-core rate bounds it. Warp-specialised: one
 //   producer thread feeds a ring of stages by TMA (input line buffers and
 //   weight tiles, 128-byte swizzle), two consumer warpgroups multiply with
-//   wgmma.mma_async, synchronised by mbarriers.
-// - "mma" (conv3d_body.cuh): the other bf16 shapes with Ci % 32 == 0 and
-//   Co % 64 == 0: mma.sync on ldmatrix fragments over a cp.async ring.
+//   wgmma.mma_async, synchronised by mbarriers. 64-channel chunks where
+//   Ci % 64 == 0; 32-channel ones (64-byte swizzle) at Ci = 32 (fc_600's and
+//   spatial_1200_fullsize's 32 -> 64) and 96.
 // - "narrow" (conv3d_narrow.cuh): the other bf16 shapes with Ci and Co
 //   multiples of 4 up to 64 (the FC and spatial_150 channels). The bytes
 //   bound it (12->12 at 80x96x80, batch 8: 0.070 ms at 3.35 TB/s); a block
@@ -41,9 +41,11 @@
 //   line where Ci % 8 == 4.
 // - "fma" (conv3d_body.cuh): fp32 at the channel counts neither tf32x3
 //   form takes, and bf16 at those no other body takes, on CUDA cores.
-// The fused conv + statistics kernel (conv3d_fused.cu) instantiates the
-// mma, fma and wgmma bodies with their optional parts; the conv here has
-// none.
+// The mma.sync body of conv3d_body.cuh ("mma"), which "wgmma" superseded at
+// every shape it took, is reachable through sivae_conv3d_same_mma only, for
+// measurements and tests. The fused conv + statistics kernel
+// (conv3d_fused.cu) instantiates the wgmma, tf32x3, mma and fma bodies with
+// their optional parts; the conv here has none.
 
 #include "conv3d_body.cuh"
 #include "conv3d_narrow.cuh"
@@ -53,12 +55,11 @@
 
 extern "C" {
 
-// Which body a call with these arguments runs: 2 = wgmma, 1 = mma, 3 = narrow,
+// Which body a call with these arguments runs: 2 = wgmma, 3 = narrow,
 // 4 = tf32x3, 5 = narrow_tf32x3, 0 = fma.
 int sivae_conv3d_same_body(const void* x, const void* w, const void* y, int Ci, int Co, int dtype) {
   if (sivae::wgmma_eligible(x, w, y, Ci, Co, dtype)) return 2;
   if (sivae::tf32x3_eligible(x, w, y, Ci, Co, dtype)) return 4;
-  if (sivae::mma_eligible(x, w, y, Ci, Co, dtype)) return 1;
   if (sivae::narrow_eligible(x, y, Ci, Co, dtype)) return 3;
   return sivae::narrow_tf32x3_eligible(x, w, y, Ci, Co, dtype) ? 5 : 0;
 }
@@ -83,8 +84,8 @@ int sivae_conv3d_same(const void* x, const void* w, void* y, int B, int D, int H
   if (sivae::wgmma_eligible(x, w, y, Ci, Co, dtype))
     return sivae::launch_conv3d_wgmma<false, false>(x, w, y, B, D, H, W, Ci, Co, none, s);
   if (sivae::tf32x3_eligible(x, w, y, Ci, Co, dtype))
-    return sivae::launch_conv3d_tf32x3(x, w, y, scratch, B, D, H, W, Ci, Co, s);
-  if (!sivae::mma_eligible(x, w, y, Ci, Co, dtype) && sivae::narrow_eligible(x, y, Ci, Co, dtype))
+    return sivae::launch_conv3d_tf32x3<false, false>(x, w, y, scratch, B, D, H, W, Ci, Co, none, s);
+  if (sivae::narrow_eligible(x, y, Ci, Co, dtype))
     return sivae::launch_conv3d_narrow(x, w, y, B, D, H, W, Ci, Co, s);
   if (sivae::narrow_tf32x3_eligible(x, w, y, Ci, Co, dtype))
     return sivae::launch_conv3d_narrow_tf32x3(x, w, y, scratch, B, D, H, W, Ci, Co, s);

@@ -38,13 +38,31 @@
 // k-steps' wgmmas in flight while the next one is loaded and split. The
 // epilogue stores each thread's accumulator pairs as 8-byte stores, 4 lanes
 // to a row's 32-byte sector.
+//
+// The fused conv + statistics (conv3d_fused.cu, kernel 4 in fp32) runs this
+// kernel with its two template parts:
+// - kPrologue: g(x) = leaky_relu(x * a[c] + b[c]) in registers, on each raw
+//   fp32 fragment element between its ldmatrix and its split (in fp32 the
+//   rounding to the conv type is the identity). An element's channel follows
+//   from the lane and the k8 step (t4 and t4 + 4 of the step's 8), so a
+//   thread holds a and b of 8 channels of the 32-channel chunk, loaded once a
+//   chunk. The tap mask zeroes a fragment row AFTER g: g(0) = leaky(b) != 0,
+//   and the padding comes after g. Unlike the bf16 body's shared-memory
+//   rewrite this costs no shared-memory traffic and no barrier; it repeats g
+//   for each of the 27 taps an input value meets, as the split already does.
+// - kStats: the plane sums of y (fp32: the stored values are the
+//   accumulators). A warp's 16 rows of a tile that lie in one (b, d) plane
+//   are summed by shuffles over the 8 row groups into a slot in the drained
+//   ring; the block adds each plane's slots and issues one atomicAdd per
+//   (plane, column, sum). A tile that straddles planes (H*W % 16 != 0) or
+//   holds the last rows adds each of its values to psum / psumsq directly.
 
 #pragma once
 
 #include <stdint.h>
 
 #include "common.cuh"
-#include "conv3d_wgmma.cuh"  // kBoxRows, kConsumerWarps, kSmemMax, tap_mask
+#include "conv3d_wgmma.cuh"  // kBoxRows, kConsumerWarps, kSmemMax, tap_mask, consumer_sync
 #include "ptx.cuh"
 
 namespace sivae {
@@ -63,13 +81,16 @@ struct Tf32Cfg {
   static constexpr int kStages = kFit > 4 ? 4 : kFit;
   static constexpr int kBarOff = kStages * kStage;
   static constexpr int kSmem = kBarOff + 128 + 1024;  // barriers, room to align the base
+  static constexpr int kSlots = kM / 16;  // warp tiles of 16 rows: the plane sums' slots
   static_assert(kABytes % 1024 == 0 && kBTile % 1024 == 0, "swizzle atoms are 1024 B");
   static_assert(kStages >= 2 && 2 * kStages * 8 <= 128, "ring depth");
+  static_assert(kSlots * (2 * kN + 1) * 4 <= kStages * kStage, "the slots fit in the ring");
 };
 
 // w (27, Ci, Co) -> ws (3, 27, Co, Ci): the big, small and cross parts of
-// every weight (split_tf32), K-major for the wgmma B operand
-__global__ void __launch_bounds__(256)
+// every weight (split_tf32), K-major for the wgmma B operand (static: the
+// conv and the fused kernel each compile their own copy)
+static __global__ void __launch_bounds__(256)
 tf32x3_split_weights(const float* __restrict__ w, float* __restrict__ ws, int Ci, int Co) {
   const long long n = 27LL * Ci * Co;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
@@ -88,15 +109,17 @@ tf32x3_split_weights(const float* __restrict__ w, float* __restrict__ ws, int Ci
 // 384 threads: warpgroups 0 and 1 consume (each kMT m64 tiles of the block's
 // rows), warpgroup 2 produces (one thread; the rest leave). xmap: the input
 // as (n_vox, Ci) fp32, box 136 x 32, 128-byte swizzle. wmap: the split
-// weights as (3 * 27 * Co, Ci), box kN x 32, 128-byte swizzle.
-template <int kMT, int kN>
+// weights as (3 * 27 * Co, Ci), box kN x 32, 128-byte swizzle. kPrologue,
+// kStats: the fused kernel's parts (above; f holds their operands).
+template <int kMT, int kN, bool kPrologue, bool kStats>
 __global__ void __launch_bounds__(384, 1)
 conv3d_tf32x3_kernel(const __grid_constant__ CUtensorMap xmap,
                      const __grid_constant__ CUtensorMap wmap, float* __restrict__ y, int B, int D,
-                     int H, int W, int Ci, int Co) {
+                     int H, int W, int Ci, int Co, Fusion f) {
   using Cfg = Tf32Cfg<kMT, kN>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;  // swizzle atoms: 1024-aligned
+  unsigned char* smem = smem_raw + (base - smem_u32(smem_raw));
   const uint32_t full0 = base + Cfg::kBarOff, empty0 = full0 + Cfg::kStages * 8;
 
   const int tid = threadIdx.x;
@@ -173,6 +196,20 @@ conv3d_tf32x3_kernel(const __grid_constant__ CUtensorMap xmap,
     // third is loaded): [set][tile][part: big, small, cross][register]
     unsigned fa[3][kMT][3][4];
 
+    // kPrologue: a and b of this thread's channels of chunk c: kk * 8 + t4
+    // (registers 0, 1 of a fragment) and kk * 8 + t4 + 4 (registers 2, 3)
+    float pa[TK / 8][2], pb[TK / 8][2];
+    auto load_ab = [&](int c) {
+#pragma unroll
+      for (int kk = 0; kk < TK / 8; ++kk)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          pa[kk][h] = __ldg(f.in_a + c * TK + kk * 8 + 4 * h + t4);
+          pb[kk][h] = __ldg(f.in_b + c * TK + kk * 8 + 4 * h + t4);
+        }
+    };
+    if constexpr (kPrologue) load_ab(0);
+
     int stage = 0, lp = 0;
     uint32_t parity = 0;
     for (int step = 0, lc = 0; step < steps; ++step) {
@@ -198,6 +235,12 @@ conv3d_tf32x3_kernel(const __grid_constant__ CUtensorMap xmap,
             asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                          : "=r"(raw[0]), "=r"(raw[1]), "=r"(raw[2]), "=r"(raw[3])
                          : "r"(a_base + slot * (TK * 4) + (piece << 4)));
+            if constexpr (kPrologue) {  // g first: the masks below zero the padding after it
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                raw[e] = __float_as_uint(prologue_act(__uint_as_float(raw[e]), pa[kk][e >> 1],
+                                                      pb[kk][e >> 1], f.slope));
+            }
             if (!((ok[t][0] >> kw) & 1u)) raw[0] = raw[2] = 0u;  // row g
             if (!((ok[t][1] >> kw) & 1u)) raw[1] = raw[3] = 0u;  // row g + 8
 #pragma unroll
@@ -228,11 +271,22 @@ conv3d_tf32x3_kernel(const __grid_constant__ CUtensorMap xmap,
         lc = 0;
         ++lp;
       }
+      if constexpr (kPrologue) {
+        if (chunks > 1) load_ab(lc);  // the next step's chunk, while its stage arrives
+      }
     }
 #pragma unroll
     for (int t = 0; t < kMT; ++t)
 #pragma unroll
       for (int i = 0; i < kN / 2; ++i) asm volatile("" : "+f"(acc[t][i])::"memory");
+
+    // kStats: the slots of the warp tiles, [tile row / 16][s1, s2][kN] fp32,
+    // and each slot's plane (~0u for a tile whose rows are added directly), in
+    // the ring (every stage has been read)
+    const unsigned HW = static_cast<unsigned>(H) * W;
+    float* slots = reinterpret_cast<float*>(smem);
+    unsigned* slot_plane = reinterpret_cast<unsigned*>(slots + Cfg::kSlots * 2 * kN);
+    if constexpr (kStats) consumer_sync();  // both warpgroups are done with the ring
 
     // accumulator layout: registers 4j .. 4j+3 are columns 8j + 2 t4, + 1 of
     // row g (first two) and row g + 8 (last two)
@@ -248,6 +302,66 @@ conv3d_tf32x3_kernel(const __grid_constant__ CUtensorMap xmap,
           *reinterpret_cast<float2*>(yr + 8LL * Co) =
               make_float2(acc[t][4 * j + 2], acc[t][4 * j + 3]);
       }
+      if constexpr (kStats) {
+        const unsigned ma = m0 + row_wg + t * 64;  // the warp tile's first row
+        const unsigned plane = ma / HW;
+        const bool whole = ma + 15 < n_vox && ma - plane * HW + 15 < HW;  // 16 rows, one plane
+        const int sl = (ma - m0) >> 4;
+        if (whole) {  // rows g and g + 8, then the 8 row groups (lanes 4 apart)
+#pragma unroll
+          for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float lo = acc[t][4 * j + e], hi = acc[t][4 * j + 2 + e];
+              float s1 = lo + hi, s2 = fmaf(lo, lo, hi * hi);
+#pragma unroll
+              for (int off = 4; off < 32; off <<= 1) {
+                s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+                s2 += __shfl_xor_sync(0xffffffffu, s2, off);
+              }
+              if (g == 0) {
+                slots[sl * 2 * kN + 8 * j + 2 * t4 + e] = s1;
+                slots[(sl * 2 + 1) * kN + 8 * j + 2 * t4 + e] = s2;
+              }
+            }
+        } else {  // each value to its own plane's sums
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const unsigned mr = m + 8 * h;
+            if (mr >= n_vox) continue;
+            const size_t at = static_cast<size_t>(mr / HW) * Co + n0 + 2 * t4;
+#pragma unroll
+            for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const float v = acc[t][4 * j + 2 * h + e];
+                atomicAdd(f.psum + at + 8 * j + e, v);
+                atomicAdd(f.psumsq + at + 8 * j + e, v * v);
+              }
+          }
+        }
+        if (lane == 0) slot_plane[sl] = whole ? plane : ~0u;
+      }
+    }
+    if constexpr (kStats) {  // one atomicAdd per (plane, column, sum) of the block
+      consumer_sync();
+      if (tid < 2 * kN) {
+        const int col = tid % kN, k = tid / kN;
+        float* sums = (k ? f.psumsq : f.psum) + n0 + col;
+        unsigned plane = ~0u;
+        float run = 0.f;
+        for (int sl = 0; sl < Cfg::kSlots; ++sl) {  // in row order: one plane's slots are adjacent
+          const unsigned p = slot_plane[sl];
+          if (p == ~0u) continue;
+          if (p != plane) {
+            if (plane != ~0u) atomicAdd(sums + static_cast<size_t>(plane) * Co, run);
+            plane = p;
+            run = 0.f;
+          }
+          run += slots[(sl * 2 + k) * kN + col];
+        }
+        if (plane != ~0u) atomicAdd(sums + static_cast<size_t>(plane) * Co, run);
+      }
     }
   }
 }
@@ -260,26 +374,32 @@ inline bool tf32x3_eligible(const void* x, const void* w, const void* y, int Ci,
            reinterpret_cast<uintptr_t>(y)) & mask) == 0;
 }
 
-template <int kMT, int kN>
+template <int kMT, int kN, bool kPrologue, bool kStats>
 inline int launch_tf32x3(const CUtensorMap& xmap, const CUtensorMap& wmap, void* y, int B, int D,
-                         int H, int W, int Ci, int Co, unsigned n_vox, cudaStream_t s) {
+                         int H, int W, int Ci, int Co, unsigned n_vox, const Fusion& f,
+                         cudaStream_t s) {
   using Cfg = Tf32Cfg<kMT, kN>;
-  auto kernel = conv3d_tf32x3_kernel<kMT, kN>;
+  auto kernel = conv3d_tf32x3_kernel<kMT, kN, kPrologue, kStats>;
   const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::kSmem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid((n_vox + Cfg::kM - 1) / Cfg::kM, Co / kN);
-  kernel<<<grid, 384, Cfg::kSmem, s>>>(xmap, wmap, static_cast<float*>(y), B, D, H, W, Ci, Co);
+  kernel<<<grid, 384, Cfg::kSmem, s>>>(xmap, wmap, static_cast<float*>(y), B, D, H, W, Ci, Co, f);
   return static_cast<int>(cudaGetLastError());
 }
 
 // x (B,D,H,W,Ci), w (3,3,3,Ci,Co), y (B,D,H,W,Co) fp32, on operands
 // tf32x3_eligible() takes; scratch: 3 * 27 * Ci * Co floats, 16-byte aligned,
 // for the split weights. Blocks of 256 rows where that fills the card, of
-// 128 where it does not (the small sites). The tensor maps are encoded per
-// call; nothing is cached. Returns cudaGetLastError() after the launches.
+// 128 where it does not (the small sites). The optional parts kPrologue /
+// kStats are the fused kernel's (the conv alone: <false, false>; f holds
+// their operands, psum / psumsq zeroed by the caller). The tensor maps are
+// encoded per call; nothing is cached. Returns cudaGetLastError() after the
+// launches.
+template <bool kPrologue, bool kStats>
 inline int launch_conv3d_tf32x3(const void* x, const void* w, void* y, void* scratch, int B,
-                                int D, int H, int W, int Ci, int Co, cudaStream_t s) {
+                                int D, int H, int W, int Ci, int Co, const Fusion& f,
+                                cudaStream_t s) {
   if (scratch == nullptr || (reinterpret_cast<uintptr_t>(scratch) & 15) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long n_w = 27LL * Ci * Co;
@@ -303,10 +423,14 @@ inline int launch_conv3d_tf32x3(const void* x, const void* w, void* y, void* scr
   const long long blocks256 = (static_cast<long long>(n_vox) + 255) / 256 * (Co / kn);
   const bool wide = blocks256 >= device_sms();
   if (kn == 64)
-    return wide ? launch_tf32x3<2, 64>(xmap, wmap, y, B, D, H, W, Ci, Co, n_vox, s)
-                : launch_tf32x3<1, 64>(xmap, wmap, y, B, D, H, W, Ci, Co, n_vox, s);
-  return wide ? launch_tf32x3<2, 32>(xmap, wmap, y, B, D, H, W, Ci, Co, n_vox, s)
-              : launch_tf32x3<1, 32>(xmap, wmap, y, B, D, H, W, Ci, Co, n_vox, s);
+    return wide ? launch_tf32x3<2, 64, kPrologue, kStats>(xmap, wmap, y, B, D, H, W, Ci, Co,
+                                                          n_vox, f, s)
+                : launch_tf32x3<1, 64, kPrologue, kStats>(xmap, wmap, y, B, D, H, W, Ci, Co,
+                                                          n_vox, f, s);
+  return wide ? launch_tf32x3<2, 32, kPrologue, kStats>(xmap, wmap, y, B, D, H, W, Ci, Co, n_vox,
+                                                        f, s)
+              : launch_tf32x3<1, 32, kPrologue, kStats>(xmap, wmap, y, B, D, H, W, Ci, Co, n_vox,
+                                                        f, s);
 }
 
 }  // namespace sivae

@@ -1,10 +1,10 @@
-// The Hopper body of the 3x3x3 SAME stride-1 convolution: bf16, Ci % 64 == 0,
+// The Hopper body of the 3x3x3 SAME stride-1 convolution: bf16, Ci % 32 == 0,
 // Co % 64 == 0, 16-byte aligned tensors, sm_90a only (wgmma, TMA, mbarrier,
 // setmaxnreg). Same implicit GEMM and numerics as the mma.sync body of
 // conv3d_body.cuh (M = B*D*H*W voxels, N = Co, K = 27*Ci, all taps summed in
 // fp32, one rounding); what changes is how the operands reach the tensor cores.
 // conv3d.cu runs it plain; conv3d_fused.cu with its prologue and plane sums
-// (the kernel's template parts, below).
+// (the kernel's template parts, below), at Ci % 64 == 0 only.
 //
 // What bounded the mma.sync body on this card, and what this one does:
 // - Shared-memory bandwidth: 8 warps each re-read the weight tile with
@@ -32,12 +32,19 @@
 // fragment registers of a tap outside it: the SAME padding, d, h and w edges
 // and the ragged last tile alike, costs a few selects per ldmatrix.
 //
-// A stage holds one (kd, kh) line buffer of 64 channels (136 * kMT rows of
-// 128 B, swizzled) and the 3 kw weight tiles (64 x 64 kNT each): 41 KB
-// (128 x 64 blocks, 5 stages) to 82 KB (256 x 128 blocks, 2 stages);
-// wgmma_block_shape() picks the block shape per call. The epilogue rounds once, stages
-// each warp's 16 x 64 tile in its own piece of shared memory and stores 16
-// bytes per lane.
+// The channel chunk of a stage, kGK: 64 where Ci % 64 == 0 (a 128-byte line
+// row, 128-byte swizzle, four k16 steps a tap), else 32 (fc_600's and
+// spatial_1200_fullsize's 32 -> 64: a 64-byte row, the 64-byte swizzle, two
+// k16 steps a tap; the weight tile keeps its 128-byte rows, 32 of them). A
+// 64-wide box over 32 channels would double the tensor work on zeros, and
+// multiply the next tap's weights by them (inf * 0 = NaN). A stage holds one
+// (kd, kh) line buffer (136 * kMT rows) and the 3 kw weight tiles (kGK x 64
+// kNT each): at kGK = 64, 41 KB (128 x 64 blocks, 5 stages) to 82 KB (256 x
+// 128 blocks, 2 stages); at kGK = 32 about half of that, 5 stages (8, as many
+// channels in flight as at kGK = 64, timed the same at fc_600's and
+// fullsize's 32 -> 64 on an H100; two blocks an SM would not fit the
+// consumers' registers). wgmma_block_shape() picks the block shape per call. The epilogue rounds once, stages each warp's 16 x 64 tile
+// in its own piece of shared memory and stores 16 bytes per lane.
 
 #pragma once
 
@@ -47,10 +54,9 @@
 
 namespace sivae {
 
-constexpr int GK = 64;         // channels per stage: one 128-byte swizzled row
+constexpr int GK = 64;         // channels per stage where Ci % 64 == 0: one 128-byte row
 constexpr int GN = 64;         // output channels per block
 constexpr int kBoxRows = 136;  // rows per input TMA box (>= 128 + 2, a multiple of 8)
-constexpr int kBTile = GK * GN * 2;           // bytes of one tap's weight tile
 constexpr int kEpiRow = GN * 2 + 16;          // staged output row, padded against bank conflicts
 constexpr int kEpiWarp = 16 * kEpiRow;        // one warp's 16 x 64 staged tile
 constexpr int kConsumerWarps = 8;
@@ -58,12 +64,17 @@ constexpr int kConsumerWarps = 8;
 constexpr int kSmemMax = 232448;  // shared memory one block may use
 
 // kMT m64 tiles per consumer warpgroup (block rows = 128 * kMT), kNT 64-wide
-// column tiles per block
-template <int kMT, int kNT>
+// column tiles per block, kGK channels a stage (64 or 32)
+template <int kMT, int kNT, int kGK>
 struct WgmmaCfg {
   static constexpr int kM = 128 * kMT;                        // output voxels per block
   static constexpr int kN = GN * kNT;                         // output channels per block
-  static constexpr int kABytes = kMT * kBoxRows * GK * 2;     // line buffer
+  static constexpr int kRowBytes = kGK * 2;                   // a line-buffer row
+  static constexpr int kBoxBytes = kBoxRows * kRowBytes;      // one input TMA box
+  static constexpr int kLineBytes = kMT * kBoxBytes;          // line buffer
+  static constexpr int kABytes = (kLineBytes + 1023) / 1024 * 1024;  // B tiles on a swizzle atom
+  static constexpr int kBTile = kGK * GN * 2;                 // one tap's weight tile
+  static constexpr int kTx = kLineBytes + 3 * kNT * kBTile;   // bytes TMA writes a stage
   static constexpr int kStage = kABytes + 3 * kNT * kBTile;
   static constexpr int kFixed = kConsumerWarps * kEpiWarp + 128 + 1024;  // epilogue, barriers, slack
   static constexpr int kFit = (kSmemMax - kFixed) / kStage;
@@ -73,10 +84,19 @@ struct WgmmaCfg {
   static constexpr int kSmem = kStages * kStage + kFixed;  // with room to align the base
   static constexpr int kSlots = kM / 16;  // warp tiles of 16 rows: the plane sums' slots
   static constexpr int kRewritePasses = (kM + 2 + 31) / 32;  // line-buffer rows / 32
+  static_assert(kGK == 64 || kGK == 32, "a 128- or 64-byte line row");
   static_assert(kStage % 1024 == 0 && kABytes % 1024 == 0, "swizzle atoms are 1024 B");
   static_assert(kStages >= 2 && 2 * kStages * 8 <= 128, "ring depth");
   static_assert(kSlots * (2 * kN + 1) * 4 <= kStages * kStage, "the slots fit in the ring");
 };
+
+// the 16-byte piece of line-buffer row `slot` that holds logical piece p: the
+// 128-byte swizzle XORs p with the row's index mod 8, the 64-byte swizzle with
+// bits 1-2 of it (the byte address's bits 7-8; 8 rows of 64 B repeat it)
+template <int kGK>
+__device__ __forceinline__ uint32_t swizzled_piece(int p, int slot) {
+  return static_cast<uint32_t>(kGK == 64 ? p ^ (slot & 7) : p ^ ((slot >> 1) & 3));
+}
 
 // 27-bit mask of the taps of output voxel m that lie inside the volume
 // (0 for the padding rows of the last tile)
@@ -109,13 +129,13 @@ __device__ __forceinline__ void consumer_sync() { asm volatile("bar.sync 1, 256;
 //
 // 384 threads: warpgroups 0 and 1 consume (each kMT m64 tiles of the block's
 // rows), warpgroup 2 produces (one thread; the rest leave). xmap: the input as
-// (n_vox, Ci) bf16, box 136 x 64, 128-byte swizzle. wmap: the weight as
-// (27 * Ci, Co), box 64 x 64, 128-byte swizzle.
+// (n_vox, Ci) bf16, box 136 x kGK, kGK * 2-byte swizzle. wmap: the weight as
+// (27 * Ci, Co), box kGK x 64, 128-byte swizzle.
 //
 // The fused form's two optional parts (conv3d_body.cuh says what they
 // compute; kernel 1 runs with neither):
-// - kPrologue, the input prologue g: the consumers apply it once per stage to
-//   the next stage's line buffer in shared memory, a third of its rows after
+// - kPrologue, the input prologue g (kGK = 64 only): the consumers apply it
+//   once per stage to the next stage's line buffer in shared memory, a third of its rows after
 //   each kw group's wgmmas are issued, so that it runs while they do; a named
 //   barrier among the consumers orders it before the next stage's ldmatrix.
 //   The tap masks then zero every out-of-volume tap, the rows TMA filled with
@@ -126,12 +146,13 @@ __device__ __forceinline__ void consumer_sync() { asm volatile("bar.sync 1, 256;
 //   memory, the drained ring); the block then adds the slots of each plane
 //   and issues one atomicAdd per (plane, column, sum). A tile that straddles
 //   planes adds each plane's part to psum / psumsq directly.
-template <int kMT, int kNT, bool kPrologue, bool kStats>
+template <int kMT, int kNT, int kGK, bool kPrologue, bool kStats>
 __global__ void __launch_bounds__(384, 1)
 conv3d_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                     const __grid_constant__ CUtensorMap wmap, __nv_bfloat16* __restrict__ y, int B,
                     int D, int H, int W, int Ci, int Co, Fusion f) {
-  using Cfg = WgmmaCfg<kMT, kNT>;
+  using Cfg = WgmmaCfg<kMT, kNT, kGK>;
+  static_assert(kGK == GK || !kPrologue, "the prologue's rewrite walks 128-byte rows");
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;  // swizzle atoms: 1024-aligned
   unsigned char* smem = smem_raw + (base - smem_u32(smem_raw));
@@ -142,7 +163,7 @@ conv3d_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
   const unsigned n_vox = static_cast<unsigned>(B) * D * H * W;
   const unsigned m0 = blockIdx.x * Cfg::kM;
   const int n0 = blockIdx.y * Cfg::kN;
-  const int chunks = Ci / GK;
+  const int chunks = Ci / kGK;
   const int steps = 9 * chunks;
 
   if (tid == 0) {
@@ -167,16 +188,16 @@ conv3d_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
           mbar_wait(empty0 + 8 * stage, parity);
           const uint32_t full = full0 + 8 * stage;
           const uint32_t a = base + stage * Cfg::kStage;
-          mbar_expect_tx(full, Cfg::kStage);
+          mbar_expect_tx(full, Cfg::kTx);
 #pragma unroll
           for (int q = 0; q < kMT; ++q)
-            tma_load_2d(a + q * kBoxRows * GK * 2, &xmap, full, c * GK, row0 + q * kBoxRows);
+            tma_load_2d(a + q * Cfg::kBoxBytes, &xmap, full, c * kGK, row0 + q * kBoxRows);
 #pragma unroll
           for (int kw = 0; kw < 3; ++kw)
 #pragma unroll
             for (int nt = 0; nt < kNT; ++nt)
-              tma_load_2d(a + Cfg::kABytes + (kw * kNT + nt) * kBTile, &wmap, full, n0 + nt * GN,
-                          (lp * 3 + kw) * Ci + c * GK);
+              tma_load_2d(a + Cfg::kABytes + (kw * kNT + nt) * Cfg::kBTile, &wmap, full,
+                          n0 + nt * GN, (lp * 3 + kw) * Ci + c * kGK);
           if (++stage == Cfg::kStages) {
             stage = 0;
             parity ^= 1u;
@@ -209,7 +230,7 @@ conv3d_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
 
     // ldmatrix row address of this lane: slot (output row + kw), 16-byte piece
     const int l_row = lane & 15, l_hi = lane >> 4;
-    unsigned fa[2][kMT][GK / 16][4];  // two sets: one is read by wgmmas in flight
+    unsigned fa[2][kMT][kGK / 16][4];  // two sets: one is read by wgmmas in flight
 
     // kPrologue: (a, b) of the 8 channels of this thread's 16-byte piece
     // (tid & 7) of the line buffer, for a channel chunk
@@ -230,7 +251,8 @@ conv3d_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
       for (int p = p0; p < p1; ++p) {
         const int r = (tid >> 3) + 32 * p;
         if (r >= Cfg::kM + 2) break;
-        uint4* q = reinterpret_cast<uint4*>(buf + r * (GK * 2) + ((piece ^ (r & 7)) << 4));
+        uint4* q = reinterpret_cast<uint4*>(buf + r * Cfg::kRowBytes +
+                                            (swizzled_piece<kGK>(piece, r) << 4));
         uint4 v = *q;
         v.x = prologue_bf16x2(v.x, a8[0], a8[1], b8[0], b8[1], f.slope);
         v.y = prologue_bf16x2(v.y, a8[2], a8[3], b8[2], b8[3], f.slope);
@@ -267,11 +289,11 @@ conv3d_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
 #pragma unroll
         for (int t = 0; t < kMT; ++t) {
           const int slot = row_wg + t * 64 + l_row + kw;
-          const uint32_t row_addr = a_base + slot * (GK * 2);
+          const uint32_t row_addr = a_base + slot * Cfg::kRowBytes;
 #pragma unroll
-          for (int kk = 0; kk < GK / 16; ++kk) {
+          for (int kk = 0; kk < kGK / 16; ++kk) {
             unsigned(&fr)[4] = fa[set][t][kk];
-            const uint32_t piece = static_cast<uint32_t>((kk * 2 + l_hi) ^ (slot & 7));
+            const uint32_t piece = swizzled_piece<kGK>(kk * 2 + l_hi, slot);
             asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                          : "=r"(fr[0]), "=r"(fr[1]), "=r"(fr[2]), "=r"(fr[3])
                          : "r"(row_addr + (piece << 4)));
@@ -283,12 +305,12 @@ conv3d_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
 #pragma unroll
         for (int t = 0; t < kMT; ++t)
 #pragma unroll
-          for (int kk = 0; kk < GK / 16; ++kk)
+          for (int kk = 0; kk < kGK / 16; ++kk)
 #pragma unroll
             for (int nt = 0; nt < kNT; ++nt)  // the A fragments serve every column tile
               wgmma_m64n64k16_rs(
                   acc[t][nt], fa[set][t][kk],
-                  smem_desc(b_base + (kw * kNT + nt) * kBTile + kk * (16 * GN * 2)));
+                  smem_desc(b_base + (kw * kNT + nt) * Cfg::kBTile + kk * (16 * GN * 2)));
         wgmma_commit();
         if constexpr (kPrologue) {  // a third of the next stage, while this group's wgmmas run
           if (step + 1 < steps) {
@@ -421,8 +443,16 @@ conv3d_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
 
 // --- host side ---------------------------------------------------------------
 
+// the conv: every operand set the mma.sync body takes (bf16, Ci % 32 == 0,
+// Co % 64 == 0, 16-byte aligned), in 64-channel chunks where Ci % 64 == 0
 inline bool wgmma_eligible(const void* x, const void* w, const void* y, int Ci, int Co, int dtype) {
-  return mma_eligible(x, w, y, Ci, Co, dtype) && Ci % GK == 0;
+  return mma_eligible(x, w, y, Ci, Co, dtype);
+}
+
+// the fused conv + statistics: 64-channel chunks only (the prologue's rewrite)
+inline bool wgmma_fused_eligible(const void* x, const void* w, const void* y, int Ci, int Co,
+                                 int dtype) {
+  return wgmma_eligible(x, w, y, Ci, Co, dtype) && Ci % GK == 0;
 }
 
 // The block shape for a call, as 10 * kMT + kNT. One block runs per SM at a
@@ -457,12 +487,12 @@ inline int wgmma_block_shape(unsigned n_vox, int Co, bool fused = false) {
   return best;
 }
 
-template <int kMT, int kNT, bool kPrologue, bool kStats>
+template <int kMT, int kNT, int kGK, bool kPrologue, bool kStats>
 inline int launch_wgmma(const CUtensorMap& xmap, const CUtensorMap& wmap, void* y, int B, int D,
                         int H, int W, int Ci, int Co, unsigned n_vox, const Fusion& f,
                         cudaStream_t s) {
-  using Cfg = WgmmaCfg<kMT, kNT>;
-  auto kernel = conv3d_wgmma_kernel<kMT, kNT, kPrologue, kStats>;
+  using Cfg = WgmmaCfg<kMT, kNT, kGK>;
+  auto kernel = conv3d_wgmma_kernel<kMT, kNT, kGK, kPrologue, kStats>;
   const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::kSmem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
@@ -472,39 +502,61 @@ inline int launch_wgmma(const CUtensorMap& xmap, const CUtensorMap& wmap, void* 
   return static_cast<int>(cudaGetLastError());
 }
 
-// The wgmma body on operands that wgmma_eligible() takes, with the optional
-// parts kPrologue / kStats (the conv alone: <false, false>), in the block shape
-// wgmma_block_shape() picks (shape == 0) or in a given one (for measurements;
-// it must divide Co). The two tensor maps are encoded per call on the host
-// (about a microsecond; nothing is cached, so nothing outlives the call).
+// The block shape's kernel (10 * kMT + kNT; 11 for an unknown one).
+template <int kGK, bool kPrologue, bool kStats>
+inline int launch_wgmma_shape(int shape, const CUtensorMap& xmap, const CUtensorMap& wmap, void* y,
+                              int B, int D, int H, int W, int Ci, int Co, unsigned n_vox,
+                              const Fusion& f, cudaStream_t s) {
+  switch (shape) {
+    case 21:
+      return launch_wgmma<2, 1, kGK, kPrologue, kStats>(xmap, wmap, y, B, D, H, W, Ci, Co, n_vox,
+                                                        f, s);
+    case 12:
+      return launch_wgmma<1, 2, kGK, kPrologue, kStats>(xmap, wmap, y, B, D, H, W, Ci, Co, n_vox,
+                                                        f, s);
+    case 22:
+      return launch_wgmma<2, 2, kGK, kPrologue, kStats>(xmap, wmap, y, B, D, H, W, Ci, Co, n_vox,
+                                                        f, s);
+    default:
+      return launch_wgmma<1, 1, kGK, kPrologue, kStats>(xmap, wmap, y, B, D, H, W, Ci, Co, n_vox,
+                                                        f, s);
+  }
+}
+
+// The wgmma body on operands that wgmma_eligible() takes (the fused parts:
+// wgmma_fused_eligible()), with the optional parts kPrologue / kStats (the conv
+// alone: <false, false>), in the block shape wgmma_block_shape() picks (shape
+// == 0) or in a given one (for measurements; it must divide Co), in
+// 64-channel chunks where Ci % 64 == 0 and in 32-channel ones otherwise. The
+// two tensor maps are encoded per call on the host (about a microsecond;
+// nothing is cached, so nothing outlives the call).
 template <bool kPrologue, bool kStats>
 inline int launch_conv3d_wgmma(const void* x, const void* w, void* y, int B, int D, int H, int W,
                                int Ci, int Co, const Fusion& f, cudaStream_t s, int shape = 0) {
+  const int gk = Ci % GK == 0 ? GK : GK / 2;
+  if ((kPrologue || kStats) && gk != GK) return static_cast<int>(cudaErrorInvalidValue);
   const unsigned n_vox = static_cast<unsigned>(B) * D * H * W;
   CUtensorMap xmap, wmap;
   const cuuint64_t xdims[2] = {static_cast<cuuint64_t>(Ci), n_vox};
   const cuuint64_t xstr[1] = {static_cast<cuuint64_t>(Ci) * 2};
-  const cuuint32_t xbox[2] = {GK, kBoxRows};
+  const cuuint32_t xbox[2] = {static_cast<cuuint32_t>(gk), kBoxRows};
   const cuuint64_t wdims[2] = {static_cast<cuuint64_t>(Co), static_cast<cuuint64_t>(27) * Ci};
   const cuuint64_t wstr[1] = {static_cast<cuuint64_t>(Co) * 2};
-  const cuuint32_t wbox[2] = {GN, GK};
+  const cuuint32_t wbox[2] = {GN, static_cast<cuuint32_t>(gk)};
   if (!encode_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, 2, xdims, xstr, xbox,
-                  CU_TENSOR_MAP_SWIZZLE_128B) ||
+                  gk == GK ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B) ||
       !encode_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, w, 2, wdims, wstr, wbox,
                   CU_TENSOR_MAP_SWIZZLE_128B))
     return static_cast<int>(cudaErrorInvalidValue);
   if (shape == 0) shape = wgmma_block_shape(n_vox, Co, kStats);
   if (Co % (GN * (shape % 10)) != 0) return static_cast<int>(cudaErrorInvalidValue);
-  switch (shape) {
-    case 21:
-      return launch_wgmma<2, 1, kPrologue, kStats>(xmap, wmap, y, B, D, H, W, Ci, Co, n_vox, f, s);
-    case 12:
-      return launch_wgmma<1, 2, kPrologue, kStats>(xmap, wmap, y, B, D, H, W, Ci, Co, n_vox, f, s);
-    case 22:
-      return launch_wgmma<2, 2, kPrologue, kStats>(xmap, wmap, y, B, D, H, W, Ci, Co, n_vox, f, s);
-    default:
-      return launch_wgmma<1, 1, kPrologue, kStats>(xmap, wmap, y, B, D, H, W, Ci, Co, n_vox, f, s);
+  if constexpr (!kPrologue && !kStats) {
+    if (gk != GK)
+      return launch_wgmma_shape<GK / 2, false, false>(shape, xmap, wmap, y, B, D, H, W, Ci, Co,
+                                                      n_vox, f, s);
   }
+  return launch_wgmma_shape<GK, kPrologue, kStats>(shape, xmap, wmap, y, B, D, H, W, Ci, Co,
+                                                   n_vox, f, s);
 }
 
 }  // namespace sivae

@@ -53,7 +53,8 @@ SIGNATURES = {
     "sivae_conv3d_from1": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "sivae_conv3d_from1_fma": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "sivae_conv3d_fused_stats_body": [_P, _P, _I, _I, _I],
-    "sivae_conv3d_fused_stats": [_P, _P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "sivae_conv3d_fused_stats": [_P, _P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+                                 _P],
     "sivae_conv3d_fused_stats_mma": [_P, _P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                      _P],
     "sivae_conv3d_fused_stats_wgmma": [_P, _P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -6,17 +6,19 @@ which is the same kernel on the flipped, IO-swapped weights (`_bwd`,
 `sivae_tpu/kernels/conv3d.py:134-149`).
 
 The kernel (`csrc/conv3d.cu`) is an implicit GEMM over M = B*D*H*W voxels,
-N = Co, K = 27*Ci. Six bodies, chosen in C by shape, type and alignment
+N = Co, K = 27*Ci. Five bodies, chosen in C by shape, type and alignment
 (`conv3d_same_body` names the one a call runs):
-- "wgmma", bf16 with Ci % 64 == 0 and Co % 64 == 0 (the spatial_1200
-  sites). At the flagship site (64->64 at 80x96x80, batch 8) 1.09 TFLOP is
-  ~1.10 ms at 989 TF/s and ~1.26 GB in+out ~0.38 ms at 3.35 TB/s: the tensor
-  cores bound it. Warp-specialised: a producer thread feeds a ring of
-  shared-memory stages by TMA, two consumer warpgroups multiply with
-  `wgmma.mma_async`, synchronised by mbarriers; the weight tile is read from
-  shared memory once per warpgroup.
-- "mma", the other bf16 shapes with Ci % 32 == 0 and Co % 64 == 0:
-  `mma.sync` on `ldmatrix` fragments over a `cp.async` ring.
+- "wgmma", bf16 with Ci % 32 == 0 and Co % 64 == 0 (the spatial_1200
+  sites, and fc_600's and spatial_1200_fullsize's 32->64). At the flagship
+  site (64->64 at 80x96x80, batch 8) 1.09 TFLOP is ~1.10 ms at 989 TF/s
+  and ~1.26 GB in+out ~0.38 ms at 3.35 TB/s: the tensor cores bound it.
+  Warp-specialised: a producer thread feeds a ring of shared-memory stages
+  by TMA, two consumer warpgroups multiply with `wgmma.mma_async`,
+  synchronised by mbarriers; the weight tile is read from shared memory once
+  per warpgroup. A stage takes 64 input channels where Ci % 64 == 0, else
+  32 (64-byte line rows, the 64-byte swizzle, two k16 steps a tap). It
+  superseded the `mma.sync` body ("mma", over a `cp.async` ring) at every
+  shape that one took; `conv3d_same_earlier_body` still runs it.
 - "narrow", the other bf16 shapes with Ci and Co multiples of 4 up to 64:
   the FC family's and spatial_150's 12/16/24/32/48 channels
   (`csrc/conv3d_narrow.cuh`). There the bytes bound it (12->12 at 80x96x80,
@@ -252,14 +254,19 @@ def conv3d_same_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         _check_shapes(x, w)
         return conv3d_same_plain(x, w)
-    # fp32: room for the weights' three TF32 parts, laid out as the B operand
-    # of the tf32x3 forms, which the launch fills before its conv
-    n = build.library().sivae_conv3d_same_scratch(x.shape[-1], w.shape[-1], build.dtype_code(x))
-    scratch = torch.empty(n, dtype=torch.float32, device=x.device) if n else None
+    scratch = weight_scratch(x, w)
     y = _launch("sivae_conv3d_same", x, w, None if scratch is None else scratch.data_ptr())
     build.launches["conv3d_same"] += 1
     build.count_site(build.conv3d_same_sites, x, x.shape[-1], w.shape[-1])
     return y
+
+
+def weight_scratch(x: torch.Tensor, w: torch.Tensor):
+    """fp32: room for the weights' three TF32 parts, laid out as the B operand
+    of the tf32x3 forms, which a launch fills before its conv (None for
+    bf16). Allocated per call, so it lives on the caller's stream."""
+    n = build.library().sivae_conv3d_same_scratch(x.shape[-1], w.shape[-1], build.dtype_code(x))
+    return torch.empty(n, dtype=torch.float32, device=x.device) if n else None
 
 
 def conv3d_same_earlier_body(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -311,7 +318,7 @@ WGMMA_SHAPES = (11, 21, 12, 22)   # 128x64, 256x64, 128x128, 256x128 outputs a b
 
 
 def conv3d_same_body(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor) -> str:
-    """Which kernel body a CUDA call on these tensors runs: "wgmma", "mma",
+    """Which kernel body a CUDA call on these tensors runs: "wgmma",
     "narrow", "tf32x3", "narrow_tf32x3" or "fma"."""
     used = build.library().sivae_conv3d_same_body(
         x.data_ptr(), w.data_ptr(), y.data_ptr(), x.shape[-1], w.shape[-1], build.dtype_code(x))

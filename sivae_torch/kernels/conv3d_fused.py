@@ -17,16 +17,24 @@ psum / psumsq (B, D, Co) are fp32 sums over (H, W) of the ROUNDED y and of
 its square: reduce over (B, D) and divide by B*D*H*W for the batch stats.
 
 The kernel (`csrc/conv3d_fused.cu`) is the implicit GEMM of
-`csrc/conv3d.cu` with the prologue applied where the input tile arrives in
-shared memory and the sums taken from the output tile before it leaves. In
-bf16 with Ci and Co multiples of 64 it runs `conv3d_same`'s wgmma body
-(`csrc/conv3d_wgmma.cuh`) with both parts switched on ("wgmma"); other
-shapes keep the mma.sync and FMA bodies ("mma", "fma";
-`conv3d_fused_stats_body` names the body). Bound on an H100 SXM at the
-flagship site (64->64 at 80x96x80, batch 8, bf16): the conv's 1.09 TFLOP at
-the tensor-core rate (~1.10 ms); prologue and sums add no device-memory
-bytes. The sums are added with atomics, so their last bits change from run
-to run (~1e-6 relative).
+`csrc/conv3d.cu` with the prologue applied to the input before it is
+multiplied and the sums taken from the output tile before it leaves.
+`conv3d_fused_stats_body` names the body a call runs:
+- "wgmma", bf16 with Ci and Co multiples of 64: `conv3d_same`'s wgmma body
+  (`csrc/conv3d_wgmma.cuh`) with both parts switched on, the prologue
+  rewriting the line buffer in shared memory;
+- "tf32x3", fp32 with Ci and Co multiples of 32: `conv3d_same`'s
+  three-product TF32 body (`csrc/conv3d_tf32x3.cuh`), the prologue applied
+  in registers to each fp32 A fragment before its split, the sums reduced
+  from the fp32 accumulators; `conv3d_fused_stats_tf32x3_plain` is its
+  algorithm in PyTorch;
+- "mma" and "fma" (`csrc/conv3d_body.cuh`): the other shapes (bf16 with
+  Ci % 32 == 0 and Co % 64 == 0 on mma.sync, the rest on CUDA cores).
+Bound on an H100 SXM at the flagship site (64->64 at 80x96x80, batch 8):
+the conv's 1.09 TFLOP at the tensor-core rate, ~1.10 ms in bf16 and
+~6.6 ms in fp32 (165 TF/s, the three products fp32 accuracy takes);
+prologue and sums add no device-memory bytes. The sums are added with
+atomics, so their last bits change from run to run (~1e-6 relative).
 
 `conv3d_fused_stats` takes the plain version for a CPU tensor and launches
 the kernel for a CUDA tensor; nothing falls back.
@@ -39,7 +47,8 @@ from typing import Optional, Tuple
 import torch
 
 from sivae_torch.kernels import build
-from sivae_torch.kernels.conv3d import BODIES, conv3d_same_plain, flip_swap, wgrad
+from sivae_torch.kernels.conv3d import (BODIES, conv3d_same_plain, conv3d_same_tf32x3_plain,
+                                        flip_swap, weight_scratch, wgrad)
 
 Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -63,6 +72,21 @@ def conv3d_fused_stats_plain(x: torch.Tensor, w: torch.Tensor,
     return y, yf.sum(dim=(2, 3)), (yf * yf).sum(dim=(2, 3))
 
 
+def conv3d_fused_stats_tf32x3_plain(x: torch.Tensor, w: torch.Tensor,
+                                    in_a: Optional[torch.Tensor] = None,
+                                    in_b: Optional[torch.Tensor] = None,
+                                    slope: float = 0.01) -> Stats:
+    """The fp32 "tf32x3" body's algorithm in PyTorch, for the tests: the
+    prologue in fp32 (`prologue_plain`; the rounding to fp32 is the
+    identity), then `conv3d_same_tf32x3_plain` on its output, zero-padded
+    after the prologue, then the fp32 sums of y over (H, W). fp32 in and
+    out."""
+    if in_a is not None:
+        x = prologue_plain(x, in_a, in_b, slope)
+    y = conv3d_same_tf32x3_plain(x, w)
+    return y, y.sum(dim=(2, 3)), (y * y).sum(dim=(2, 3))
+
+
 def conv3d_fused_stats(x: torch.Tensor, w: torch.Tensor, in_a: Optional[torch.Tensor] = None,
                        in_b: Optional[torch.Tensor] = None, slope: float = 0.01) -> Stats:
     """x (B, D, H, W, C), w (3, 3, 3, C, Co), in_a / in_b (C,) fp32 or None ->
@@ -71,7 +95,9 @@ def conv3d_fused_stats(x: torch.Tensor, w: torch.Tensor, in_a: Optional[torch.Te
     _check(x, w, in_a, in_b)
     if x.device.type == "cpu":
         return conv3d_fused_stats_plain(x, w, in_a, in_b, slope)
-    out = _launch("sivae_conv3d_fused_stats", x, w, in_a, in_b, slope)
+    scratch = weight_scratch(x, w)
+    out = _launch("sivae_conv3d_fused_stats", x, w, in_a, in_b, slope,
+                  None if scratch is None else scratch.data_ptr())
     build.launches["conv3d_fused_stats"] += 1
     return out
 
@@ -92,10 +118,12 @@ def conv3d_fused_stats_earlier_body(x: torch.Tensor, w: torch.Tensor,
                                     in_a: Optional[torch.Tensor] = None,
                                     in_b: Optional[torch.Tensor] = None,
                                     slope: float = 0.01) -> Stats:
-    """`conv3d_fused_stats` on CUDA tensors through the bodies that preceded
-    the wgmma one ("mma" or "fma"), whatever the dispatch would choose: for
-    timing the two tensor-core bodies side by side and for the card tests.
-    No model path calls it and it counts no launch."""
+    """`conv3d_fused_stats` on CUDA tensors through the body that the
+    dispatch's choice superseded: "mma" on the operands the "wgmma" body
+    takes, "fma" on those the "tf32x3" body takes (whatever the dispatch
+    would choose, never one of those two): for timing the two bodies side
+    by side and for the card tests. No model path calls it and it counts no
+    launch."""
     _check(x, w, in_a, in_b)
     return _launch("sivae_conv3d_fused_stats_mma", x, w, in_a, in_b, slope)
 
@@ -121,14 +149,17 @@ def conv3d_fused_stats_wgmma_shape(x: torch.Tensor, co: int) -> int:
 
 def conv3d_fused_stats_body(x: torch.Tensor, w: torch.Tensor) -> str:
     """Which kernel body a CUDA `conv3d_fused_stats` call on x and w runs:
-    "wgmma", "mma" or "fma" (the same choice with and without the prologue)."""
+    "wgmma", "tf32x3", "mma" or "fma" (the same choice with and without the
+    prologue)."""
     used = build.library().sivae_conv3d_fused_stats_body(
         x.data_ptr(), w.data_ptr(), x.shape[-1], w.shape[-1], build.dtype_code(x))
     return BODIES[used]
 
 
 def _launch(entry: str, x: torch.Tensor, w: torch.Tensor, in_a: Optional[torch.Tensor],
-            in_b: Optional[torch.Tensor], slope: float, *more: int) -> Stats:
+            in_b: Optional[torch.Tensor], slope: float, *more) -> Stats:
+    """`entry` on x and w: its arguments up to the dtype, then `more` (the
+    scratch pointer, or the block shape), then the stream."""
     build.require_cuda(x, w)
     b, d, h, wd, c = x.shape
     co = w.shape[-1]

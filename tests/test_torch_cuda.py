@@ -27,6 +27,7 @@ from sivae_torch.kernels.conv3d import (WGMMA_SHAPES, conv3d_same, conv3d_same_b
 from sivae_torch.kernels.conv3d_fused import (conv3d_fused_stats, conv3d_fused_stats_body,
                                               conv3d_fused_stats_earlier_body,
                                               conv3d_fused_stats_plain,
+                                              conv3d_fused_stats_tf32x3_plain,
                                               conv3d_fused_stats_wgmma_blocks,
                                               conv3d_fused_stats_wgmma_shape, conv3d_stats)
 from sivae_torch.kernels.conv3d_small import (conv3d_from1, conv3d_from1_body,
@@ -83,7 +84,8 @@ def test_kernel_matches_plain_and_counts_one_launch(cuda_device, dtype, kern, pl
 # that no tile divides, M not a multiple of 64, B = 1 and 3, tiles that
 # straddle rows, planes and batch elements, Ci != Co, K of several 64-channel
 # chunks, a grid large enough for several rounds of blocks (36864 voxels x
-# 128 channels). The narrow body marches 16-wide patches along d: every
+# 128 channels); and the same walks in 32-channel chunks (Ci = 32, fc_600's
+# and spatial_1200_fullsize's 32 -> 64, and Ci = 96, three chunks). The narrow body marches 16-wide patches along d: every
 # pairing of the FC and spatial_150 forwards and input gradients at a grid no
 # patch divides (7 wide, 6 high), Co > 32 in two channel halves. The fp32
 # "tf32x3" body walks 128 or 256 consecutive voxels a block, as "wgmma": the
@@ -105,7 +107,12 @@ BODY_CASES = [
     ((3, 4, 6, 5, 256), 128, "wgmma", torch.bfloat16),      # the 256 -> 128 dgrad's channels
     ((2, 9, 11, 13, 128), 64, "wgmma", torch.bfloat16),
     ((1, 32, 36, 32, 64), 128, "wgmma", torch.bfloat16),    # several rounds of blocks
-    ((2, 5, 6, 7, 96), 64, "mma", torch.bfloat16),          # Ci = 32 * 3: the earlier body
+    ((1, 3, 5, 7, 32), 64, "wgmma", torch.bfloat16),        # 32-channel chunks: one ragged block
+    ((3, 5, 7, 9, 32), 64, "wgmma", torch.bfloat16),        # 63 voxels a plane
+    ((1, 2, 3, 200, 32), 64, "wgmma", torch.bfloat16),      # a row longer than a block
+    ((2, 9, 11, 13, 32), 128, "wgmma", torch.bfloat16),     # 128-wide blocks
+    ((1, 32, 36, 32, 32), 64, "wgmma", torch.bfloat16),     # several rounds of blocks
+    ((2, 5, 6, 7, 96), 64, "wgmma", torch.bfloat16),        # Ci = 32 * 3: three chunks
     ((2, 4, 5, 6, 64), 24, "narrow", torch.bfloat16),
     ((2, 5, 6, 7, 12), 12, "narrow", torch.bfloat16),
     ((2, 5, 6, 7, 12), 24, "narrow", torch.bfloat16),
@@ -185,20 +192,22 @@ def test_conv3d_same_bodies_match_plain(cuda_device, x_shape, co, body, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", WGMMA_SHAPES)
 def test_conv3d_same_wgmma_block_shapes_agree(cuda_device, shape):
-    """The wgmma body in each block shape (the measuring entry): another shape
-    regroups whole fp32 sums only, so the outputs are bit-identical to the
-    dispatch's, which picks one of them; a 128-wide shape refuses Co = 64."""
+    """The wgmma body in each block shape (the measuring entry), in 64- and in
+    32-channel chunks: another shape regroups whole fp32 sums only, so the
+    outputs are bit-identical to the dispatch's, which picks one of them; a
+    128-wide shape refuses Co = 64."""
     gen = torch.Generator(device=cuda_device).manual_seed(5)
-    x = torch.randn((3, 5, 7, 9, 128), generator=gen, device=cuda_device).bfloat16()
-    w = (0.1 * torch.randn((3, 3, 3, 128, 128), generator=gen, device=cuda_device)).bfloat16()
-    assert conv3d_same_wgmma_shape(x, 128) in WGMMA_SHAPES
-    before = dict(build.launches)
-    got = conv3d_same_wgmma_blocks(x, w, shape)
-    assert build.launches == before
-    assert torch.equal(got, conv3d_same(x, w))
-    if shape % 10 == 2:
-        with pytest.raises(RuntimeError):
-            conv3d_same_wgmma_blocks(x, w[..., :64].contiguous(), shape)
+    for ci in (128, 32):
+        x = torch.randn((3, 5, 7, 9, ci), generator=gen, device=cuda_device).bfloat16()
+        w = (0.1 * torch.randn((3, 3, 3, ci, 128), generator=gen, device=cuda_device)).bfloat16()
+        assert conv3d_same_wgmma_shape(x, 128) in WGMMA_SHAPES
+        before = dict(build.launches)
+        got = conv3d_same_wgmma_blocks(x, w, shape)
+        assert build.launches == before
+        assert torch.equal(got, conv3d_same(x, w))
+        if shape % 10 == 2:
+            with pytest.raises(RuntimeError):
+                conv3d_same_wgmma_blocks(x, w[..., :64].contiguous(), shape)
 
 
 # bf16 shapes of conv3d_to1: the mma body marches 16 x 16 patches along d, so
@@ -362,8 +371,9 @@ def test_tf32x3_bodies_propagate_inf_and_nan_as_fp32(cuda_device, kern, plain, x
     assert (got[fin] - want[fin]).abs().max().item() <= tol
 
 
-# x shape, Co: the tensor-core body in bf16 inside one plane (16 * 8 = 128
-# voxels a plane) and straddling planes (7 * 9 = 63), and the FMA body
+# x shape, Co: the tensor-core bodies (bf16 "wgmma", fp32 "tf32x3") inside
+# one plane (16 * 8 = 128 voxels a plane) and straddling planes (7 * 9 = 63),
+# and the FMA body
 FUSED_CASES = [((2, 3, 16, 8, 64), 64), ((2, 6, 7, 9, 64), 128), ((2, 6, 7, 9, 3), 5)]
 
 
@@ -440,6 +450,82 @@ def test_fused_stats_wgmma_body_matches_plain_and_the_earlier_body(cuda_device, 
         yf = out[0].float()
         for g, p in zip(out[1:], (yf.sum(dim=(2, 3)), (yf * yf).sum(dim=(2, 3)))):
             assert (g - p).abs().max().item() <= 1e-5 * max(1.0, p.abs().max().item())
+
+
+# x shape, Co of conv3d_fused_stats in fp32 that the "tf32x3" body takes: its
+# plane sums come from warp tiles whose 16 rows lie in one plane (shuffled
+# into a slot, summed in the block) or not (added value by value)
+FUSED_TF32X3_CASES = [
+    ((2, 3, 16, 8, 64), 64),      # 128 voxels a plane: every warp's rows in one plane
+    ((2, 6, 7, 9, 64), 128),      # 63 a plane: warps straddle planes; Co = 128, a ragged tile
+    ((2, 5, 3, 4, 32), 32),       # 12 a plane: fewer than a warp's 16 rows; 32-wide blocks
+    ((1, 300, 1, 1, 32), 64),     # 1 a plane: every row its own plane
+    ((2, 4, 6, 5, 64), 32),       # Ci = 64: two 32-channel chunks a (kd, kh); Co = 32
+    ((3, 5, 7, 9, 32), 64),       # B = 3, M = 945: not a multiple of a block
+    ((1, 32, 36, 32, 64), 64),    # 256-row blocks, several rounds over the SMs
+]
+
+
+def _prologue_operands(ci, gen, dev):
+    """in_a, in_b, slope, with a shift well off 0: padding before the
+    prologue would show."""
+    return (0.5 + torch.rand(ci, generator=gen, device=dev),
+            0.3 + 0.3 * torch.rand(ci, generator=gen, device=dev), 0.2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prologue", [False, True])
+@pytest.mark.parametrize("x_shape,co", FUSED_TF32X3_CASES)
+def test_fused_stats_tf32x3_body_matches_plain_and_the_earlier_body(cuda_device, prologue,
+                                                                    x_shape, co):
+    """The fp32 body against the plain version, its own algorithm in PyTorch
+    and the "fma" body it superseded on the same operands: y at the fp32
+    tolerance, the sums at 1e-3, and the sums exactly those of the y that
+    came out up to the order of fp32 additions."""
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    ci = x_shape[-1]
+    x = torch.randn(x_shape, generator=gen, device=cuda_device)
+    w = 0.1 * torch.randn((3, 3, 3, ci, co), generator=gen, device=cuda_device)
+    ab = _prologue_operands(ci, gen, cuda_device) if prologue else ()
+    assert conv3d_fused_stats_body(x, w) == "tf32x3"
+    before = dict(build.launches)
+    earlier = conv3d_fused_stats_earlier_body(x, w, *ab)
+    torch.cuda.synchronize()
+    assert build.launches == before  # the measuring entry counts nothing
+    got = conv3d_fused_stats(x, w, *ab)
+    torch.cuda.synchronize()
+    assert build.launches["conv3d_fused_stats"] == before["conv3d_fused_stats"] + 1
+    for want in (conv3d_fused_stats_plain(x, w, *ab), conv3d_fused_stats_tf32x3_plain(x, w, *ab)):
+        for out in (got, earlier):
+            for g, p, tol in zip(out, want, (TOL[torch.float32], 1e-3, 1e-3)):
+                assert g.shape == p.shape and g.dtype == p.dtype == torch.float32
+                assert (g - p).abs().max().item() <= tol * max(1.0, p.abs().max().item())
+    y = got[0]
+    for g, p in zip(got[1:], (y.sum(dim=(2, 3)), (y * y).sum(dim=(2, 3)))):
+        assert (g - p).abs().max().item() <= 1e-5 * max(1.0, p.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prologue", [False, True])
+def test_fused_stats_tf32x3_body_propagates_inf_and_nan(cuda_device, prologue):
+    """An inf and a NaN in the input (g keeps both: inf * a + b with a > 0):
+    y and both sums inf or NaN where the plain version's are, the other
+    values within the tolerances."""
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    x = torch.randn((2, 5, 6, 7, 64), generator=gen, device=cuda_device)
+    w = 0.1 * torch.randn((3, 3, 3, 64, 64), generator=gen, device=cuda_device)
+    x[0, 1, 2, 3, 0] = float("inf")
+    x[-1, -2, 1, 1, -1] = float("nan")
+    ab = _prologue_operands(64, gen, cuda_device) if prologue else ()
+    got, want = conv3d_fused_stats(x, w, *ab), conv3d_fused_stats_plain(x, w, *ab)
+    torch.cuda.synchronize()
+    for g, p, tol in zip(got, want, (TOL[torch.float32], 1e-3, 1e-3)):
+        assert torch.equal(torch.isnan(g), torch.isnan(p))
+        assert torch.equal(torch.isposinf(g), torch.isposinf(p))
+        assert torch.equal(torch.isneginf(g), torch.isneginf(p))
+        fin = torch.isfinite(p)
+        assert (g[fin] - p[fin]).abs().max().item() <= tol * max(1.0, p[fin].abs().max().item())
+    assert torch.isinf(want[0]).any() and torch.isnan(want[0]).any()
 
 
 @pytest.mark.gpu

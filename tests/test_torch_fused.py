@@ -1,14 +1,17 @@
 """sivae_torch fused conv + statistics (`kernels/conv3d_fused.py`): the plain
 PyTorch version against the Pallas original `conv3d_fused_stats` in
 interpret mode on the CPU, with and without the input prologue and with the
-Pallas side in one and in several H-blocks; the differentiable
+Pallas side in one and in several H-blocks; the fp32 "tf32x3" body's
+algorithm (`conv3d_fused_stats_tf32x3_plain`) against the same; the differentiable
 `conv3d_stats` against `jax.vjp` of its Pallas original with non-zero
 cotangents on all three outputs. The CUDA kernel itself is tested in
 test_torch_cuda.py.
 
 Tolerances: fp32 y atol 1e-4 (the two sum the same products in other
 orders), sums rtol 1e-5 of the largest sum (both add H*W fp32 values of that
-y); bf16 y within 0.02 * max(1, max|y|) (both sum in fp32 and round once, on
+y); the tf32x3 algorithm's y 1e-4 * max(1, max|y|) and sums 1e-3 of the
+largest sum, as the card's check (three TF32 products are fp32 to ~2e-7 of
+the largest output, not bit for bit); bf16 y within 0.02 * max(1, max|y|) (both sum in fp32 and round once, on
 sums that differ in the last fp32 bits)."""
 
 import functools
@@ -24,9 +27,10 @@ from sivae_tpu.kernels.conv3d_fused import conv3d_stats as jax_conv3d_stats
 from sivae_torch.kernels import build
 from sivae_torch.kernels.conv3d_fused import (conv3d_fused_stats,
                                               conv3d_fused_stats_earlier_body,
-                                              conv3d_fused_stats_plain, conv3d_stats, conv3d_v2,
-                                              prologue_plain)
-from sivae_torch.kernels.conv3d import conv3d_same_plain
+                                              conv3d_fused_stats_plain,
+                                              conv3d_fused_stats_tf32x3_plain, conv3d_stats,
+                                              conv3d_v2, prologue_plain)
+from sivae_torch.kernels.conv3d import conv3d_same_plain, conv3d_same_tf32x3_plain
 
 torch.set_num_threads(2)
 
@@ -44,6 +48,24 @@ def _inputs(seed, shape, ci, co):
             "b": (0.5 + 0.3 * rng.rand(ci)).astype(np.float32)}
 
 
+@functools.lru_cache(maxsize=None)
+def _pallas_ref(seed, shape, ci, co, prologue, h_block=None):
+    """fp32 Pallas `conv3d_fused_stats` (interpret mode) on `_inputs(seed,
+    shape, ci, co)`, run once per inputs: several tests hold their plain
+    versions to the same reference."""
+    a = _inputs(seed, shape, ci, co)
+    kw = dict(in_a=jnp.asarray(a["a"]), in_b=jnp.asarray(a["b"]), slope=0.2) if prologue else {}
+    out = jax_fused_stats(jnp.asarray(a["x"]), jnp.asarray(a["w"]), interpret=True,
+                          h_block=h_block, **kw)
+    return tuple(np.asarray(o, np.float32) for o in out)
+
+
+def _torch_args(a, prologue):
+    x, w = torch.from_numpy(a["x"]), torch.from_numpy(a["w"])
+    ab = (torch.from_numpy(a["a"]), torch.from_numpy(a["b"]), 0.2) if prologue else ()
+    return x, w, ab
+
+
 def _assert_sums(got, want):
     want = np.asarray(want, np.float32)
     np.testing.assert_allclose(got.numpy(), want, rtol=0,
@@ -54,19 +76,34 @@ def _assert_sums(got, want):
 @pytest.mark.parametrize("prologue", [False, True], ids=["no_prologue", "prologue"])
 @pytest.mark.parametrize("shape,ci,co", SHAPES, ids=["2x4x8x6-4to8", "1x3x4x5-3to5"])
 def test_plain_fused_stats_match_pallas_fp32(shape, ci, co, prologue, h_block):
-    a = _inputs(0, shape, ci, co)
-    kw_j = dict(in_a=jnp.asarray(a["a"]), in_b=jnp.asarray(a["b"]), slope=0.2) if prologue else {}
-    kw_t = dict(in_a=torch.from_numpy(a["a"]), in_b=torch.from_numpy(a["b"]),
-                slope=0.2) if prologue else {}
-    y_j, s1_j, s2_j = jax_fused_stats(jnp.asarray(a["x"]), jnp.asarray(a["w"]), interpret=True,
-                                      h_block=h_block, **kw_j)
-    y_t, s1_t, s2_t = conv3d_fused_stats_plain(torch.from_numpy(a["x"]), torch.from_numpy(a["w"]),
-                                               **kw_t)
+    y_j, s1_j, s2_j = _pallas_ref(0, shape, ci, co, prologue, h_block)
+    x, w, ab = _torch_args(_inputs(0, shape, ci, co), prologue)
+    y_t, s1_t, s2_t = conv3d_fused_stats_plain(x, w, *ab)
     assert y_t.shape == shape + (co,) and s1_t.shape == s2_t.shape == shape[:2] + (co,)
     assert s1_t.dtype == s2_t.dtype == torch.float32
-    np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), atol=1e-4)
+    np.testing.assert_allclose(y_t.numpy(), y_j, atol=1e-4)
     _assert_sums(s1_t, s1_j)
     _assert_sums(s2_t, s2_j)
+
+
+# the fp32 "tf32x3" body's channels: SHAPES, and 64 -> 64 (two 32-channel
+# chunks, K = 1728 as at the card's sites) on a grid of 63-voxel planes
+TF32X3_SHAPES = SHAPES + [((1, 3, 7, 9), 64, 64)]
+
+
+@pytest.mark.parametrize("prologue", [False, True], ids=["no_prologue", "prologue"])
+@pytest.mark.parametrize("shape,ci,co", TF32X3_SHAPES,
+                         ids=["2x4x8x6-4to8", "1x3x4x5-3to5", "1x3x7x9-64to64"])
+def test_tf32x3_fused_stats_plain_matches_pallas_fp32(shape, ci, co, prologue):
+    """The fp32 body's algorithm: the prologue, then the three-product TF32
+    conv on its zero-padded output, then fp32 sums of y."""
+    y_j, s1_j, s2_j = _pallas_ref(0, shape, ci, co, prologue)
+    x, w, ab = _torch_args(_inputs(0, shape, ci, co), prologue)
+    y_t, s1_t, s2_t = conv3d_fused_stats_tf32x3_plain(x, w, *ab)
+    assert y_t.dtype == s1_t.dtype == s2_t.dtype == torch.float32
+    assert y_t.shape == shape + (co,) and s1_t.shape == s2_t.shape == shape[:2] + (co,)
+    for got, want, tol in ((y_t, y_j, 1e-4), (s1_t, s1_j, 1e-3), (s2_t, s2_j, 1e-3)):
+        assert np.abs(got.numpy() - want).max() <= tol * max(1.0, np.abs(want).max())
 
 
 @pytest.mark.parametrize("prologue", [False, True], ids=["no_prologue", "prologue"])
@@ -110,6 +147,23 @@ def test_padding_is_zero_after_the_prologue():
     assert (wrong - y).abs().max() > 0.05                          # the border differs
     inner = (slice(None),) + (slice(1, -1),) * 3
     torch.testing.assert_close(wrong[inner], y[inner])             # the interior does not
+
+
+def test_tf32x3_padding_is_zero_after_the_prologue():
+    """The same for the fp32 body's algorithm: g, then the split conv on the
+    zero-padded g(x); padding put through g changes the border only."""
+    shape, ci, co = SHAPES[1]
+    a = _inputs(2, shape, ci, co)
+    x, w, (ia, ib, slope) = _torch_args(a, True)
+    y, s1, _ = conv3d_fused_stats_tf32x3_plain(x, w, ia, ib, slope)
+    gx = prologue_plain(x, ia, ib, slope)
+    assert torch.equal(y, conv3d_same_tf32x3_plain(gx, w))
+    assert torch.equal(s1, y.sum(dim=(2, 3)))
+    gp = prologue_plain(torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1, 1, 1)), ia, ib, slope)
+    wrong = conv3d_same_tf32x3_plain(gp, w)[:, 1:-1, 1:-1, 1:-1]
+    assert (wrong - y).abs().max() > 0.05
+    inner = (slice(None),) + (slice(1, -1),) * 3
+    torch.testing.assert_close(wrong[inner], y[inner], rtol=0, atol=1e-5)
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_nothing():

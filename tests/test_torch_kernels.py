@@ -65,7 +65,9 @@ def test_conv3d_plain_matches_pallas(shape, cin, cout):
     np.testing.assert_allclose(got, want, atol=1e-4)
 
 
-@pytest.mark.parametrize("shape,cin,cout", CONV_SHAPES + [((1, 4, 4, 4), 4, 4)])
+# and 32 -> 64, the shape the wgmma body takes in 32-channel chunks
+@pytest.mark.parametrize("shape,cin,cout", CONV_SHAPES + [((1, 4, 4, 4), 4, 4),
+                                                          ((1, 3, 4, 5), 32, 64)])
 def test_conv3d_plain_matches_pallas_bf16(shape, cin, cout):
     x, w = _inputs(2, shape, cin, cout)
     (xt, xj), (wt, wj) = _bf16(x), _bf16(w)

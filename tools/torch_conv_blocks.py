@@ -3,8 +3,9 @@ of its block shapes.
 
     python tools/torch_conv_blocks.py [--batches 2,8] [--reps 50] [--fused]
 
-For every 3x3x3 site of spatial_1200 (bf16, the sites of `chip_smoke.py`) and
-each batch, prints the ms of the four block shapes (128x64, 256x64, 128x128,
+For every 3x3x3 site of spatial_1200 (bf16, the sites of `chip_smoke.py`),
+and the two 32 -> 64 sites the body takes in 32-channel chunks (fc_600 at
+20x24x20, spatial_1200_fullsize at 80x96x80), and each batch, prints the ms of the four block shapes (128x64, 256x64, 128x128,
 256x128 outputs a block; "-" where Co has no 128-wide tile), of the shape the
 dispatch picks (`wgmma_block_shape` in `sivae_torch/csrc/conv3d_wgmma.cuh`,
 marked `*`), of the earlier mma.sync body and of the library call (cuDNN), so
@@ -39,6 +40,7 @@ SITES = [
     (64, 64, (80, 96, 80)), (64, 64, (40, 48, 40)), (64, 128, (40, 48, 40)),
     (128, 128, (20, 24, 20)), (128, 256, (20, 24, 20)), (256, 256, (10, 12, 10)),
     (128, 64, (40, 48, 40)), (256, 128, (20, 24, 20)),
+    (32, 64, (20, 24, 20)), (32, 64, (80, 96, 80)),
 ]
 NAMES = {11: "128x64", 21: "256x64", 12: "128x128", 22: "256x128"}
 FUSED_SITES = [(64, 64, (80, 96, 80))]

@@ -1,5 +1,5 @@
-"""Time the eval CLI's default path (fp32) and the fc_150 train step of one
-checkout of the port, so that two versions can be compared on one card.
+"""Time the eval CLI's default path (fp32) and the FC models' train steps of
+one checkout of the port, so that two versions can be compared on one card.
 
     python tools/torch_path_compare.py [--root DIR] [--windows 5]
 
@@ -10,10 +10,10 @@ there and prints, beside the card's name and power limit:
   0), batch 8, over 32 synthetic volumes (seed 7) as in `chip_smoke.py`
   phase 5; `encode_dataset` and `reconstruction_report`, median / min / max
   of the windows after a warm-up of each;
-- the z600 preset's train step (fc_150, bf16, batch 8, the first 8 of those
-  volumes, the preset's loss weights): median / min / max s/step of as many
-  steps after a warm-up step (its 1->12 stem and the C = 12 tails' input
-  gradients run `conv3d_from1`).
+- the z600 and z600-wide presets' train steps (fc_150 and fc_600, bf16,
+  batch 8, the first 8 of those volumes, the preset's loss weights): median
+  / min / max s/step of as many steps after a warm-up step (fc_600's 32->64
+  at 20x24x20 runs the wgmma body in 32-channel chunks).
 Needs a CUDA card and `nvcc`. To compare a parent commit with a change,
 unpack the parent with `git archive` into a directory that `.gitignore`
 lists and run parent, change, change, parent in one call.
@@ -90,26 +90,28 @@ def main() -> None:
         del model
         torch.cuda.empty_cache()
 
-    spec = cli_train.PRESETS["z600"]
-    fcfg = dataclasses.replace(get_model_config(spec["model"]), dtype=torch.bfloat16)
-    model = make_model(fcfg, device=dev, seed=0)
-    state = create_train_state(model, seed=0)
-    loss_cfg = SoftIntroLossConfig(beta_rec=spec["beta_rec"], beta_neg=spec["beta_neg"],
-                                   beta_kl=spec["beta_kl"])
-    step = make_soft_intro_train_step(model, loss_cfg, OptimConfig(), 1, fcfg.input_shape)
     real = vox[:batch].clone()
-    step(state, real)
-    times = []
-    for _ in range(args.windows):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+    for preset in ("z600", "z600-wide"):
+        spec = cli_train.PRESETS[preset]
+        fcfg = dataclasses.replace(get_model_config(spec["model"]), dtype=torch.bfloat16)
+        model = make_model(fcfg, device=dev, seed=0)
+        state = create_train_state(model, seed=0)
+        loss_cfg = SoftIntroLossConfig(beta_rec=spec["beta_rec"], beta_neg=spec["beta_neg"],
+                                       beta_kl=spec["beta_kl"])
+        step = make_soft_intro_train_step(model, loss_cfg, OptimConfig(), 1, fcfg.input_shape)
         step(state, real)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    med, lo, hi = _median(times)
-    print(f"[compare] {tag}: fc_150 bf16 step batch {batch}: median {med:.4f} s/step, "
-          f"min {lo:.4f}, max {hi:.4f}", flush=True)
-
+        times = []
+        for _ in range(args.windows):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(state, real)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        med, lo, hi = _median(times)
+        print(f"[compare] {tag}: {spec['model']} bf16 step batch {batch}: median {med:.4f} "
+              f"s/step, min {lo:.4f}, max {hi:.4f}", flush=True)
+        del model, state, step
+        torch.cuda.empty_cache()
 
 if __name__ == "__main__":
     main()
