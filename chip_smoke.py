@@ -62,14 +62,25 @@ failure exits non-zero and prints no result):
    channel count is a multiple of 4. Then encode and reconstruct throughput
    over the same 4 full batches, 5 windows each (median, min, max), peak
    memory, and a torch.profiler window over one batch through each entry
-   point (encode, reconstruction report): device time by kernel and the
-   idle share. Then one volume in fp32 on the card (every conv through the
-   kernels) against the same model and volume on the CPU (plain versions):
-   relative error of mu and of the reconstruction <= 1e-3. Then the same
-   fp32 eval path (counted, bodies, throughput, profiles, the CPU check) for
-   fc_150, the z600 preset's model (seed 0 weights, the same volumes): the
-   eval CLI's usage line `--model fc_150`, whose convs run the
-   "narrow_tf32x3" body and its C -> 1 tail the fp32 "tf32x3" one.
+   point (encode, reconstruction report) and through the reconstruction
+   with its metrics taken one volume at a time (the yardstick the batched
+   report replaced): device time by kernel, the idle share and the launches
+   of each. The report's batched metrics are held to the per-volume ones on
+   the same reconstructions on the card (rmse and psnr within 1e-5
+   relative, each SSIM within 1e-5 absolute, `batch_ssim_center_slice`
+   against the per-volume centre-slice SSIM), and the counted report's means
+   to the per-volume means. For the fp32 spatial_1200 model,
+   `encode_dataset` and `reconstruction_report` over the first batch on the
+   model put into training mode must give the eval-mode calls' results
+   within 1e-6 of the largest value, leave every buffer unchanged and the
+   model in training mode. Then one volume in fp32 on the card (every conv
+   through the kernels) against the same model and volume on the CPU (plain
+   versions): relative error of mu and of the reconstruction <= 1e-3. Then
+   the same fp32 eval path (counted, bodies, throughput, profiles, the
+   batched-report check, the CPU check) for fc_150, the z600 preset's model
+   (seed 0 weights, the same volumes): the eval CLI's usage line `--model
+   fc_150`, whose convs run the "narrow_tf32x3" body and its C -> 1 tail the
+   fp32 "tf32x3" one.
 6. The fused stage (the path of the fused conv + statistics kernel, which is
    on no model path): at the flagship site, batch 8, in bf16 and then in
    fp32, each with the counters at 0, one fused stage forward (prologue ->
@@ -111,7 +122,15 @@ failure exits non-zero and prints no result):
    overhead over steps x the median step time, checkpoint bytes and save
    time, one aug-z1200 epoch with its augmentation time per batch, the
    checkpoint sweep and `run_health` over the 2 checkpoints (not gated),
-   and a torch.profiler window over one epoch.
+   and a torch.profiler window over one epoch. Then the run-directory
+   tool's function (`sivae_torch.eval.run_dir.posthoc_health`, as
+   `tools/torch_posthoc_health.py` runs it) over the phase's run directory
+   and its 8 validation volumes, counted: its rows must equal the
+   in-process sweep within 1e-6, its launches 2 checkpoints x one
+   validation batch x the reconstruct counts derived from the model, and
+   sweep.json and health.json must exist; matplotlib does not import here,
+   so it skips the panels with one line. And the CUDA generator state that
+   `tools/torch_from_orbax.py` writes must equal a seeded CUDA generator's.
 
 9. The other model families and trainers (phase `families`), bf16 at
    80x96x80, batch 8, the first 8 volumes of phase 5: the z600 and
@@ -158,6 +177,7 @@ import math
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -652,6 +672,7 @@ def eval_path(dev, model, vox, labels, vid, tid, tag: str) -> dict:
         f"peak memory {peak_gib:.2f} GiB; bodies {json.dumps(bodies)}")
     _require_tensor_core_bodies(f"the {tag} eval path", bodies)
     log(f"[path] {tag} report {json.dumps(report)}")
+    check_batched_report(model, vox, report, tag, batch)
 
     # throughput: REPEATS windows of each over the same full batches (the
     # host reads the latents / the report at the end of each window)
@@ -672,9 +693,122 @@ def eval_path(dev, model, vox, labels, vid, tid, tag: str) -> dict:
     x8 = vox[:batch]
     profile_window(f"{tag} encode of {batch} volumes",
                    lambda: encode_dataset(model, x8, batch_size=batch))
-    profile_window(f"{tag} reconstruction report of {batch} volumes",
-                   lambda: reconstruction_report(model, x8, batch_size=batch))
+    rep = profile_window(f"{tag} reconstruction report of {batch} volumes",
+                         lambda: reconstruction_report(model, x8, batch_size=batch))
+    yard = profile_window(f"{tag} reconstruction with per-volume metrics (the yardstick) of "
+                          f"{batch} volumes",
+                          lambda: per_volume_report(model, x8, batch).tolist())
+    if rep is not None and yard is not None:
+        log(f"[path] {tag} report of {batch} volumes: {rep['launches']} launches, idle share "
+            f"{rep['idle']:.3f}; with per-volume metrics {yard['launches']} launches, idle share "
+            f"{yard['idle']:.3f}")
     return {k: enc_counts[k] + rec_counts[k] for k in enc_counts}
+
+
+# batched metrics against the per-volume ones: rmse and psnr relative, SSIM
+# absolute (the same fp32 arithmetic; only the final means' order differs)
+TOL_REPORT = 1e-5
+
+
+def per_volume_metrics(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """(B, 4): RMSE, PSNR, 3D SSIM and centre-slice SSIM of each volume of
+    the NCDHW pair, one volume at a time: the yardstick the batched report is
+    held to."""
+    from sivae_torch.ops.metrics import psnr, rmse, ssim
+
+    rows = []
+    for j in range(x.shape[0]):
+        a, b = x[j, 0], y[j, 0]
+        mid = a.shape[0] // 2
+        rows.append(torch.stack([rmse(a, b), psnr(a, b), ssim(a, b), ssim(a[mid], b[mid])]))
+    return torch.stack(rows)
+
+
+def per_volume_report(model, vox, batch: int) -> torch.Tensor:
+    """Reconstruct `vox` (whole batches) and take the metrics one volume at
+    a time: (N, 4) rows of `per_volume_metrics`."""
+    from sivae_torch.eval.recon_quality import reconstruct
+
+    return torch.cat([per_volume_metrics(vox[i:i + batch],
+                                         reconstruct(model, vox[i:i + batch]).float())
+                      for i in range(0, vox.shape[0], batch)])
+
+
+def check_batched_report(model, vox, report: dict, tag: str, batch: int) -> None:
+    """The batched metrics of each batch's reconstructions against the
+    per-volume ones on the same reconstructions, `batch_ssim_center_slice`
+    against the per-volume centre-slice SSIM, and the counted report's
+    means against the per-volume means, within `TOL_REPORT`."""
+    from sivae_torch.eval.recon_quality import reconstruct
+    from sivae_torch.ops.metrics import (batch_psnr, batch_rmse, batch_ssim,
+                                         batch_ssim_center_slice)
+
+    keys = ("rmse", "psnr", "ssim3d", "ssim_center_slice")
+    err = dict.fromkeys(keys + ("batch_ssim_center_slice",), 0.0)
+    per_all = []
+    with torch.no_grad():
+        for i in range(0, vox.shape[0], batch):
+            x = vox[i:i + batch]
+            y = reconstruct(model, x).float()
+            per = per_volume_metrics(x, y)
+            a, b = x[:, 0], y[:, 0]
+            mid = a.shape[1] // 2
+            got = torch.stack([batch_rmse(a, b), batch_psnr(a, b), batch_ssim(a, b),
+                               batch_ssim(a[:, mid], b[:, mid])], dim=1)
+            for c, k in enumerate(keys):
+                d = (got[:, c] - per[:, c]).abs()
+                if c < 2:
+                    d = d / per[:, c].abs()
+                err[k] = max(err[k], d.max().item())
+            slices = torch.from_numpy(batch_ssim_center_slice(x, y))
+            err["batch_ssim_center_slice"] = max(err["batch_ssim_center_slice"],
+                                                 (slices - per[:, 3].cpu()).abs().max().item())
+            per_all.append(per)
+    means = torch.cat(per_all).mean(dim=0).tolist()
+    mean_err = {k: abs(report[k] - m) / (abs(m) if c < 2 else 1.0)
+                for c, (k, m) in enumerate(zip(keys, means))}
+    log(f"[path] {tag} batched metrics vs per-volume on the same reconstructions (rmse, psnr "
+        f"relative; SSIM absolute; limit {TOL_REPORT}): per volume "
+        f"{json.dumps({k: float(f'{v:.3e}') for k, v in err.items()})}; the report's means "
+        f"{json.dumps({k: float(f'{v:.3e}') for k, v in mean_err.items()})}")
+    if max(max(err.values()), max(mean_err.values())) > TOL_REPORT:
+        raise SystemExit(f"chip_smoke: the {tag} batched report disagrees with the per-volume "
+                         f"metrics")
+
+
+def eval_mode_check(model, x, tag: str) -> None:
+    """`encode_dataset` and `reconstruction_report` on a model in training
+    mode give the eval-mode calls' results (within 1e-6 of the largest
+    value; bit for bit expected), leave every buffer unchanged and the model
+    in training mode."""
+    import numpy as np
+
+    from sivae_torch.eval.latent_probe import encode_dataset
+    from sivae_torch.eval.recon_quality import reconstruction_report
+
+    batch = x.shape[0]
+    z_eval = encode_dataset(model, x, batch_size=batch)
+    rep_eval = reconstruction_report(model, x, batch_size=batch)
+    # two eval-mode calls: what the card's own run-to-run variation is
+    again = (np.array_equal(encode_dataset(model, x, batch_size=batch), z_eval)
+             and reconstruction_report(model, x, batch_size=batch) == rep_eval)
+    model.train()
+    before = {k: v.clone() for k, v in model.named_buffers()}
+    z = encode_dataset(model, x, batch_size=batch)
+    rep = reconstruction_report(model, x, batch_size=batch)
+    training = model.training
+    same_buffers = all(torch.equal(v, before[k]) for k, v in model.named_buffers())
+    model.eval()
+    z_err = float(np.abs(z - z_eval).max() / max(np.abs(z_eval).max(), 1e-30))
+    rep_scale = max(abs(v) for v in rep_eval.values())
+    rep_err = max(abs(rep[k] - rep_eval[k]) for k in rep_eval) / rep_scale
+    log(f"[path] {tag} on a model in training mode: encode {z_err:.3e} and report {rep_err:.3e} "
+        f"of the largest eval-mode value (limit 1e-6; bit for bit: "
+        f"{np.array_equal(z, z_eval) and rep == rep_eval}; two eval-mode calls bit for bit: "
+        f"{again}), {len(before)} buffers unchanged: {same_buffers}, still in training mode: "
+        f"{training}")
+    if not (z_err <= 1e-6 and rep_err <= 1e-6 and same_buffers and training):
+        raise SystemExit(f"chip_smoke: the {tag} eval functions do not run in eval mode")
 
 
 def phase_path(dev, src, vox) -> tuple:
@@ -702,6 +836,8 @@ def phase_path(dev, src, vox) -> tuple:
     for name, tag in (("spatial_1200", "fp32"), ("fc_150", "fc_150 fp32")):
         model32 = make_model(get_model_config(name), device=dev, seed=0)
         counts32[tag] = eval_path(dev, model32, vox, src.labels, vid, tid, tag)
+        if name == "spatial_1200":
+            eval_mode_check(model32, vox[:8], tag)
         card_vs_cpu_eval(model32, vox[:1], tag)
         del model32
         torch.cuda.empty_cache()
@@ -731,10 +867,12 @@ def card_vs_cpu_eval(model32, x1, tag: str) -> None:
         raise SystemExit(f"chip_smoke: the {tag} kernel path disagrees with the plain path")
 
 
-def profile_window(what: str, fn, top: int = 10) -> None:
+def profile_window(what: str, fn, top: int = 10) -> Optional[dict]:
     """Device time by kernel (torch.profiler) over one call of `fn`, the
     device's idle share of the window (the profiler's own overhead is in
-    the window), the launch count, and every library convolution kernel."""
+    the window), the launch count, and every library convolution kernel.
+    Returns {"launches", "idle"}, or None where no device time was
+    recorded."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -746,11 +884,12 @@ def profile_window(what: str, fn, top: int = 10) -> None:
                torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     if not kernels:
         log(f"[profile] {what}: no device time recorded: not measured")
-        return
+        return None
     busy_us = sum(e.self_device_time_total for e in kernels)
+    launches = sum(e.count for e in kernels)
     log(f"[profile] {what}: wall {wall_us / 1e3:.3f} ms, device busy "
         f"{busy_us / 1e3:.3f} ms, idle share {1 - busy_us / wall_us:.3f}, "
-        f"{sum(e.count for e in kernels)} kernel launches")
+        f"{launches} kernel launches")
     ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
     for e in ranked[:top]:
         log(f"[profile] {e.self_device_time_total / 1e3:9.3f} ms {e.count:4d}x "
@@ -763,6 +902,7 @@ def profile_window(what: str, fn, top: int = 10) -> None:
         elif any(m in e.key.lower() for m in marks):
             log(f"[profile] (library conv) {e.self_device_time_total / 1e3:9.3f} ms "
                 f"{e.count:4d}x  {e.key[:110]}")
+    return {"launches": launches, "idle": 1 - busy_us / wall_us}
 
 
 # ---------------------------------------------------------------------------
@@ -1227,6 +1367,7 @@ def phase_trainer(dev) -> dict:
                               ckpt_dir=trainer.ckpt.directory, batch_size=8)
     log(f"[trainer] sweep {json.dumps(sweep)}")
     log(f"[trainer] run_health {json.dumps(run_health(sweep))}")
+    run_dir_tool(dev, run_dir, val_src, sweep, trainer.model_cfg)
     del trainer, train, val, vox, val_vox
     torch.cuda.empty_cache()
 
@@ -1251,6 +1392,55 @@ def phase_trainer(dev) -> dict:
     tmp.cleanup()
     build.reset_launches()
     return counts
+
+
+def run_dir_tool(dev, run_dir: str, val_src, sweep: list, model_cfg) -> None:
+    """The run-directory tool's function (`tools/torch_posthoc_health.py`)
+    over the phase's own run directory and validation volumes, counted: the
+    model rebuilt from args.json, its rows equal to the in-process sweep
+    within 1e-6, its launches 2 checkpoints x one validation batch x the
+    reconstruct counts derived from the model, sweep.json and health.json
+    written; matplotlib does not import here, so it skips the panels and
+    says so. Also: the CUDA generator state the orbax converter writes is a
+    seeded CUDA generator's."""
+    import os
+
+    from sivae_torch.eval.run_dir import posthoc_health
+    from sivae_torch.kernels import build
+    from sivae_torch.models.registry import make_model
+    from sivae_torch.utils.checkpoint import seeded_generator_state
+
+    for name in ("sweep.json", "health.json"):
+        if os.path.exists(os.path.join(run_dir, name)):
+            os.remove(os.path.join(run_dir, name))
+    build.reset_launches()
+    t0 = time.perf_counter()
+    rows, health = posthoc_health(run_dir, val_src, dev, panels=True)
+    torch.cuda.synchronize()
+    tool_s = time.perf_counter() - t0
+    counts = dict(build.launches)
+    model = make_model(model_cfg, device=dev)
+    e, d = conv_sites(model.encoder), conv_sites(model.decoder)
+    n_batches = -(-len(val_src) // 8)
+    want = {k: 2 * n_batches * (e[k] + d[k]) for k in e}
+    err = max(abs(r[k] - w[k]) / max(1.0, abs(w[k]))
+              for r, w in zip(rows, sweep) for k in w if k != "checkpoint")
+    same_tags = [r["checkpoint"] for r in rows] == [w["checkpoint"] for w in sweep]
+    files = all(os.path.exists(os.path.join(run_dir, n)) for n in ("sweep.json", "health.json"))
+    log(f"[trainer] run-directory tool (posthoc_health) {tool_s:.2f} s: {len(rows)} rows vs the "
+        f"in-process sweep max rel {err:.3e} (limit 1e-6), checkpoints {same_tags}; launches "
+        f"{counts} (expected {want}); sweep.json + health.json {files}; healthy "
+        f"{health['healthy']}")
+    if not (err <= 1e-6 and same_tags and counts == want and files):
+        raise SystemExit("chip_smoke: the run-directory tool disagrees with the in-process sweep")
+    gen_same = all(torch.equal(seeded_generator_state("cuda", s).cpu(),
+                               torch.Generator(device=dev).manual_seed(s).get_state().cpu())
+                   for s in (0, 77, 2**40 + 3))
+    log(f"[trainer] the converter's CUDA generator state equals a seeded CUDA generator's: "
+        f"{gen_same}")
+    if not gen_same:
+        raise SystemExit("chip_smoke: seeded_generator_state('cuda') differs from the card's")
+    build.reset_launches()
 
 
 # ---------------------------------------------------------------------------

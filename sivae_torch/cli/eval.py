@@ -1,4 +1,5 @@
-"""Evaluation CLI of the port: latent AUC, CBIR retrieval, reconstruction.
+"""Evaluation CLI of the port: latent AUC, CBIR retrieval, reconstruction,
+latent maps.
 
 Port of `cli/eval.py`. Encodes the volumes in batches on the GPU, then
 reports (same JSON keys as the JAX CLI):
@@ -7,12 +8,16 @@ reports (same JSON keys as the JAX CLI):
 - cosine-kNN retrieval precision@k (`retrieval_p_at_k`)
 - reconstruction `rmse`, `psnr`, `ssim3d`, `ssim_center_slice`, `n` over the
   validation split
+- with `--embed tsne|umap` (or `--tsne`), a PCA -> t-SNE / UMAP map of the
+  CN and AD latents in `--embed-dim` 2 or 3 dimensions (`embed_points`,
+  `tsne_points`, `embed_method`: the method that ran; umap falls back to
+  t-SNE where it does not import)
 
 Usage:
   python -m sivae_torch.cli.eval --model spatial_1200 --synthetic 64 [--bf16]
   python -m sivae_torch.cli.eval --model spatial_1200 --synthetic 64 --ckpt epoch819.pth
   python -m sivae_torch.cli.eval --model spatial_1200 --ckpt runs/z1200/ckpt \
-      --data-root /data/radiology_datas
+      --data-root /data/radiology_datas --embed tsne --embed-dim 3 --out report.json
   python -m sivae_torch.cli.eval --model tiny_spatial --synthetic 12 --device cpu
   python -m sivae_torch.cli.eval --model fc_150 --ckpt runs/z600/ckpt --synthetic 64
 
@@ -21,11 +26,15 @@ its z_ch-vector, a spatial one its flattened map).
 
 Runs on CUDA unless `--device cpu` is given, and fails without CUDA
 otherwise. Weights come from `--ckpt`: a reference `.pth`, a port checkpoint
-file (`<run>/ckpt/<epoch>.pth`) or a port run's `ckpt/` directory (its
-latest epoch); without it, from the random init of seed 0. Volumes are N
-synthetic ones (`--synthetic N`, seed 7) or the catalog under `--data-root`.
-Reading the JAX package's orbax checkpoints and the latent embedding come
-later.
+file (`<run>/ckpt/<epoch>.pth`) or a port checkpoint directory (its latest
+epoch), such as a run's `ckpt/` or what `tools/torch_from_orbax.py` makes
+of the JAX package's orbax checkpoints; without it, from the random init of
+seed 0. Volumes are N synthetic ones (`--synthetic N`, seed 7) or the
+catalog under `--data-root`. The split and the AUC need scikit-learn, and
+so does the latent map. With `--out`, the report is written there and the
+figures into `<out>_panels/`: `recon.jpg` (the first validation batch,
+originals over reconstructions) and `latent_<method>_<dim>d.png`; where
+matplotlib does not import they are skipped with one line saying so.
 """
 
 from __future__ import annotations
@@ -51,10 +60,23 @@ def main(argv: Optional[List[str]] = None) -> dict:
                     help="evaluate N synthetic volumes (seed 7) instead of the dataset")
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--k", type=int, default=10)
-    ap.add_argument("--out", default=None, help="write the JSON report here")
+    ap.add_argument("--out", default=None,
+                    help="write the JSON report here, and the figures into <out>_panels/")
+    ap.add_argument("--tsne", action="store_true", help="the same as --embed tsne")
+    ap.add_argument("--embed", choices=["tsne", "umap"], default=None,
+                    help="latent embedding scatter (logistic1 cells 17-24)")
+    ap.add_argument("--embed-dim", type=int, choices=[2, 3], default=2)
     ap.add_argument("--bf16", action="store_true", default=False)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
+    if args.tsne and not args.embed:
+        args.embed = "tsne"
+    if args.embed:
+        try:
+            import sklearn  # noqa: F401
+        except ImportError as e:
+            ap.exit(2, f"--embed {args.embed} needs scikit-learn (PCA and t-SNE), which does "
+                       f"not import here: {e}\n")
 
     from sivae_torch.data.pipeline import BrainDataSource, grouped_split
     from sivae_torch.data.preprocess import preprocess_batch
@@ -69,16 +91,14 @@ def main(argv: Optional[List[str]] = None) -> dict:
     cfg = get_model_config(args.model)
     if args.bf16:
         cfg = dataclasses.replace(cfg, dtype=torch.bfloat16)
-    ckpt = args.ckpt
-    if ckpt and os.path.isdir(ckpt):
-        from sivae_torch.utils.checkpoint import CheckpointManager
+    ckpt = None
+    if args.ckpt:
+        from sivae_torch.utils.checkpoint import checkpoint_file
 
-        mgr = CheckpointManager(ckpt)
-        if mgr.latest_step() is None:
-            raise SystemExit(f"--ckpt {ckpt}: no port checkpoint (<epoch>.pth) there; reading "
-                             "the JAX package's orbax checkpoints is not ported yet "
-                             "(ROADMAP A.6)")
-        ckpt = mgr.path(mgr.latest_step())
+        try:
+            ckpt = checkpoint_file(args.ckpt)
+        except ValueError as e:
+            raise SystemExit(f"--ckpt {e}")
     model = make_model(cfg, device=dev)
     if ckpt:
         from sivae_torch.utils.jax_import import load_reference_pth
@@ -109,8 +129,32 @@ def main(argv: Optional[List[str]] = None) -> dict:
         report["train_auc"], report["val_auc"] = logistic_auc(z[tb], labels[tb], z[vb], labels[vb])
     report["retrieval_p_at_k"] = retrieval_precision_at_k(
         z[vid], labels[vid], z[tid], labels[tid], k=args.k, device=dev)
+    panels = args.out + "_panels" if args.out else None
+    if panels:
+        from sivae_torch.utils.plots import matplotlib_missing
+
+        why = matplotlib_missing()
+        if why is not None:
+            print(f"[plots] {panels}/ skipped: matplotlib does not import ({why}); the "
+                  f"report is written", flush=True)
+            panels = None
     report.update(reconstruction_report(
-        model, vox[torch.as_tensor(vid, device=dev)], batch_size=min(8, args.batch)))
+        model, vox[torch.as_tensor(vid, device=dev)], batch_size=min(8, args.batch),
+        panel_path=os.path.join(panels, "recon.jpg") if panels else None))
+    if args.embed:
+        from sivae_torch.eval.latent_probe import latent_embedding, save_embedding_scatter
+
+        emb, used = latent_embedding(z[binary], method=args.embed,
+                                     n_components=args.embed_dim, return_method=True)
+        report["embed_points"] = report["tsne_points"] = int(emb.shape[0])
+        # the method that ran: umap falls back to t-SNE where it does not import
+        report["embed_method"] = used
+        if used != args.embed:
+            print(f"[warn] {args.embed} unavailable; used {used} instead")
+        if panels:
+            save_embedding_scatter(emb, labels[binary],
+                                   os.path.join(panels, f"latent_{used}_{args.embed_dim}d.png"),
+                                   title=f"{used} {args.embed_dim}D (CN vs AD)")
 
     print(json.dumps(report, indent=2))
     if args.out:

@@ -125,23 +125,12 @@ def build_pipelines(args, train_src, val_src, augment_spec=None):
 
 def apply_health_gate(cfg, val_source, run_dir, batch, device):
     """Post-training health gate (VERDICT r4 next-#5): sweep the run's
-    checkpoints over the val split and apply the frozen r4 criterion. Exits 1
-    if unhealthy, so a training job's exit code certifies the run."""
-    import torch
+    checkpoints over the val split and apply the frozen r4 criterion
+    (`eval.run_dir.health_gate`, which writes sweep.json and health.json).
+    Exits 1 if unhealthy, so a training job's exit code certifies the run."""
+    from sivae_torch.eval.run_dir import health_gate
 
-    from sivae_torch.data.preprocess import preprocess_batch
-    from sivae_torch.eval.sweep import run_health, sweep_checkpoints
-    from sivae_torch.models.registry import make_model
-
-    vox = preprocess_batch(torch.from_numpy(val_source.voxels).to(device))
-    sweep = sweep_checkpoints(make_model(cfg, device=device), vox,
-                              ckpt_dir=os.path.join(run_dir, "ckpt"), batch_size=batch)
-    with open(os.path.join(run_dir, "sweep.json"), "w") as f:
-        json.dump(sweep, f, indent=2)
-    health = run_health(sweep)  # frozen r4 thresholds (the defaults)
-    with open(os.path.join(run_dir, "health.json"), "w") as f:
-        json.dump(health, f, indent=2)
-    print("health gate:", json.dumps(health))
+    _, health = health_gate(cfg, val_source, run_dir, batch, device)
     if not health["healthy"]:
         sys.exit(1)
 
@@ -193,7 +182,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     help="checkpoint cadence in epochs (default: each trainer's reference "
                          "cadence: every epoch for soft-intro, my_trainer.py:476-480; every "
                          "10 for vae / cae, my_trainer.py:628)")
-    ap.add_argument("--pretrained", default=None, help="reference torch .pth for a warm start")
+    ap.add_argument("--pretrained", default=None,
+                    help="warm start from a reference .pth, a port checkpoint file or a port "
+                         "checkpoint directory (its latest step)")
     ap.add_argument("--health-gate", action="store_true",
                     help="after training, sweep the run's checkpoints on the val split "
                          "and apply the FROZEN r4 long-run health criterion "
@@ -205,9 +196,13 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     if args.health_gate and PRESETS[args.preset]["trainer"] in ("vae", "cae"):
         ap.error("--health-gate applies to the soft-intro trainers only "
                  "(the criterion is calibrated on adversarial drift)")
-    if args.pretrained and not args.pretrained.endswith(".pth"):
-        ap.exit(2, f"--pretrained {args.pretrained!r}: only reference .pth files; reading "
-                   f"the JAX package's orbax checkpoints is not ported yet (ROADMAP A.6)\n")
+    if args.pretrained:
+        from sivae_torch.utils.checkpoint import checkpoint_file
+
+        try:
+            args.pretrained = checkpoint_file(args.pretrained)
+        except ValueError as e:
+            ap.exit(2, f"--pretrained {e}\n")
     from sivae_torch.utils.device import resolve_device
 
     dev = resolve_device(args.device)

@@ -5,9 +5,9 @@ Port of `sivae_tpu/eval/sweep.py:19-156` (testshow.ipynb cells 18-22: the
 reference loads each epoch's .pth and renders panels to eyeball
 convergence). The sweep walks the port's checkpoint directory
 (`utils/checkpoint.py`) and / or reference .pth files and returns each
-one's RMSE / PSNR / SSIM over the given volumes; `run_health` applies the
-frozen r4 criterion to the rows. The JAX sweep's optional panels are not
-ported.
+one's RMSE / PSNR / SSIM over the given volumes, optionally writing each
+one's original / reconstruction panel; `run_health` applies the frozen r4
+criterion to the rows.
 """
 
 from __future__ import annotations
@@ -26,12 +26,16 @@ def sweep_checkpoints(
     ckpt_dir: Optional[str] = None,
     torch_paths: Sequence[str] = (),
     batch_size: int = 8,
+    panel_dir: Optional[str] = None,
 ) -> List[Dict[str, float]]:
     """Evaluate every checkpoint, oldest first, then every .pth in order;
     returns [{'rmse', 'psnr', 'ssim3d', 'ssim_center_slice', 'n',
     'checkpoint'}]. Each checkpoint's weights are loaded into `model` (its
-    own weights are overwritten), which is left with the last one.
-    `voxels` (N, 1, D, H, W) preprocessed."""
+    own weights are overwritten), which is left with the last one; the
+    reports run in eval mode and leave the model's mode as it was.
+    `voxels` (N, 1, D, H, W) preprocessed. With `panel_dir`, each
+    checkpoint's first-batch panel is written to `recon_<tag>.jpg` there
+    (needs matplotlib)."""
     paths = []
     if ckpt_dir:
         mgr = CheckpointManager(ckpt_dir)
@@ -42,7 +46,8 @@ def sweep_checkpoints(
         # a port checkpoint keeps the model under "model", in the
         # reference .pth layout, which load_reference_pth reads
         load_reference_pth(model, path)
-        rep = reconstruction_report(model, voxels, batch_size=batch_size)
+        panel = os.path.join(panel_dir, f"recon_{tag}.jpg") if panel_dir else None
+        rep = reconstruction_report(model, voxels, batch_size=batch_size, panel_path=panel)
         rep["checkpoint"] = tag
         results.append(rep)
     return results

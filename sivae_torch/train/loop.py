@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from sivae_torch.config import OptimConfig, SoftIntroLossConfig, TrainConfig
-from sivae_torch.eval.recon_quality import reconstruct
+from sivae_torch.eval.recon_quality import eval_mode, reconstruct
 from sivae_torch.models.resnet_vae import SoftIntroVAE, SpatialDecoder, SpatialEncoder
 from sivae_torch.train.state import create_train_state
 from sivae_torch.train.step import (make_cae_train_step, make_classifier_eval_step,
@@ -146,9 +146,7 @@ class SoftIntroTrainer:
         reference's in-training val panels (my_trainer.py:455-463), a val
         original / recon panel when a val pipeline is given. Eval mode; the
         model's mode is put back afterwards."""
-        was_training = self.model.training
-        self.model.eval()
-        try:
+        with eval_mode(self.model):
             vox, _ = pipeline.first_batch()
             val_eps = self.train_cfg.val_eps
             img_dir = os.path.join(self.run_dir, "imgs")
@@ -162,8 +160,6 @@ class SoftIntroTrainer:
                 save_recon_panel(
                     vvox, reconstruct(self.model, vvox, val_eps),
                     os.path.join(self.run_dir, "val_imgs", f"val_rec_epoch{epoch}.jpg"))
-        finally:
-            self.model.train(was_training)
 
     def fit(self, train_pipeline, val_pipeline=None, epochs: Optional[int] = None,
             verbose: bool = True) -> Dict[str, List[float]]:

@@ -15,16 +15,50 @@ with orbax; here each step is one `torch.save` file, `<dir>/<step>.pth`:
 
 Each write goes to a temporary file in the same directory, then
 `os.replace`s it into place, so a run killed mid-write leaves the previous
-checkpoints whole. Reading the JAX package's orbax checkpoints needs JAX and
-is not done here.
+checkpoints whole. Reading the JAX package's orbax checkpoints needs JAX:
+`tools/torch_from_orbax.py` converts them into this layout.
 """
 
 from __future__ import annotations
 
 import os
+import struct
 from typing import List, Optional
 
 import torch
+
+ORBAX_HINT = ("the JAX package's orbax checkpoints convert into port checkpoints with "
+              "`python tools/torch_from_orbax.py <ckpt_dir> <out_dir>` (needs JAX)")
+
+
+def _steps(directory: str) -> List[int]:
+    return sorted(int(n[:-4]) for n in os.listdir(directory)
+                  if n.endswith(".pth") and n[:-4].isdigit())
+
+
+def checkpoint_file(path: str) -> str:
+    """A checkpoint argument as one file: a `.pth` file (a reference
+    state_dict or a port checkpoint) as it is, a port checkpoint directory as
+    its latest step. Anything else (an orbax directory, say) raises
+    ValueError naming the converter."""
+    if path.endswith(".pth") and not os.path.isdir(path):
+        return path
+    steps = _steps(path) if os.path.isdir(path) else []
+    if not steps:
+        raise ValueError(f"{path}: neither a .pth file nor a directory of port checkpoints "
+                         f"(<step>.pth); {ORBAX_HINT}")
+    return os.path.join(path, f"{steps[-1]}.pth")
+
+
+def seeded_generator_state(device_type: str, seed: int) -> torch.Tensor:
+    """The state of a new generator of `device_type` seeded with `seed`,
+    made without that device. A CUDA generator's state is its seed and its
+    Philox offset (0 after seeding), 8 bytes each, little-endian."""
+    if device_type == "cuda":
+        return torch.frombuffer(bytearray(struct.pack("<Qq", seed, 0)), dtype=torch.uint8)
+    if device_type == "cpu":
+        return torch.Generator().manual_seed(seed).get_state()
+    raise ValueError(f"no generator state for device type {device_type!r}")
 
 
 class CheckpointManager:
@@ -43,8 +77,7 @@ class CheckpointManager:
         return os.path.join(self.directory, f"{step}.pth")
 
     def all_steps(self) -> List[int]:
-        return sorted(int(n[:-4]) for n in os.listdir(self.directory)
-                      if n.endswith(".pth") and n[:-4].isdigit())
+        return _steps(self.directory)
 
     def latest_step(self) -> Optional[int]:
         steps = self.all_steps()

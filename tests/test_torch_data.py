@@ -1,6 +1,7 @@
 """sivae_torch data layer against the JAX package on the same inputs: the
-catalog walk, the prefetching pipeline (order, batches, drop-last,
-augmentation seeding, thread teardown) and the on-device augmentation.
+catalog walk, the dict-sample `BrainData` view, the prefetching pipeline
+(order, batches, drop-last, augmentation seeding, thread teardown) and the
+on-device augmentation.
 
 Tolerances: batches after preprocessing 1e-6 (both normalise in fp32; the
 port takes the standard deviation in fp64 and rounds it once, JAX sums in
@@ -22,11 +23,14 @@ import torch
 from sivae_tpu.data.augment import _affine_resample as jax_affine_resample
 from sivae_tpu.data.augment import _rotation_matrix as jax_rotation_matrix
 from sivae_tpu.data.catalog import load_data as jax_load_data
+from sivae_tpu.data.dict_dataset import BrainData as JaxBrainData
 from sivae_tpu.data.pipeline import BrainDataSource as JaxBrainDataSource
 from sivae_tpu.data.pipeline import DataPipeline as JaxDataPipeline
 from sivae_torch.data.augment import (_affine_resample, _rotation_matrix, random_affine_batch,
                                       random_noise_batch)
 from sivae_torch.data.catalog import CLASS_MAP, load_data
+from sivae_torch.data.dict_dataset import BrainData
+from sivae_torch.data.preprocess import preprocess_batch
 from sivae_torch.data.pipeline import BrainDataSource, DataPipeline
 from sivae_torch.data.synthetic import SyntheticBrainSource, synthetic_brain_batch
 
@@ -89,6 +93,52 @@ def test_catalog_records_match_jax(fake_adni_tree, case):
         np.testing.assert_array_equal(g["voxel"], w["voxel"])
     if case == "blacklist":
         assert len(got) == 12 and 112 not in {r["uid"] for r in got}
+
+
+# ---------------------------------------------------------------------------
+# BrainData
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("source", ["synthetic", "catalog"])
+def test_brain_data_matches_jax(fake_adni_tree, source):
+    """The port's dict samples against JAX's on the same records: the voxel
+    channel-first (1, D, H, W) where JAX's is channel-last (D, H, W, 1), the
+    same bits; labels, uid, pid; the transform applied lazily (the documented
+    deviation from the reference's no-op); slices, iteration, `labels()` and
+    `as_arrays()` (N, 1, D, H, W), whose volumes `preprocess_batch` takes."""
+    if source == "synthetic":
+        records = SyntheticBrainSource(5, (6, 8, 7), seed=3).records
+    else:
+        records = load_data(kinds=["ADNI2"], classes=["CN", "AD"], root=fake_adni_tree)
+    calls = []
+
+    def double(v):
+        calls.append(v.shape)
+        return v * 2.0
+
+    for transform in (None, double):
+        got, want = BrainData(records, transform), JaxBrainData(records, transform)
+        assert len(got) == len(want) == len(records) and not calls
+        for g, w in zip(got, want):
+            assert set(g) == set(w) == {"voxel", "label", "uid", "pid"}
+            assert {k: g[k] for k in ("label", "uid", "pid")} == \
+                {k: w[k] for k in ("label", "uid", "pid")}
+            assert g["voxel"].dtype == np.float32 and g["voxel"].shape[0] == 1
+            np.testing.assert_array_equal(g["voxel"], np.moveaxis(w["voxel"], -1, 0))
+        assert [s["uid"] for s in got[1:4]] == [s["uid"] for s in want[1:4]]
+        np.testing.assert_array_equal(got.labels(), want.labels())
+        np.testing.assert_array_equal(got.labels(), [CLASS_MAP[r["label"]] for r in records])
+        vox, labels = got.as_arrays()
+        jvox, jlabels = want.as_arrays()
+        assert vox.shape == (len(records), 1) + jvox.shape[1:4]
+        np.testing.assert_array_equal(vox, jvox.transpose(0, 4, 1, 2, 3))
+        np.testing.assert_array_equal(labels, jlabels)
+        x = preprocess_batch(torch.from_numpy(vox[:, 0]))
+        assert x.shape == vox.shape and float(x.min()) >= 0.0 and float(x.max()) <= 1.0 + 1e-6
+    assert calls and all(c == records[0]["voxel"].shape for c in calls)
+    np.testing.assert_array_equal(BrainData(records, double)[0]["voxel"],
+                                  2.0 * BrainData(records)[0]["voxel"])
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,9 @@ guard, skipped plots) are held in the port alone. Everything runs on the
 CPU at `tiny_spatial` (16^3) in fp32 without dropout, except the CLI runs
 (the z1200 preset's model with its dropout)."""
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import pickle
@@ -34,6 +36,7 @@ from sivae_torch.train.loop import SoftIntroTrainer
 from sivae_torch.train.state import create_train_state
 from sivae_torch.train.step import make_soft_intro_train_step
 from sivae_torch.utils.checkpoint import CheckpointManager
+from torch_port_common import load_tool
 
 torch.set_num_threads(2)
 
@@ -280,14 +283,16 @@ def test_presets_match_jax():
     assert cli_train.PRESETS == JAX_PRESETS
 
 
-@pytest.mark.parametrize("argv,roadmap", [
-    (["--preset", p, "--pretrained", f"runs/{p}/ckpt"], "A.6")
+@pytest.mark.parametrize("argv,names", [
+    (["--preset", p, "--pretrained", f"runs/{p}/ckpt"], "tools/torch_from_orbax.py")
     for p in ("z600", "z600-wide", "vae", "cae", "vae2soft", "z1200")
 ])
-def test_train_cli_refuses_what_the_port_cannot_run(argv, roadmap, capsys):
+def test_train_cli_refuses_what_the_port_cannot_run(argv, names, capsys):
+    """A `--pretrained` that is neither a .pth file nor a directory of port
+    checkpoints (an orbax run's ckpt/, say) exits 2 naming the converter."""
     with pytest.raises(SystemExit) as ei:
         cli_train.parse_args(argv + ["--device", "cpu"])
-    assert ei.value.code == 2 and f"ROADMAP {roadmap}" in capsys.readouterr().err
+    assert ei.value.code == 2 and names in capsys.readouterr().err
 
 
 def test_train_cli_refuses_data_parallel_over_several_cards(monkeypatch, capsys):
@@ -309,11 +314,10 @@ def test_both_clis_raise_without_cuda_unless_the_cpu_is_asked_for():
         cli_eval.main(["--model", "tiny_spatial", "--synthetic", "4"])
 
 
-@pytest.fixture()
-def fake_adni_tree(tmp_path):
-    """tests/test_cli_e2e.py's tree: 2 classes x 6 patients of 16^3
-    volumes, the last AD uid (112) blacklisted."""
-    root = tmp_path / "radiology_datas"
+def _fake_adni_tree(root):
+    """tests/test_cli_e2e.py's tree under `root`: 2 classes x 6 patients of
+    16^3 volumes, the last AD uid (112) blacklisted."""
+    root = root / "radiology_datas"
     base = root / "JHU-radiology" / "20170509"
     uid = 100
     rng = np.random.RandomState(0)
@@ -330,22 +334,38 @@ def fake_adni_tree(tmp_path):
     return root
 
 
-def test_train_then_resume_then_eval_over_fake_tree(fake_adni_tree, tmp_path, capsys):
+@pytest.fixture(scope="module")
+def fake_tree_run(tmp_path_factory):
+    """One run of the train CLI over the fake tree, 2 epochs with the
+    health gate after a warm start from a reference .pth, shared by the CLI
+    and run-directory tool tests: its tree, run directory, argv, .pth, the
+    gate's exit code and what it printed."""
+    tmp = tmp_path_factory.mktemp("fake_tree_run")
+    root = _fake_adni_tree(tmp)
+    run_dir = str(tmp / "run")
+    pretrained = str(tmp / "epoch7.pth")
+    torch.save(make_model(get_model_config("tiny_spatial"), device="cpu", seed=3).state_dict(),
+               pretrained)
+    argv = ["--preset", "z1200", "--model", "tiny_spatial", "--data-root", str(root),
+            "--batch", "2", "--no-bf16", "--run-dir", run_dir, "--device", "cpu"]
+    code = 0
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        try:
+            cli_train.main(argv + ["--epochs", "2", "--health-gate", "--pretrained", pretrained])
+        except SystemExit as e:  # the gate's verdict on a 2-epoch run
+            code = e.code
+    return types.SimpleNamespace(root=root, run_dir=run_dir, argv=argv, pretrained=pretrained,
+                                 code=code, out=out.getvalue())
+
+
+def test_train_then_resume_then_eval_over_fake_tree(fake_tree_run, tmp_path, capsys):
     """catalog -> grouped split -> pipeline -> warm start from a reference
     .pth -> trainer -> checkpoints -> health gate, then `--resume`, then the
     eval CLI over the run's ckpt/ directory (tests/test_cli_e2e.py:49-80 for
     the JAX CLIs)."""
-    run_dir = str(tmp_path / "run")
-    pretrained = str(tmp_path / "epoch7.pth")
-    torch.save(make_model(get_model_config("tiny_spatial"), device="cpu", seed=3).state_dict(),
-               pretrained)
-    argv = ["--preset", "z1200", "--model", "tiny_spatial", "--data-root", str(fake_adni_tree),
-            "--batch", "2", "--no-bf16", "--run-dir", run_dir, "--device", "cpu"]
-    code = 0
-    try:
-        cli_train.main(argv + ["--epochs", "2", "--health-gate", "--pretrained", pretrained])
-    except SystemExit as e:  # the gate's verdict on a 2-epoch run
-        code = e.code
+    run = fake_tree_run
+    run_dir, argv, code = run.run_dir, run.argv, run.code
     for name in ("args.json", "train_result.csv", "metrics.jsonl", "loss.txt", "kl_losses.txt",
                  "sweep.json", "health.json", "soft_intro_losses.png", "kl_stats.png",
                  os.path.join("imgs", "rec_epoch0.jpg"), os.path.join("imgs", "fake_epoch0.jpg"),
@@ -354,7 +374,7 @@ def test_train_then_resume_then_eval_over_fake_tree(fake_adni_tree, tmp_path, ca
     assert CheckpointManager(os.path.join(run_dir, "ckpt")).all_steps() == [0, 1]
     with open(os.path.join(run_dir, "args.json")) as f:
         snap = json.load(f)
-    assert snap["synthetic"] == 0 and snap["data_root"] == str(fake_adni_tree)
+    assert snap["synthetic"] == 0 and snap["data_root"] == str(run.root)
     assert snap["device"] == "cpu" and json.loads(snap["model_config"])["in_ch"] == 4
     with open(os.path.join(run_dir, "health.json")) as f:
         health = json.load(f)
@@ -367,17 +387,65 @@ def test_train_then_resume_then_eval_over_fake_tree(fake_adni_tree, tmp_path, ca
 
     two_epochs = torch.load(os.path.join(run_dir, "ckpt", "1.pth"), weights_only=True)["step"]
     trainer = cli_train.main(argv + ["--epochs", "1", "--resume"])
-    out = capsys.readouterr().out
-    assert f"warm-started from {pretrained}" in out and "resumed from epoch 1" in out
+    assert f"warm-started from {run.pretrained}" in run.out
+    assert "resumed from epoch 1" in capsys.readouterr().out
     assert two_epochs > 0 and trainer.state.step == two_epochs * 3 // 2
 
     out = str(tmp_path / "report.json")
     cli_eval.main(["--model", "tiny_spatial", "--ckpt", os.path.join(run_dir, "ckpt"),
-                   "--data-root", str(fake_adni_tree), "--batch", "2", "--out", out,
+                   "--data-root", str(run.root), "--batch", "2", "--out", out,
                    "--device", "cpu"])
     with open(out) as f:
         report = json.load(f)
     assert "retrieval_p_at_k" in report and np.isfinite(report["rmse"])
-    with pytest.raises(SystemExit, match="A.6"):
+    with pytest.raises(SystemExit, match="tools/torch_from_orbax.py"):
         cli_eval.main(["--model", "tiny_spatial", "--ckpt", str(tmp_path), "--synthetic", "4",
                        "--device", "cpu"])
+
+
+def _in_process_sweep(run):
+    """The run's validation split rebuilt here from the tree, and the sweep
+    of its checkpoints in this process."""
+    from sivae_torch.data.catalog import load_data
+    from sivae_torch.data.pipeline import grouped_split
+    from sivae_torch.data.preprocess import preprocess_batch
+    from sivae_torch.eval.sweep import sweep_checkpoints
+
+    src = BrainDataSource(load_data(kinds=["ADNI2", "ADNI2-2"],
+                                    classes=["CN", "AD", "EMCI", "LMCI", "SMC", "MCI"],
+                                    blacklist=True, root=str(run.root)))
+    _, vid = grouped_split(src.labels, src.pids, 5, 4, 103)
+    vox = preprocess_batch(torch.from_numpy(src.voxels[vid]))
+    return sweep_checkpoints(make_model(get_model_config("tiny_spatial"), device="cpu"), vox,
+                             ckpt_dir=os.path.join(run.run_dir, "ckpt"), batch_size=2)
+
+
+def test_posthoc_health_tool_matches_the_in_process_sweep(fake_tree_run):
+    """tools/torch_posthoc_health.py on the run directory rebuilds the model
+    and the split from args.json: its rows equal the in-process sweep, it
+    writes sweep.json and health.json, and its exit code is the verdict."""
+    from sivae_torch.eval.run_dir import load_run_args, posthoc_health, run_val_source
+
+    run = fake_tree_run
+    want = _in_process_sweep(run)
+    for name in ("sweep.json", "health.json"):
+        os.remove(os.path.join(run.run_dir, name))
+    rows, health = posthoc_health(run.run_dir, run_val_source(load_run_args(run.run_dir)), "cpu")
+    assert rows == want and [r["checkpoint"] for r in rows] == ["0", "1"]
+    assert health == run_health(want)
+    with open(os.path.join(run.run_dir, "sweep.json")) as f:
+        assert json.load(f) == want
+    code = load_tool("torch_posthoc_health").main([run.run_dir, "--device", "cpu"])
+    assert code == (0 if health["healthy"] else 1)
+    with open(os.path.join(run.run_dir, "health.json")) as f:
+        assert json.load(f) == health
+
+
+def test_sweep_run_tool_writes_sweep_and_panels(fake_tree_run, capsys):
+    run = fake_tree_run
+    panels = os.path.join(run.run_dir, "sweep_panels")
+    assert load_tool("torch_sweep_run").main([run.run_dir, "--panels", "--device", "cpu"]) == 0
+    assert sorted(os.listdir(panels)) == ["recon_0.jpg", "recon_1.jpg"]
+    with open(os.path.join(run.run_dir, "sweep.json")) as f:
+        assert json.load(f) == _in_process_sweep(run)
+    assert "ckpt    1: rmse" in capsys.readouterr().out

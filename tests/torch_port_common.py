@@ -13,7 +13,9 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import importlib.util
 import math
+from pathlib import Path
 
 import jax
 import jax._src.random as jax_random_impl
@@ -192,3 +194,12 @@ def assert_moments_close(got, want, zero_grad=()):
         if err > 1e-3 * scale:
             bad.append((k, float(err), float(scale)))
     assert not bad, bad
+
+
+def load_tool(name: str):
+    """The module of `tools/<name>.py` (the tools folder is no package)."""
+    path = Path(__file__).resolve().parent.parent / "tools" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"_tool_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
