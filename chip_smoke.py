@@ -158,9 +158,55 @@ failure exits non-zero and prints no result):
    "fma", or if a bf16 `conv3d_same` site with Ci % 32 == 0 and Co % 64 == 0
    (fc_600's 32->64) runs the superseded "mma" body and not "wgmma".
 
-`--only kernels,grad,path,stage,train,trainer,families` runs a subset while
-working on one phase; it ends with `{"ok": false, "partial": ...}`, never
-with the result.
+10. Data parallelism (phase `ddp`) on the one card, and the fullsize step.
+   NCCL does not take two ranks on one device, so two processes join a gloo
+   group (`sivae_torch.parallel.init_distributed(backend="gloo")`, both on
+   cuda:0; gloo all-reduces the CUDA tensors) and run (a), (b), (c) below;
+   each has a 600 s limit and is killed at it.
+   (a) Equality: one fp32 spatial_1200 step at 80x96x80, TF32 off, no
+   dropout, global batch 4 of phase 5's volumes (2 a rank), the fixed
+   numpy noise batch of seed 11, `zero_noise` (as phase 7's card-vs-CPU
+   step) and a learning rate of 0 (`ddp_equality_step` says why); the same
+   step in one process on the card first, and once more with the batch's
+   rows reversed (the same step in exact arithmetic). The mean of the
+   ranks' lossE / lossD within 1e-4 relative of one process's, every first
+   moment within 1e-3 of its tensor's max|m| or within twice the reversed
+   batch's difference (fp32's sum order alone moves the weight gradients
+   of convs in front of a BN by up to ~6e-3 at this width), the 3 whose
+   exact gradient is 0 below 1e-2 of the largest moment, BN running
+   statistics within 1e-5 of the largest running statistic, the ranks'
+   state digests equal.
+   (b) The bf16 flagship under data parallelism: spatial_1200, dropout on,
+   2 ranks x 4 = global 8; a warm-up step, one step with the counters at 0
+   on each rank (its launches must equal phase 7's 155 / 10 / 12; the
+   all-reduces it made and their bytes, BN statistics, their cotangents
+   and gradient buckets, are printed), 5 timed steps: s/step (median, min,
+   max, the slower rank), global vol/s, peak GiB per rank; the digests must
+   be equal after the steps; then one step with rank 0's under the
+   profiler (its own kernels: the idle share holds the other rank's turns
+   on the card and the waits). Two ranks share one card: not a scaling
+   figure.
+   (c) The entry point: `train_on_split` (z1200) on both ranks for 2 epochs
+   over phase 8's 24 volumes, global batch 8, counted (each rank's launches
+   4 x (155, 10, 12) + 2 x (54, 6, 3), as phase 8's); one set of run files
+   (2 CSV rows, 2 JSONL lines, checkpoints 0 and 1, as every rank reads
+   them), a new trainer's `try_resume` on each rank to epoch 1 with the
+   state digest of the fit's end, equal on both ranks. Then
+   `python -m sivae_torch.cli.train` (tiny_spatial, 1 epoch) as a
+   subprocess with `WORLD_SIZE=1`, which joins an NCCL group of one on the
+   card, must exit 0 with its run files (where scikit-learn does not
+   import, a patient-rank split stands in for its StratifiedGroupKFold on
+   that subprocess's path).
+   (d) spatial_1200_fullsize (160x192x160) in bf16 at batch 1, dropout on:
+   a warm-up step, one counted step (launches equal to the counts derived
+   from the model), 3 timed steps (median, min, max s/step), peak memory
+   against the card's, finite metrics. Its launches and the ranks' counted
+   ones enter the kernel record as `launches_by_path.fullsize` and
+   `ddp_ranks`.
+
+`--only kernels,grad,path,stage,train,trainer,families,ddp` runs a subset
+while working on one phase; it ends with `{"ok": false, "partial": ...}`,
+never with the result.
 
 The next-to-last line is the per-kernel JSON record (with every phase-3 row
 of each kernel under "rows"); the last line is
@@ -271,7 +317,7 @@ SOURCES = {
 # (8 conv3d_same + 1 conv3d_from1 each) and 6 decodes (5 conv3d_same + 1
 # conv3d_to1 each)
 VAL_LAUNCHES = {"conv3d_same": 54, "conv3d_to1": 6, "conv3d_from1": 3, "conv3d_fused_stats": 0}
-PHASES = ("kernels", "grad", "path", "stage", "train", "trainer", "families")
+PHASES = ("kernels", "grad", "path", "stage", "train", "trainer", "families", "ddp")
 
 
 def log(msg: str) -> None:
@@ -1762,10 +1808,512 @@ def phase_families(dev, real) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 10: data parallelism, and the fullsize step
+# ---------------------------------------------------------------------------
+
+DDP_WORLD = 2
+DDP_LIMIT_S = 600            # each rank process's time limit, build load included
+LAUNCHER_ENV = ("RANK", "LOCAL_RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+# a stand-in for scikit-learn's StratifiedGroupKFold, put on the train CLI's
+# path only where scikit-learn does not import (the card's machine): folds by
+# patient rank
+SKLEARN_STUB = (
+    "import numpy as np\n\n\n"
+    "class StratifiedGroupKFold:\n"
+    "    def __init__(self, n_splits=5, shuffle=False, random_state=None):\n"
+    "        self.n_splits = n_splits\n\n"
+    "    def split(self, X, y, groups):\n"
+    "        groups = [str(g) for g in groups]\n"
+    "        uniq = sorted(set(groups))\n"
+    "        fold = np.array([uniq.index(g) % self.n_splits for g in groups])\n"
+    "        for k in range(self.n_splits):\n"
+    "            yield np.flatnonzero(fold != k), np.flatnonzero(fold == k)\n")
+
+
+def split_by_patient(src):
+    """Phase 8's split without scikit-learn: every third patient's volumes to
+    validation."""
+    import numpy as np
+
+    pids = sorted(set(src.pids))
+    is_val = np.array([pids.index(p) % 3 == 2 for p in src.pids])
+    return src.subset(np.flatnonzero(~is_val)), src.subset(np.flatnonzero(is_val))
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _launcher_free_env() -> dict:
+    import os
+
+    return {k: v for k, v in os.environ.items() if k not in LAUNCHER_ENV}
+
+
+def ddp_equality_step(dev, reverse: bool = False) -> dict:
+    """Part (a) on this process's rows (all of them in one process): one
+    fp32 spatial_1200 step, TF32 off, no dropout, global batch 4 of phase
+    5's volumes (seed 7), the fixed numpy noise batch of seed 11,
+    `zero_noise` (every reparameterisation returns mu, as in phase 7's
+    card-vs-CPU step) and a learning rate of 0. Adam's first update is
+    lr * sign(g): a gradient that is rounding noise (a conv bias or a
+    1-channel 1x1 conv weight in front of a BN, whose exact gradient is 0;
+    any near-cancelling element) moves its parameter by +-lr, and phase D's
+    forwards read the updated encoder, so at the default rate both runs
+    differ by what fp32's sum order alone does, amplified (a batch in
+    reverse order in one process differs from one process as much, on the
+    card). At lr 0 phase D reads the same encoder; the first moments still
+    hold the whole gradient of both phases and the running statistics all
+    13 forwards. `reverse` takes the batch's rows (volumes and noise) in
+    reverse order: the same step in exact arithmetic, its sums in another
+    order. Metrics, first moments and BN running statistics on the CPU, the
+    names of the tensors whose exact gradient is 0, and the state's
+    digest."""
+    import numpy as np
+
+    from sivae_torch.config import OptimConfig, SoftIntroLossConfig
+    from sivae_torch.models.registry import get_model_config, make_model
+    from sivae_torch.parallel import local_batch_slice, replicate_state
+    from sivae_torch.parallel.mesh import state_digest
+    from sivae_torch.train.state import create_train_state
+    from sivae_torch.train.step import make_soft_intro_train_step
+
+    cfg = get_model_config("spatial_1200")
+    cfg = dataclasses.replace(cfg, act=cfg.act.with_no_dropout())
+    real = synthetic_volumes(torch.device("cpu"), 4)[1][local_batch_slice(4)].to(dev)
+    fixed = np.random.RandomState(11).randn(4, cfg.latent_dim).astype(np.float32)
+    if reverse:
+        real, fixed = real.flip(0), np.ascontiguousarray(fixed[::-1])
+    model = make_model(cfg, device=dev, seed=0)
+    state = replicate_state(create_train_state(model, seed=0))
+    step = make_soft_intro_train_step(model, SoftIntroLossConfig(), OptimConfig(lr=0.0), 1,
+                                      cfg.input_shape, zero_noise=True, fixed_noise=fixed)
+    _, metrics = step(state, real)
+    torch.cuda.synchronize()
+    names = {p: k for k, p in model.named_parameters()}
+    out = {"metrics": _metrics_line(metrics),
+           "moments": {names[p]: s["exp_avg"].detach().cpu()
+                       for opt in (state.opt_e, state.opt_d) for p, s in opt.state.items()},
+           "stats": {k: v.detach().cpu() for k, v in model.state_dict().items()
+                     if "running" in k},
+           "zero_grad": zero_gradient_tensors(model), "digest": state_digest(state).hex()}
+    del state, step, model, real
+    torch.cuda.empty_cache()
+    return out
+
+
+def zero_gradient_tensors(model) -> list:
+    """The parameters whose gradient is 0 in exact arithmetic: the bias of a
+    conv in front of a train-mode BN (the mean subtraction cancels it), and
+    the weight of a 1x1 conv from one channel in front of one (it scales
+    each channel, which the BN normalises away)."""
+    from sivae_torch.models.blocks import BatchNorm, Conv3d
+
+    out = []
+    for name, mod in model.named_modules():
+        kids = list(mod.named_children())
+        for (cname, conv), (_, nxt) in zip(kids, kids[1:]):
+            if isinstance(conv, Conv3d) and isinstance(nxt, BatchNorm):
+                if conv.bias is not None:
+                    out.append(f"{name}.{cname}.bias")
+                if conv.in_ch == 1 and conv.kernel_size == 1:
+                    out.append(f"{name}.{cname}.weight")
+    return out
+
+
+def ddp_flagship_rank(dev) -> dict:
+    """Part (b), one rank: spatial_1200 bf16 with dropout, 4 of a global
+    batch of 8 of phase 5's volumes; a warm-up step, one counted step
+    (launches and all-reduces), 5 timed steps, one step under the profiler
+    on rank 0, peak memory, the digest."""
+    from sivae_torch.config import OptimConfig, SoftIntroLossConfig
+    from sivae_torch.kernels import build
+    from sivae_torch.models.registry import get_model_config, make_model
+    from sivae_torch.parallel import local_batch_slice, rank, replicate_state
+    from sivae_torch.parallel.mesh import collectives, reset_collectives, state_digest
+    from sivae_torch.train.state import create_train_state
+    from sivae_torch.train.step import make_soft_intro_train_step
+
+    cfg = dataclasses.replace(get_model_config("spatial_1200"), dtype=torch.bfloat16)
+    real = synthetic_volumes(torch.device("cpu"), 8)[1][local_batch_slice(8)].to(dev)
+    model = make_model(cfg, device=dev, seed=0)
+    state = replicate_state(create_train_state(model, seed=0))
+    step = make_soft_intro_train_step(model, SoftIntroLossConfig(), OptimConfig(), 1,
+                                      cfg.input_shape)
+    torch.cuda.reset_peak_memory_stats(dev)
+    step(state, real)   # warm-up
+    torch.cuda.synchronize()
+    build.reset_launches()
+    reset_collectives()
+    step(state, real)
+    torch.cuda.synchronize()
+    counts, coll = dict(build.launches), {k: list(v) for k, v in collectives.items()}
+    times = []
+    for _ in range(REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, metrics = step(state, real)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    # one more step on both ranks (their collectives pair up), rank 0's
+    # under the profiler: its own kernels only, so its idle share holds the
+    # other rank's turns on the card as well as the waits
+    if rank() == 0:
+        profile_window("data-parallel step, rank 0 of 2 sharing the card", lambda: step(state, real),
+                       top=12)
+    else:
+        step(state, real)
+    replicate_state(state)
+    out = {"launches": counts, "collectives": coll, "times": times,
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+           "metrics": _metrics_line(metrics), "digest": state_digest(state).hex(),
+           "batch": real.shape[0]}
+    del state, step, model, real
+    torch.cuda.empty_cache()
+    build.reset_launches()
+    return out
+
+
+def ddp_trainer_rank(dev, run_dir: str) -> dict:
+    """Part (c), one rank: the z1200 preset through `train_on_split` for 2
+    epochs over phase 8's 24 volumes, global batch 8 (4 a rank), counted;
+    the run files as this rank sees them after the fit; then a new
+    trainer's `try_resume` (which checks the ranks agree)."""
+    import os
+
+    from sivae_torch.cli import train as cli_train
+    from sivae_torch.config import OptimConfig
+    from sivae_torch.data.pipeline import BrainDataSource
+    from sivae_torch.kernels import build
+    from sivae_torch.models.registry import get_model_config, make_model
+    from sivae_torch.parallel.mesh import collectives, reset_collectives, state_digest
+    from sivae_torch.train.loop import SoftIntroTrainer
+
+    sys.modules["matplotlib"] = None   # as phase 8: no figures on any machine
+    args = cli_train.parse_args(["--preset", "z1200", "--epochs", "2", "--run-dir", run_dir,
+                                 "--synthetic", "24", "--batch", "8", "--device", str(dev)])
+    src = BrainDataSource(cli_train.load_records(
+        args, get_model_config("spatial_1200").input_shape))
+    train_src, val_src = split_by_patient(src)
+    build.reset_launches()
+    reset_collectives()
+    t0 = time.perf_counter()
+    trainer = cli_train.train_on_split(args, train_src, val_src)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts, coll = dict(build.launches), {k: list(v) for k, v in collectives.items()}
+    files = {}
+    for name in ("train_result.csv", "metrics.jsonl"):
+        with open(os.path.join(run_dir, name)) as f:
+            files[name] = len(f.read().splitlines())
+    files["ckpt"] = trainer.ckpt.all_steps()
+    end = state_digest(trainer.state).hex()
+    hist = {k: v for k, v in trainer.logger.history.items()}
+    again = SoftIntroTrainer(make_model(trainer.model_cfg, device=dev), trainer.loss_cfg,
+                             OptimConfig(), trainer.train_cfg, run_dir=run_dir,
+                             steps_per_epoch=2)
+    resumed = again.try_resume()
+    out = {"launches": counts, "collectives": coll, "fit_s": fit_s, "files": files,
+           "world_size": args.world_size, "history": hist, "digest_end": end,
+           "resumed": resumed, "digest_resumed": state_digest(again.state).hex()}
+    del trainer, again
+    torch.cuda.empty_cache()
+    build.reset_launches()
+    return out
+
+
+def ddp_rank(out_dir: str) -> int:
+    """One of phase 10's ranks, started by `phase_ddp` with the launcher's
+    environment (both on the one card: `LOCAL_RANK` 0, gloo)."""
+    import os
+
+    from sivae_torch.kernels import build
+    from sivae_torch.parallel import init_distributed, rank, shutdown
+    from sivae_torch.utils.device import resolve_device
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: CUDA is not available")
+    dev = init_distributed(backend="gloo")
+    resolve_device(dev)   # TF32 off
+    build.library()       # the parent's build, from the cache
+    t0 = time.perf_counter()
+    res = {"a": ddp_equality_step(dev)}
+    log(f"[ddp rank {rank()}] (a) {time.perf_counter() - t0:.1f} s")
+    res["b"] = ddp_flagship_rank(dev)
+    log(f"[ddp rank {rank()}] (b) {time.perf_counter() - t0:.1f} s")
+    res["c"] = ddp_trainer_rank(dev, os.path.join(out_dir, "z1200"))
+    log(f"[ddp rank {rank()}] (c) {time.perf_counter() - t0:.1f} s")
+    torch.save(res, os.path.join(out_dir, f"rank{rank()}.pth"))
+    shutdown()
+    return 0
+
+
+def _compare_equality(ref: dict, ctl: dict, ranks: list) -> list:
+    """(a): the mean of the ranks' lossE / lossD within 1e-4 relative of one
+    process's; each first moment within 1e-3 of max|m| of its tensor (one
+    that is exactly 0 in one process exactly 0 in the ranks too), or within
+    twice what one process's step on the reversed batch (`ctl`: the same
+    step in exact arithmetic) differs by: a weight gradient of a conv in
+    front of a BN at full width is a sum of ~1e8 products that nearly
+    cancel, and fp32's sum order alone moves it by up to ~6e-3 of its
+    largest element on the card; those whose exact gradient is 0
+    (`zero_gradient_tensors`) hold rounding noise and must stay below 1e-2
+    of the model's largest moment in both runs; each BN running statistic
+    within 1e-5 of the largest running statistic; the ranks' digests
+    equal."""
+    two, zero = ranks[0], set(ref["zero_grad"])
+    rel = {k: abs(sum(r["metrics"][k] for r in ranks) / len(ranks) - ref["metrics"][k])
+           / abs(ref["metrics"][k]) for k in ("lossE", "lossD")}
+    top_m = max(m.abs().max().item() for m in ref["moments"].values())
+
+    def err(got, want):
+        scale = want.abs().max().item()
+        # an exactly-zero moment (the zero-initialised logvar head under
+        # zero_noise) must be exactly zero in both runs
+        return (got - want).abs().max().item() / scale if scale else float(bool(got.any()))
+
+    worst, noise, bad, by_ctl, ctl_over = (0.0, "", 0.0), 0.0, [], 0, 0
+    for k, want in ref["moments"].items():
+        got = two["moments"][k]
+        if k in zero:
+            noise = max(noise, want.abs().max().item() / top_m, got.abs().max().item() / top_m)
+            continue
+        e, e_ctl = err(got, want), err(ctl["moments"][k], want)
+        worst = max(worst, (e, k, e_ctl))
+        ctl_over += e_ctl > 1e-3
+        if e > 1e-3:
+            by_ctl += e <= 2 * e_ctl
+            if e > 2 * e_ctl:
+                bad.append((k, e, e_ctl))
+    top_s = max(v.abs().max().item() for v in ref["stats"].values())
+    stat_worst = max(((two["stats"][k] - v).abs().max().item() / top_s, k)
+                     for k, v in ref["stats"].items())
+    same = len({r["digest"] for r in ranks}) == 1
+    log(f"[ddp] (a) fp32 spatial_1200 80x96x80 step at lr 0, global batch 4: {len(ranks)} gloo "
+        f"ranks x 2 on the card vs one process x 4 on the card: lossE rel {rel['lossE']:.2e}, "
+        f"lossD rel {rel['lossD']:.2e} (limit 1e-4); first moments of "
+        f"{len(ref['moments']) - len(zero)} tensors worst {worst[0]:.2e} of max|m| at {worst[1]} "
+        f"(the reversed batch there {worst[2]:.2e}); over 1e-3: {by_ctl} tensors, each within "
+        f"2x the reversed batch's difference (which is over 1e-3 at {ctl_over} tensors itself); "
+        f"{len(zero)} with an exact gradient of 0 {sorted(zero)} at most {noise:.2e} of the "
+        f"largest moment (limit 1e-2); BN running statistics worst {stat_worst[0]:.2e} of the "
+        f"largest {top_s:.3f} at {stat_worst[1]} (limit 1e-5); ranks' digests equal {same}")
+    if max(rel.values()) > 1e-4 or bad or noise > 1e-2 or stat_worst[0] > 1e-5 or not same:
+        return [f"(a) 2 ranks disagree with one process: {rel} {bad} noise {noise:.2e} "
+                f"{stat_worst} digests equal {same}"]
+    return []
+
+
+def _cli_world_of_one(tmp: str) -> None:
+    """`python -m sivae_torch.cli.train` with `WORLD_SIZE=1`: the CLI joins an
+    NCCL group of one on the card (its digest gather, its checkpoint
+    broadcast and barrier run through NCCL), tiny_spatial, 1 epoch, batch 4,
+    must exit 0 with its run files."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    run_dir = os.path.join(tmp, "cli")
+    env = {**_launcher_free_env(), "RANK": "0", "LOCAL_RANK": "0", "WORLD_SIZE": "1",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port())}
+    note = "scikit-learn's split"
+    try:
+        import sklearn  # noqa: F401
+    except ImportError:
+        stub = os.path.join(tmp, "stub", "sklearn")
+        os.makedirs(stub)
+        open(os.path.join(stub, "__init__.py"), "w").close()
+        with open(os.path.join(stub, "model_selection.py"), "w") as f:
+            f.write(SKLEARN_STUB)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [os.path.dirname(stub)] + [p for p in [env.get("PYTHONPATH")] if p])
+        note = "no scikit-learn here: a patient-rank split stands in for its StratifiedGroupKFold"
+    cmd = [sys.executable, "-m", "sivae_torch.cli.train", "--preset", "z1200", "--model",
+           "tiny_spatial", "--synthetic", "24", "--epochs", "1", "--batch", "4", "--run-dir",
+           run_dir]
+    t0 = time.perf_counter()
+    try:
+        done = subprocess.run(cmd, cwd=root, env=env, capture_output=True, text=True,
+                              timeout=300)
+    except subprocess.TimeoutExpired as e:
+        raise SystemExit(f"chip_smoke: the train CLI with WORLD_SIZE=1 did not end: {e}")
+    files = ["args.json", "train_result.csv", "metrics.jsonl", os.path.join("ckpt", "0.pth")]
+    missing = [f for f in files if not os.path.exists(os.path.join(run_dir, f))]
+    world = None
+    if "args.json" not in missing:
+        with open(os.path.join(run_dir, "args.json")) as f:
+            world = json.load(f).get("world_size")
+    log(f"[ddp] (c) python -m sivae_torch.cli.train under WORLD_SIZE=1 (NCCL), tiny_spatial, "
+        f"1 epoch: exit {done.returncode} in {time.perf_counter() - t0:.1f} s, world_size "
+        f"{world}, run files missing {missing} ({note})")
+    if done.returncode != 0 or missing or world != 1:
+        raise SystemExit(f"chip_smoke: the train CLI with WORLD_SIZE=1 failed:\n"
+                         f"{done.stdout[-3000:]}\n{done.stderr[-3000:]}")
+
+
+def ddp_fullsize(dev, card: str) -> dict:
+    """(d): spatial_1200_fullsize (160x192x160) bf16, batch 1, dropout on:
+    a warm-up step, one counted step against the counts derived from the
+    model, 3 timed steps, peak memory, finite metrics."""
+    from sivae_torch.config import OptimConfig, SoftIntroLossConfig
+    from sivae_torch.data.preprocess import preprocess_batch
+    from sivae_torch.data.synthetic import SyntheticBrainSource
+    from sivae_torch.kernels import build
+    from sivae_torch.models.registry import get_model_config, make_model
+    from sivae_torch.train.state import create_train_state, param_count
+    from sivae_torch.train.step import make_soft_intro_train_step
+
+    cfg = dataclasses.replace(get_model_config("spatial_1200_fullsize"), dtype=torch.bfloat16)
+    raw = SyntheticBrainSource(1, cfg.input_shape, seed=7).records[0]["voxel"]
+    real = preprocess_batch(torch.from_numpy(raw[None]).to(dev))
+    model = make_model(cfg, device=dev, seed=0)
+    state = create_train_state(model, seed=0)
+    step = make_soft_intro_train_step(model, SoftIntroLossConfig(), OptimConfig(), 1,
+                                      cfg.input_shape)
+    want = soft_intro_launches(model)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    step(state, real)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    build.reset_launches()
+    step(state, real)
+    torch.cuda.synchronize()
+    counts = dict(build.launches)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, metrics = step(state, real)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    times.sort()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    m = _metrics_line(metrics)
+    log(f"[ddp] (d) spatial_1200_fullsize {grid_name(cfg.input_shape)} bf16 batch 1, dropout "
+        f"on, {param_count(state)} parameters ({card}): warm-up {warm:.2f} s; 3 steps median "
+        f"{times[1]:.4f} s/step, min {times[0]:.4f}, max {times[2]:.4f}; peak memory "
+        f"{peak:.2f} GiB of {torch.cuda.get_device_properties(dev).total_memory / 2**30:.1f}; "
+        f"launches {counts} (expected {want}); metrics {json.dumps(m)}")
+    if counts != want:
+        raise SystemExit(f"chip_smoke: fullsize step launches {counts}, expected {want}")
+    if m["nan"] or not all(math.isfinite(v) for k, v in m.items() if k != "nan"):
+        raise SystemExit(f"chip_smoke: fullsize metrics not finite: {m}")
+    del state, step, model, real
+    torch.cuda.empty_cache()
+    build.reset_launches()
+    return counts
+
+
+def phase_ddp(dev, card: str) -> tuple:
+    """(a) one process's fp32 reference step here, then 2 gloo ranks on the
+    card (`ddp_rank`: (a), (b), (c)), compared; the CLI under WORLD_SIZE=1;
+    (d) the fullsize step. Returns (the ranks' counted launches summed, the
+    fullsize step's launches)."""
+    import os
+    import tempfile
+
+    from sivae_torch.kernels import build
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_ddp_")
+    t0 = time.perf_counter()
+    ref = ddp_equality_step(dev)
+    ctl = ddp_equality_step(dev, reverse=True)
+    log(f"[ddp] (a) one-process reference step and its reversed batch "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    port, t0 = _free_port(), time.perf_counter()
+    procs = []
+    for r in range(DDP_WORLD):
+        env = {**_launcher_free_env(), "RANK": str(r), "LOCAL_RANK": "0",
+               "WORLD_SIZE": str(DDP_WORLD), "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+               "OMP_NUM_THREADS": str(max(1, (os.cpu_count() or 2) // DDP_WORLD))}
+        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), "--ddp-rank",
+                                       tmp.name], env=env, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DDP_LIMIT_S)[0])
+    except subprocess.TimeoutExpired:
+        outs.append("(killed at the time limit)")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, out in enumerate(outs):
+        for line in out.splitlines():
+            log(f"[ddp rank {r} output] {line}")
+    if any(p.returncode != 0 for p in procs):
+        raise SystemExit(f"chip_smoke: a data-parallel rank failed: "
+                         f"{[p.returncode for p in procs]}")
+    ranks = [torch.load(os.path.join(tmp.name, f"rank{r}.pth"), weights_only=False)
+             for r in range(DDP_WORLD)]
+    log(f"[ddp] {DDP_WORLD} gloo ranks on the one card (gloo all-reduces the CUDA tensors), "
+        f"(a) + (b) + (c) in {time.perf_counter() - t0:.1f} s")
+
+    failed = _compare_equality(ref, ctl, [r["a"] for r in ranks])
+
+    b = [r["b"] for r in ranks]
+    medians = [sorted(x["times"])[REPEATS // 2] for x in b]
+    slow = max(range(DDP_WORLD), key=lambda r: medians[r])
+    t = sorted(b[slow]["times"])
+    glob = sum(x["batch"] for x in b)
+    same = len({x["digest"] for x in b}) == 1
+    finite = all(not x["metrics"]["nan"] and all(math.isfinite(v) for k, v in
+                                                 x["metrics"].items() if k != "nan") for x in b)
+    log(f"[ddp] (b) spatial_1200 bf16, dropout on, {DDP_WORLD} ranks x {b[0]['batch']} = global "
+        f"{glob}, two ranks sharing one card ({card}; not a scaling figure): slower rank {slow} "
+        f"median {t[REPEATS // 2]:.4f} s/step, min {t[0]:.4f}, max {t[-1]:.4f} (rank medians "
+        f"{[round(x, 4) for x in medians]}); {glob / t[REPEATS // 2]:.2f} global vol/s; peak "
+        f"memory per rank {[round(x['peak_gib'], 2) for x in b]} GiB; launches per rank "
+        f"{[x['launches'] for x in b]} (expected {TRAIN_LAUNCHES}); all-reduces in one step "
+        f"[calls, bytes] {json.dumps(b[0]['collectives'])}; digests equal {same}; metrics "
+        f"{json.dumps(b[0]['metrics'])}")
+    if any(x["launches"] != TRAIN_LAUNCHES for x in b) or not same or not finite:
+        failed.append(f"(b) data-parallel flagship: launches {[x['launches'] for x in b]}, "
+                      f"digests equal {same}, finite {finite}")
+
+    c = [r["c"] for r in ranks]
+    want = {k: 4 * TRAIN_LAUNCHES[k] + 2 * VAL_LAUNCHES[k] for k in TRAIN_LAUNCHES}
+    ok = (all(x["launches"] == want and x["world_size"] == DDP_WORLD and x["resumed"] == 1
+              and x["digest_resumed"] == x["digest_end"]
+              and x["files"] == {"train_result.csv": 3, "metrics.jsonl": 2, "ckpt": [0, 1]}
+              for x in c) and len({x["digest_end"] for x in c}) == 1)
+    log(f"[ddp] (c) train_on_split, z1200, 2 epochs on {DDP_WORLD} ranks (global batch 8): fit "
+        f"{[round(x['fit_s'], 2) for x in c]} s; run files as each rank reads them "
+        f"{[x['files'] for x in c]} (one set: 2 CSV rows, 2 JSONL lines); launches per rank "
+        f"{[x['launches'] for x in c]} (expected {want}); all-reduces per rank "
+        f"{json.dumps(c[0]['collectives'])}; try_resume -> {[x['resumed'] for x in c]}, digests "
+        f"end {[x['digest_end'][:12] for x in c]} resumed "
+        f"{[x['digest_resumed'][:12] for x in c]}; epoch train_lossE {c[0]['history'].get('train_lossE')}")
+    if not ok:
+        failed.append("(c) the data-parallel trainer run is wrong")
+    _cli_world_of_one(tmp.name)
+    counted = {k: sum(x["launches"][k] + y["launches"][k] for x, y in zip(b, c))
+               for k in TRAIN_LAUNCHES}
+    full = ddp_fullsize(dev, card)
+    if failed:
+        raise SystemExit("chip_smoke: phase 10: " + "; ".join(failed))
+    tmp.cleanup()
+    build.reset_launches()
+    return counted, full
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="", help="comma-separated subset of " + ",".join(PHASES))
+    ap.add_argument("--ddp-rank", default=None, help=argparse.SUPPRESS)   # phase 10's ranks
     args = ap.parse_args(argv)
+    if args.ddp_rank is not None:
+        return ddp_rank(args.ddp_rank)
     only = [p for p in args.only.split(",") if p]
     if any(p not in PHASES for p in only):
         ap.error(f"--only takes {PHASES}")
@@ -1787,6 +2335,7 @@ def main(argv=None):
     del src, vox
     trainer_n = phase_trainer(dev) if "trainer" in want else {}
     families_n = phase_families(dev, real) if "families" in want else {}
+    ddp_n, fullsize_n = phase_ddp(dev, card) if "ddp" in want else ({}, {})
     log(card)
     if only:
         print(json.dumps({"ok": False, "partial": only}))
@@ -1806,7 +2355,8 @@ def main(argv=None):
                     "eval_path_fc150_fp32": fc32_n[kname],
                     "fused_stage": stage_n[kname],
                     "train_step": train_n[kname], "trainer": trainer_n[kname],
-                    "families": families_n[kname]}
+                    "families": families_n[kname], "ddp_ranks": ddp_n[kname],
+                    "fullsize": fullsize_n[kname]}
         launches = sum(per_path.values())
         if launches == 0:
             raise SystemExit(f"chip_smoke: no counted path launched {kname}")

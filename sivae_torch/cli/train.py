@@ -39,6 +39,18 @@ train_losses.txt for the VAE's; vae2soft runs its VAE stage in
 `<run-dir>/vae_stage`; and, where matplotlib imports, the loss plots and
 image panels. `main` loads the records and splits them;
 `train_on_split(args, train_src, val_src)` does everything after the split.
+
+Data parallelism (`--data-parallel`, on by default, as in the JAX CLI):
+with more than one visible card and no launcher, `main` starts one process
+per card (127.0.0.1, a free port, NCCL) and each runs the whole CLI on its
+card; under torchrun (or any launcher that sets `RANK`, `WORLD_SIZE`,
+`LOCAL_RANK`, `MASTER_ADDR`, `MASTER_PORT`, on one host or several) each
+process joins the launcher's group. `--batch` is the global batch and must
+divide by the number of processes. Every rank loads the same records and
+split; rank 0 writes args.json, the logs, checkpoints and figures and runs
+the health gate. A rank that fails fails the run: nothing falls back to one
+process. With one card, `--no-data-parallel` or `--device cpu`, one
+process runs as it always did, with no collective.
 """
 
 from __future__ import annotations
@@ -47,6 +59,7 @@ import argparse
 import dataclasses
 import json
 import os
+import socket
 import sys
 from typing import List, Optional
 
@@ -165,8 +178,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--bf16", action="store_true", default=True)
     ap.add_argument("--no-bf16", dest="bf16", action="store_false")
     ap.add_argument("--data-parallel", action="store_true", default=True,
-                    help="on one card a no-op; more than one visible card is refused "
-                         "until the port has data parallelism (ROADMAP A.9)")
+                    help="one process per visible card (or per launcher rank), --batch "
+                         "split among them, BatchNorm over the global batch; on one card "
+                         "a no-op")
     ap.add_argument("--no-data-parallel", dest="data_parallel", action="store_false")
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--keep-checkpoints", type=int, default=3,
@@ -203,16 +217,23 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
             args.pretrained = checkpoint_file(args.pretrained)
         except ValueError as e:
             ap.exit(2, f"--pretrained {e}\n")
+    from sivae_torch.parallel.distributed import launched
     from sivae_torch.utils.device import resolve_device
 
     dev = resolve_device(args.device)
-    if args.data_parallel and dev.type == "cuda":
+    if launched():
+        args.world_size = int(os.environ["WORLD_SIZE"])
+        if not args.data_parallel and args.world_size > 1:
+            ap.exit(2, f"--no-data-parallel under a launcher of {args.world_size} processes\n")
+    elif args.data_parallel and dev.type == "cuda" and args.device in (None, "cuda"):
         import torch
 
-        if torch.cuda.device_count() > 1:
-            ap.exit(2, f"--data-parallel over {torch.cuda.device_count()} visible cards is "
-                       f"not ported yet (ROADMAP A.9): pass --no-data-parallel or make one "
-                       f"card visible\n")
+        args.world_size = torch.cuda.device_count()
+    else:
+        args.world_size = 1
+    if args.batch % args.world_size:
+        ap.exit(2, f"--batch {args.batch} is the global batch: it must divide by the "
+                   f"{args.world_size} data-parallel processes\n")
     args.device = str(dev)
     return args
 
@@ -226,6 +247,7 @@ def train_on_split(args: argparse.Namespace, train_src, val_src):
 
     from sivae_torch.config import OptimConfig, SoftIntroLossConfig, TrainConfig, to_json
     from sivae_torch.models.registry import get_model_config, make_model
+    from sivae_torch.parallel import is_main_process, replicate_state
     from sivae_torch.train.loop import CAETrainer, SoftIntroTrainer, VAETrainer
 
     preset = PRESETS[args.preset]
@@ -244,8 +266,9 @@ def train_on_split(args: argparse.Namespace, train_src, val_src):
                                                      if args.checkpoint_every is not None else 1))
 
     # args snapshot (reference my_args.txt, main.py:152-153)
-    with open(os.path.join(run_dir, "args.json"), "w") as f:
-        json.dump({**vars(args), "model_config": to_json(cfg)}, f, indent=2, default=str)
+    if is_main_process():
+        with open(os.path.join(run_dir, "args.json"), "w") as f:
+            json.dump({**vars(args), "model_config": to_json(cfg)}, f, indent=2, default=str)
 
     plain_every = args.checkpoint_every if args.checkpoint_every is not None else 10
     if preset["trainer"] == "cae":
@@ -291,7 +314,7 @@ def train_on_split(args: argparse.Namespace, train_src, val_src):
         trainer = SoftIntroTrainer(model, loss_cfg, optim_cfg, train_cfg, run_dir=run_dir,
                                    steps_per_epoch=train.steps_per_epoch)
         trainer.fit(train, val, epochs=args.epochs)
-        if args.health_gate:
+        if args.health_gate and is_main_process():
             apply_health_gate(cfg, val.source, run_dir, args.batch, args.device)
         return trainer
 
@@ -300,29 +323,68 @@ def train_on_split(args: argparse.Namespace, train_src, val_src):
                                keep_checkpoints=args.keep_checkpoints)
     if args.resume:
         resumed = trainer.try_resume()
-        if resumed is not None:
+        if resumed is not None and is_main_process():
             print(f"resumed from epoch {resumed}")
     elif args.pretrained:
         from sivae_torch.utils.jax_import import load_reference_pth
 
         load_reference_pth(model, args.pretrained)
-        print(f"warm-started from {args.pretrained}")
+        replicate_state(trainer.state)
+        if is_main_process():
+            print(f"warm-started from {args.pretrained}")
     trainer.fit(train, val, epochs=args.epochs)
-    if args.health_gate:
+    if args.health_gate and is_main_process():
         apply_health_gate(cfg, val.source, run_dir, args.batch, args.device)
     return trainer
 
 
-def main(argv: Optional[List[str]] = None):
-    args = parse_args(argv)
-    from sivae_torch.data.pipeline import BrainDataSource, grouped_split
-    from sivae_torch.models.registry import get_model_config
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
 
-    input_shape = get_model_config(args.model or PRESETS[args.preset]["model"]).input_shape
-    src = BrainDataSource(load_records(args, input_shape))
-    tid, vid = grouped_split(src.labels, src.pids, n_splits=5, split_index=4,
-                             seed=args.seed_split)
-    return train_on_split(args, src.subset(tid), src.subset(vid))
+
+def _rank_main(local_rank: int, argv: List[str], world: int, port: int) -> None:
+    """One spawned process: the launcher's environment for this rank, then
+    the CLI."""
+    os.environ.update(RANK=str(local_rank), LOCAL_RANK=str(local_rank), WORLD_SIZE=str(world),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    import torch
+
+    # the host's cores shared among the processes, as torchrun's default does
+    torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
+    main(argv)
+
+
+def main(argv: Optional[List[str]] = None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = parse_args(argv)
+    from sivae_torch.parallel.distributed import init_distributed, launched, shutdown
+
+    if args.world_size > 1 and not launched():
+        # one process per visible card; a rank that fails raises here, after
+        # the others are stopped
+        import torch.multiprocessing as mp
+
+        from sivae_torch.cli import train as this
+
+        mp.spawn(this._rank_main, args=(argv, args.world_size, _free_port()),
+                 nprocs=args.world_size, join=True)
+        return None
+    dev = init_distributed(device=args.device)
+    if dev is not None:
+        args.device = str(dev)
+    try:
+        from sivae_torch.data.pipeline import BrainDataSource, grouped_split
+        from sivae_torch.models.registry import get_model_config
+
+        input_shape = get_model_config(args.model or PRESETS[args.preset]["model"]).input_shape
+        src = BrainDataSource(load_records(args, input_shape))
+        tid, vid = grouped_split(src.labels, src.pids, n_splits=5, split_index=4,
+                                 seed=args.seed_split)
+        return train_on_split(args, src.subset(tid), src.subset(vid))
+    finally:
+        shutdown()
 
 
 if __name__ == "__main__":

@@ -176,7 +176,10 @@ class OptimConfig:
 @dataclass(frozen=True)
 class TrainConfig:
     """Epoch-loop settings (`sivae_tpu/config.py:234-246`). The JAX config's
-    mesh fields come with data parallelism."""
+    mesh fields (`mesh_shape`, `mesh_axis_names`) have no counterpart: they
+    lay one GSPMD program's data axis over the devices, where the port runs
+    one process per card, as many as the launcher or the train CLI's spawn
+    starts (`sivae_torch/parallel/`)."""
 
     epochs: int = 500
     batch_size: int = 8

@@ -13,7 +13,10 @@ scaling about the volume centre, trilinear, zero fill.
 The draws come from a `torch.Generator` on the batch's device, which the
 pipeline seeds per (seed, epoch, step) with the JAX package's formula, so a
 run is deterministic in the same way as the JAX one; the draws themselves
-differ from `jax.random`'s.
+differ from `jax.random`'s. Under data parallelism the batch is this rank's
+rows of a global batch: every draw is taken for the global batch and the
+rank's rows kept (`parallel.mesh.rand_rows` / `normal_rows`), so each
+volume gets the draw it gets in one process.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from sivae_torch.parallel.mesh import normal_rows, rand_rows
 
 SCALE_JITTER = 0.1   # TorchIO RandomAffine's default scales=0.1
 
@@ -84,7 +89,7 @@ def random_affine_batch(generator: torch.Generator, voxels: torch.Tensor,
     v = voxels[:, 0] if squeeze else voxels
     b = v.shape[0]
     # one draw for the batch: apply, 3 angles, 3 scales per volume
-    u = torch.rand((b, 7), generator=generator, device=v.device, dtype=torch.float32)
+    u = rand_rows((b, 7), generator, v.device)
     angles = (2 * u[:, 1:4] - 1) * (degrees * torch.pi / 180.0)
     scales = 1.0 + (2 * u[:, 4:7] - 1) * SCALE_JITTER
     # inverse map, output -> input coordinates: R^-1 @ S^-1 (R orthonormal)
@@ -98,7 +103,6 @@ def random_noise_batch(generator: torch.Generator, voxels: torch.Tensor, mean: f
     """Additive Gaussian noise per volume with probability p (TorchIO
     RandomNoise, vae_main.py:130-139)."""
     dev = voxels.device
-    apply = torch.rand((voxels.shape[0],) + (1,) * (voxels.dim() - 1), generator=generator,
-                       device=dev) < p
-    noise = mean + std * torch.randn(voxels.shape, generator=generator, device=dev)
+    apply = rand_rows((voxels.shape[0],) + (1,) * (voxels.dim() - 1), generator, dev) < p
+    noise = mean + std * normal_rows(voxels.shape, generator, dev)
     return torch.where(apply, voxels.float() + noise, voxels.float())

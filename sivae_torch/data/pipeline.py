@@ -9,6 +9,11 @@ augments and normalises it there, so the copy overlaps the previous step.
 
 The split is the reference's scikit-learn StratifiedGroupKFold
 (main.py:84-98): fold 4 of 5, grouped by pid so no patient spans train/val.
+
+Under data parallelism (`sivae_torch/parallel/`) `batch_size` is the global
+batch and every rank walks the same seeded order; each rank gathers, copies
+and augments only its rows of each global batch (`local_batch_slice`), as
+each JAX host feeds its shard (`sivae_tpu/parallel/distributed.py:48-54`).
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import numpy as np
 import torch
 
 from sivae_torch.data.preprocess import preprocess_batch
+from sivae_torch.parallel.distributed import local_batch_slice
 from sivae_torch.utils.device import resolve_device
 
 
@@ -73,7 +79,11 @@ class DataPipeline:
       the order is the JAX pipeline's bit for bit;
     - `augment(generator, raw)` runs on the device before preprocessing
       (reference data_load.py:21-23), with a generator on the device seeded
-      with `seed * 100003 + epoch * steps_per_epoch + step`, as the JAX key;
+      with `seed * 100003 + epoch * steps_per_epoch + step`, as the JAX key
+      (the same on every rank: the augmentations draw their batch-axis
+      parameters for the global batch and keep this rank's rows);
+    - under data parallelism each rank yields its rows of every global
+      batch of `batch_size` (`steps_per_epoch` counts global batches);
     - a background thread prefetches `PREFETCH` batches ahead.
 
     On a CUDA device the thread fills one of `PREFETCH` pinned host buffers (it
@@ -99,6 +109,7 @@ class DataPipeline:
         self.shuffle = shuffle
         self.seed = seed
         self.augment = augment
+        self.rows = local_batch_slice(batch_size)   # this rank's rows of a batch
         self.steps_per_epoch = len(source) // batch_size
         if self.steps_per_epoch == 0:
             raise ValueError(
@@ -135,14 +146,14 @@ class DataPipeline:
                 if cuda:
                     torch.cuda.set_device(self.device)
                     stream = torch.cuda.Stream(self.device)
-                    shape = (self.batch_size,) + self.source.voxels.shape[1:]
+                    shape = (self.rows.stop - self.rows.start,) + self.source.voxels.shape[1:]
                     pinned = [torch.empty(shape, dtype=torch.float32, pin_memory=True)
                               for _ in range(PREFETCH)]
                     copied = [None] * PREFETCH
                 for step in range(self.steps_per_epoch):
                     if stop.is_set():
                         return
-                    idx = order[step * self.batch_size:(step + 1) * self.batch_size]
+                    idx = order[step * self.batch_size:(step + 1) * self.batch_size][self.rows]
                     lab = self.source.labels[idx]
                     if not cuda:
                         vox = self._device_batch(torch.from_numpy(self.source.voxels[idx]),

@@ -27,6 +27,8 @@ from sivae_torch.config import ActivationConfig
 from sivae_torch.kernels.conv3d import conv3d_same
 from sivae_torch.kernels.conv3d_small import conv3d_from1, conv3d_to1
 from sivae_torch.ops.fused_upconv import upsampled_conv3x3
+from sivae_torch.parallel.distributed import world_size
+from sivae_torch.parallel.mesh import all_reduce_
 from sivae_torch.utils.dtypes import widen
 
 CL = torch.channels_last_3d
@@ -232,13 +234,30 @@ class _BatchNormTrain(torch.autograd.Function):
 
     Returns (y, mean, var); mean and var (biased) are not differentiable and
     feed the running statistics.
+
+    Under data parallelism (a process group of more than one rank, each with
+    an equal shard of the global batch) the statistics are the GLOBAL
+    batch's, as GSPMD makes them in the JAX package
+    (`sivae_tpu/parallel/mesh.py:4-10`): the forward all-reduces
+    `[sum x, sum x^2]` once and divides by the global count, and the
+    backward all-reduces `[sum g, sum g * xhat]` once for `dx`. The weight
+    and bias gradients it returns stay this rank's own sums: the step's
+    gradient all-reduce averages them with every other gradient. In one
+    process no collective runs and the arithmetic is the one above.
     """
 
     @staticmethod
     def forward(ctx, x, weight, bias, eps, slope, out_dtype):
         xf = widen(x)
-        mean = xf.mean(dim=_BN_AXES)
-        raw_var = (xf * xf).mean(dim=_BN_AXES) - mean * mean
+        ctx.world = world_size()
+        ctx.n = x.numel() // x.shape[1] * ctx.world
+        if ctx.world == 1:
+            mean = xf.mean(dim=_BN_AXES)
+            raw_var = (xf * xf).mean(dim=_BN_AXES) - mean * mean
+        else:
+            sums = torch.cat([xf.sum(dim=_BN_AXES), (xf * xf).sum(dim=_BN_AXES)])
+            mean, ex2 = all_reduce_(sums, "bn").div_(ctx.n).chunk(2)
+            raw_var = ex2 - mean * mean
         del xf
         var = raw_var.clamp_min(0.0)  # flax's fast variance: max(0, E[x^2] - mean^2)
         rstd = torch.rsqrt(var + eps)
@@ -257,7 +276,7 @@ class _BatchNormTrain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g, _g_mean, _g_var):
         x, weight, bias, mean, rstd, k = ctx.saved_tensors
-        n = x.numel() // x.shape[1]
+        n = ctx.n
         d = x - mean.view(_BN_VIEW)                      # fp32, a new tensor
         mul = rstd * weight.to(rstd.dtype)
         gf = g.to(rstd.dtype)
@@ -270,8 +289,11 @@ class _BatchNormTrain(torch.autograd.Function):
         dweight = (gf * xhat).sum(dim=_BN_AXES)
         dx = None
         if ctx.needs_input_grad[0]:
-            dx = xhat.mul_((-k * dweight / n).view(_BN_VIEW)).add_(gf)
-            dx = dx.sub_((dbias / n).view(_BN_VIEW)).mul_(mul.view(_BN_VIEW)).to(x.dtype)
+            sum_gx, sum_g = dweight, dbias
+            if ctx.world > 1:
+                sum_gx, sum_g = all_reduce_(torch.cat([dweight, dbias]), "bn_grad").chunk(2)
+            dx = xhat.mul_((-k * sum_gx / n).view(_BN_VIEW)).add_(gf)
+            dx = dx.sub_((sum_g / n).view(_BN_VIEW)).mul_(mul.view(_BN_VIEW)).to(x.dtype)
         return dx, dweight.to(weight.dtype), dbias.to(bias.dtype), None, None, None
 
 
@@ -286,7 +308,10 @@ class BatchNorm(nn.Module):
     mean and mean of squares in fp32 (float64 for a float64 input),
     `var = max(0, E[x^2] - mean^2)`, and moves the running statistics by
     `0.9 * old + 0.1 * new` with the BIASED variance, as flax does (torch's
-    `BatchNorm3d` stores the unbiased one).
+    `BatchNorm3d` stores the unbiased one). Under data parallelism the batch
+    is the global one (`_BatchNormTrain`), so the running statistics move
+    alike on every rank. torch's `SyncBatchNorm` is not used: it stores the
+    unbiased variance and has neither the fused activation nor flax's order.
     Buffer names are torch's (`num_batches_tracked` included), so reference
     checkpoints load.
     """

@@ -20,6 +20,14 @@ checkpoint manager skips the steps that the directory already holds.
 The plain trainers keep the JAX package's cadences: a checkpoint every 10
 epochs (the reference's, my_trainer.py:628) for the VAE and CAE, none for
 the classifier, and no resume from the CLI.
+
+Under data parallelism (`sivae_torch/parallel/`) every rank builds the same
+trainer, and `replicate_state` checks that the ranks hold the same state
+after construction and after a resume. Each rank's pipelines feed its rows
+of every global batch (validation included); the epoch means are averaged
+over the ranks, the `nan` flag with them, so every rank raises together.
+The logs, checkpoints, plots and panels are written by rank 0 only; each
+save ends at a barrier (`CheckpointManager.save`).
 """
 
 from __future__ import annotations
@@ -35,6 +43,8 @@ import torch
 from sivae_torch.config import OptimConfig, SoftIntroLossConfig, TrainConfig
 from sivae_torch.eval.recon_quality import eval_mode, reconstruct
 from sivae_torch.models.resnet_vae import SoftIntroVAE, SpatialDecoder, SpatialEncoder
+from sivae_torch.parallel.distributed import is_main_process
+from sivae_torch.parallel.mesh import mean_across, replicate_state
 from sivae_torch.train.state import create_train_state
 from sivae_torch.train.step import (make_cae_train_step, make_classifier_eval_step,
                                     make_classifier_train_step, make_soft_intro_eval_step,
@@ -54,8 +64,9 @@ def _add(sums: Optional[Dict[str, torch.Tensor]], metrics: Dict[str, torch.Tenso
 
 
 def _to_host(sums: Dict[str, torch.Tensor]) -> Dict[str, float]:
-    """One device-to-host copy for the whole dict."""
-    values = torch.stack(list(sums.values())).cpu().tolist()
+    """One device-to-host copy for the whole dict, of the means over the
+    ranks under data parallelism (every rank runs as many batches)."""
+    values = mean_across(torch.stack(list(sums.values()))).cpu().tolist()
     return dict(zip(sums, values))
 
 
@@ -83,7 +94,7 @@ def _train_means(batches, step, epoch: int) -> Dict[str, float]:
 
 
 def _plot_ae(history, run_dir: str) -> None:
-    if matplotlib_missing() is None:
+    if is_main_process() and matplotlib_missing() is None:
         plot_ae_losses(history, run_dir)
 
 
@@ -113,7 +124,8 @@ class SoftIntroTrainer:
         self.ckpt = CheckpointManager(os.path.join(run_dir, "ckpt"),
                                       max_to_keep=keep_checkpoints)
         self.device = next(model.parameters()).device
-        self.state = create_train_state(model, seed=train_cfg.seed, optim_cfg=optim_cfg)
+        self.state = replicate_state(create_train_state(model, seed=train_cfg.seed,
+                                                        optim_cfg=optim_cfg))
         shape = model.cfg.input_shape
         self._step = make_soft_intro_train_step(model, loss_cfg, optim_cfg, steps_per_epoch, shape)
         self._eval = make_soft_intro_eval_step(model, loss_cfg, shape, val_eps=train_cfg.val_eps)
@@ -123,7 +135,7 @@ class SoftIntroTrainer:
     def try_resume(self) -> Optional[int]:
         latest = self.ckpt.latest_step()
         if latest is not None:
-            self.ckpt.restore(self.state, latest)
+            replicate_state(self.ckpt.restore(self.state, latest))
         return latest
 
     def train_epoch(self, pipeline, epoch: int) -> Dict[str, float]:
@@ -165,8 +177,9 @@ class SoftIntroTrainer:
             verbose: bool = True) -> Dict[str, List[float]]:
         epochs = epochs if epochs is not None else self.train_cfg.epochs
         tc = self.train_cfg
-        no_plots = matplotlib_missing()
-        if no_plots is not None:
+        main = is_main_process()
+        no_plots = matplotlib_missing() if main else "not rank 0"
+        if main and no_plots is not None:
             print(f"[plots] loss plots and image panels skipped: matplotlib does not import "
                   f"({no_plots}); the CSV / JSONL / txt logs are written", flush=True)
         for epoch in range(epochs):
@@ -198,7 +211,7 @@ class SoftIntroTrainer:
             if (no_plots is None and tc.log_images_every_epochs
                     and epoch % tc.log_images_every_epochs == 0):
                 self.save_panels(train_pipeline, epoch, val_pipeline=val_pipeline)
-            if verbose:
+            if verbose and main:
                 print(self.logger.epoch_line(epoch, epochs, train_m, val_m,
                                              time.time() - t0), flush=True)
         if no_plots is None:
@@ -233,8 +246,8 @@ class VAETrainer:
         self.ckpt = CheckpointManager(os.path.join(run_dir, "ckpt"),
                                       max_to_keep=keep_checkpoints)
         self.device = next(model.parameters()).device
-        self.state = create_train_state(model, seed=train_cfg.seed, optim_cfg=optim_cfg,
-                                        joint_optimizer=True)
+        self.state = replicate_state(create_train_state(
+            model, seed=train_cfg.seed, optim_cfg=optim_cfg, joint_optimizer=True))
         self._step = make_vae_train_step(model, optim_cfg, steps_per_epoch, mse_w, kl_w)
         self._eval = make_vae_eval_step(model)
 
@@ -257,7 +270,7 @@ class VAETrainer:
             self.logger.write_mse_kl_txt("train_losses.txt", "train_mse", "train_kl")
             if epoch % self.checkpoint_every == 0:
                 self.ckpt.save(epoch, self.state)
-            if verbose:
+            if verbose and is_main_process():
                 print(f"Epoch[{epoch + 1}/{epochs}] "
                       f"train[loss:{train_m['loss']:.1f} mse:{train_m['mse']:.1f} "
                       f"kl:{train_m['kl']:.1f}] val[loss:{val_m.get('loss', float('nan')):.1f}] "
@@ -292,8 +305,8 @@ class CAETrainer:
         self.logger = MetricsLogger(run_dir, csv_columns=["epoch", "train_loss", "val_loss"])
         self.ckpt = CheckpointManager(os.path.join(run_dir, "ckpt"),
                                       max_to_keep=keep_checkpoints)
-        self.state = create_train_state(self.model, seed=train_cfg.seed + 2, optim_cfg=optim_cfg,
-                                        joint_optimizer=True)
+        self.state = replicate_state(create_train_state(
+            self.model, seed=train_cfg.seed + 2, optim_cfg=optim_cfg, joint_optimizer=True))
         self._step = make_cae_train_step(self.model, optim_cfg, steps_per_epoch)
 
     @torch.no_grad()
@@ -317,7 +330,7 @@ class CAETrainer:
             self.logger.write_epoch(epoch, {"train_loss": train_m["loss"], "val_loss": val_loss})
             if epoch % self.checkpoint_every == 0:
                 self.ckpt.save(epoch, self.state)
-            if verbose:
+            if verbose and is_main_process():
                 print(f"Epoch[{epoch + 1}/{epochs}] train_loss:{train_m['loss']:.5f} "
                       f"val_loss:{val_loss:.5f} epoch:{time.time() - t0:.1f}s", flush=True)
         _plot_ae(self.logger.history, self.run_dir)
@@ -340,8 +353,8 @@ class ClassifierTrainer:
         os.makedirs(run_dir, exist_ok=True)
         self.logger = MetricsLogger(
             run_dir, csv_columns=["epoch", "train_loss", "train_acc", "val_loss", "val_acc"])
-        self.state = create_train_state(model, seed=train_cfg.seed, optim_cfg=optim_cfg,
-                                        joint_optimizer=True)
+        self.state = replicate_state(create_train_state(
+            model, seed=train_cfg.seed, optim_cfg=optim_cfg, joint_optimizer=True))
         self._step = make_classifier_train_step(model, optim_cfg, steps_per_epoch)
         self._eval = make_classifier_eval_step(model)
 
@@ -362,7 +375,7 @@ class ClassifierTrainer:
                 "train_loss": tm["loss"], "train_acc": tm["acc"],
                 "val_loss": vm.get("loss", float("nan")),
                 "val_acc": vm.get("acc", float("nan"))})
-            if verbose:
+            if verbose and is_main_process():
                 print(f"Epoch[{epoch + 1}/{epochs}] loss:{tm['loss']:.3f} "
                       f"acc:{tm['acc'] * 100:.1f}% val_acc:"
                       f"{vm.get('acc', float('nan')) * 100:.1f}% "
@@ -370,8 +383,9 @@ class ClassifierTrainer:
         return self.logger.history
 
     def confusion_matrix(self, pipeline, class_map, path: str):
-        """(confusion matrix, accuracy) over one pass of `pipeline`; the
-        heatmap goes to `path` where matplotlib imports."""
+        """(confusion matrix, accuracy) over one pass of `pipeline` (this
+        rank's rows under data parallelism); the heatmap goes to `path`
+        where matplotlib imports."""
         from sivae_torch.eval.confusion import make_confusion_matrix, predict_all
 
         preds, labels, acc = predict_all(self._eval, self.state, pipeline)

@@ -29,6 +29,31 @@ forward that has dropout; they cannot equal JAX's bits, so the tests
 compare the two steps with `zero_noise` / `fixed_noise` and no dropout.
 The metrics are 0-d tensors left on the device: the step itself never
 waits for the card.
+
+Data parallelism (one process per card, `sivae_torch/parallel/`): each rank
+runs this step on its rows of the global batch, and the step computes the
+global-batch step of the JAX package's mesh:
+- BatchNorm takes the global batch's statistics (`models/blocks.py`);
+- after each backward, one bucketed mean all-reduce of the `.grad`s that
+  exist (`parallel.mesh.average_gradients`): phase E's encoder half, phase
+  D's decoder half, or the plain steps' whole model. Each rank's loss is
+  its shard's mean, so the mean of the ranks' gradients is the gradient of
+  the global-batch loss;
+- a batch mean that enters a non-linear term is made global before it does:
+  the dp_semantics expELBO's reconstruction means go inside `exp`, so they
+  pass through a differentiable all-reduce (`global_mean`). Every other
+  loss term is a mean over samples (or over samples and positions) of
+  per-sample values, linear in the shards;
+- the noise batch and the reparameterisation eps are drawn for the global
+  batch and each rank keeps its rows (`normal_rows`), so with dropout off
+  the ranks together draw one process's noise; dropout masks, the size of
+  the activations, come from a generator that folds in the rank
+  (`rank_generator`). The state's generator moves alike on every rank.
+`torch.nn.parallel.DistributedDataParallel` is not used: its reducer
+assumes one forward and one backward over a fixed set of parameters, where
+this step runs 13 forwards and two backwards over halves switched by
+`requires_grad_`. In one process none of this runs any collective, and the
+step is the one described above.
 """
 
 from __future__ import annotations
@@ -45,7 +70,11 @@ from sivae_torch.models.resnet_vae import SoftIntroVAE, reparameterize
 from sivae_torch.ops.losses import (calc_kl, calc_kl_per_position, calc_reconstruction_loss,
                                     normal_loss, soft_intro_decoder_loss,
                                     soft_intro_encoder_loss)
+from sivae_torch.parallel.distributed import local_batch_slice, world_size
+from sivae_torch.parallel.mesh import (average_gradients, global_mean, normal_rows,
+                                       rank_generator)
 from sivae_torch.train.state import SIVAETrainState, learning_rate
+from sivae_torch.utils.dtypes import widen
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -61,12 +90,45 @@ def _set_generator(drops: Sequence[Dropout], gen: Optional[torch.Generator]) -> 
 
 def _noise_batch(b: int, latent_shape, dev, zero_noise: bool, fixed_noise,
                  gen: Optional[torch.Generator]) -> torch.Tensor:
+    """This rank's `b` rows of the global batch's noise; `fixed_noise` holds
+    the global batch's values."""
     shape = (b,) + tuple(latent_shape)
     if fixed_noise is not None:
-        return torch.as_tensor(fixed_noise, dtype=torch.float32).to(dev).reshape(shape)
+        full = torch.as_tensor(fixed_noise, dtype=torch.float32).to(dev)
+        full = full.reshape((b * world_size(),) + tuple(latent_shape))
+        return full[local_batch_slice(full.shape[0])]
     if zero_noise:
         return torch.zeros(shape, dtype=torch.float32, device=dev)
-    return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+    return normal_rows(shape, gen, dev)
+
+
+def _reparam(mu: torch.Tensor, logvar: torch.Tensor, val_eps: Optional[float],
+             gen: Optional[torch.Generator]) -> torch.Tensor:
+    """`reparameterize`, whose random eps is drawn for the global batch and
+    this rank's rows kept under data parallelism."""
+    if val_eps is not None or world_size() == 1:
+        return reparameterize(mu, logvar, val_eps=val_eps, generator=gen)
+    std = torch.exp(0.5 * widen(logvar))
+    return widen(mu) + normal_rows(tuple(std.shape), gen, std.device) * std
+
+
+def _update(opt: torch.optim.Adam, loss: torch.Tensor, lr: float) -> None:
+    """One Adam update from `loss` at rate `lr`; under data parallelism the
+    gradients are averaged over the ranks between the backward and the step."""
+    opt.zero_grad(set_to_none=True)
+    loss.backward()
+    average_gradients(p for group in opt.param_groups for p in group["params"])
+    for group in opt.param_groups:
+        group["lr"] = lr
+    opt.step()
+
+
+def _elbo_recon(dp: bool):
+    """The expELBO's reconstruction terms: per sample, or under dp_semantics
+    the global batch's mean, which goes inside `exp` (`global_mean`)."""
+    if dp:
+        return lambda x, y: global_mean(calc_reconstruction_loss(x, y, reduction="mean"))
+    return calc_reconstruction_loss
 
 
 def make_soft_intro_train_step(
@@ -85,11 +147,12 @@ def make_soft_intro_train_step(
 
     zero_noise=True makes the step deterministic (noise batch 0, every
     reparameterize returns mu): test support, never for real training.
-    fixed_noise (an array of B * latent_dim values) replaces the noise batch
-    and leaves zero_noise's eps behaviour as it is: a ZERO noise batch makes the
-    fake path constant per channel, so every BN on it sees batch variance 0
-    and the gradients through it are rounding noise; a fixed non-zero batch
-    keeps the comparison with the JAX step sharp.
+    fixed_noise (an array of B * latent_dim values, B the global batch)
+    replaces the noise batch and leaves zero_noise's eps behaviour as it is:
+    a ZERO noise batch makes the fake path constant per channel, so every BN
+    on it sees batch variance 0 and the gradients through it are rounding
+    noise; a fixed non-zero batch keeps the comparison with the JAX step
+    sharp.
 
     share_phase_d_dropout_keys=True (the JAX package's default) gives phase
     D's `decode(noise)` and `decode(z)` the masks phase E drew for them, so
@@ -101,6 +164,7 @@ def make_soft_intro_train_step(
     dp = loss_cfg.dp_semantics
     kl = calc_kl_per_position if dp else calc_kl
     recon = calc_reconstruction_loss
+    elbo_recon = _elbo_recon(dp)
     enc_drops, dec_drops = _dropouts(model.encoder), _dropouts(model.decoder)
     share = share_phase_d_dropout_keys and bool(dec_drops)
 
@@ -109,9 +173,11 @@ def make_soft_intro_train_step(
             raise ValueError("the step was built for another model than the state holds")
         gen, dev, b = state.generator, real.device, real.shape[0]
         lr = learning_rate(optim_cfg, steps_per_epoch, state.step)
+        # the dropout masks' generator: the state's own in one process
+        drop_gen = gen if world_size() == 1 else rank_generator(gen, state.step)
 
         def reparam(mu, logvar):
-            return reparameterize(mu, logvar, val_eps=eps0, generator=gen)
+            return _reparam(mu, logvar, eps0, gen)
 
         def replayed_decode(z, gen_state):
             """decode with the masks drawn at `gen_state` (phase E's)."""
@@ -121,23 +187,16 @@ def make_soft_intro_train_step(
             try:
                 return model.decode(z)
             finally:
-                _set_generator(dec_drops, gen)
-
-        def update(opt, loss):
-            opt.zero_grad(set_to_none=True)
-            loss.backward()
-            for group in opt.param_groups:
-                group["lr"] = lr
-            opt.step()
+                _set_generator(dec_drops, drop_gen)
 
         # ============ Phase E: update encoder ============ (my_trainer.py:241-288)
         def phase_e():
             model.decoder.requires_grad_(False)
-            s_fake = gen.get_state() if share else None
+            s_fake = drop_gen.get_state() if share else None
             fake = model.decode(noise)
             real_mu, real_logvar = model.encode(real)
             z = reparam(real_mu, real_logvar)
-            s_rec = gen.get_state() if share else None
+            s_rec = drop_gen.get_state() if share else None
             rec = model.decode(z)
 
             loss_rec = recon(real, rec, reduction="mean")
@@ -150,11 +209,11 @@ def make_soft_intro_train_step(
             rec_fake = model.decode(reparam(fake_mu, fake_logvar))
 
             # dp_semantics: the DP reconstruction loss ignores `reduction`, so
-            # the expELBO recon terms are batch-mean scalars there
-            elbo_red = "mean" if dp else "none"
-            loss_fake_rec = recon(fake, rec_fake, reduction=elbo_red)
+            # the expELBO recon terms are batch-mean scalars there, of the
+            # global batch: they go inside exp
+            loss_fake_rec = elbo_recon(fake, rec_fake)
             # the target `rec` is NOT detached here (my_trainer.py:275)
-            loss_rec_rec = recon(rec, rec_rec, reduction=elbo_red)
+            loss_rec_rec = elbo_recon(rec, rec_rec)
             loss_e, e_fake, e_rec = soft_intro_encoder_loss(
                 loss_rec=loss_rec, kl_real=kl_real, loss_fake_rec=loss_fake_rec,
                 loss_rec_rec=loss_rec_rec, fake_kl=kl(fake_logvar, fake_mu, "none"),
@@ -162,7 +221,7 @@ def make_soft_intro_train_step(
                 beta_neg=loss_cfg.beta_neg, beta_kl=loss_cfg.beta_kl,
                 exp_elbo_weight=loss_cfg.exp_elbo_weight,
                 loss_multiplier=loss_cfg.loss_multiplier)
-            update(state.opt_e, loss_e)
+            _update(state.opt_e, loss_e, lr)
             model.decoder.requires_grad_(True)
             aux = {"lossE": loss_e, "kl_real": kl_real, "exp_elbo_fake": e_fake,
                    "exp_elbo_rec": e_rec}
@@ -196,13 +255,13 @@ def make_soft_intro_train_step(
                 loss_fake_rec=recon(fake.detach(), rec_fake, reduction="mean"),
                 scale=scale, beta_rec=loss_cfg.beta_rec, beta_kl=loss_cfg.beta_kl,
                 gamma_r=loss_cfg.gamma_r, loss_multiplier=loss_cfg.loss_multiplier)
-            update(state.opt_d, loss_d)
+            _update(state.opt_d, loss_d, lr)
             model.encoder.requires_grad_(True)
             aux = {"lossD": loss_d, "loss_rec": loss_rec, "rec_kl": rec_kl, "fake_kl": fake_kl}
             return {k: v.detach() for k, v in aux.items()}
 
         model.train()
-        _set_generator(enc_drops + dec_drops, gen)
+        _set_generator(enc_drops + dec_drops, drop_gen)
         try:
             noise = _noise_batch(b, model.cfg.latent_shape, dev, zero_noise, fixed_noise, gen)
             aux_e, z, s_fake, s_rec = phase_e()
@@ -254,6 +313,7 @@ def make_soft_intro_eval_step(
     dp = loss_cfg.dp_semantics
     kl = calc_kl_per_position if dp else calc_kl
     recon = calc_reconstruction_loss
+    elbo_recon = _elbo_recon(dp)
 
     @torch.no_grad()
     def eval_step(state: SIVAETrainState, real: torch.Tensor,
@@ -272,16 +332,13 @@ def make_soft_intro_eval_step(
         kl_real = kl(real_logvar, real_mu, "mean")
 
         rec_mu, rec_logvar = model.encode(rec)
-        rec_rec = model.decode(reparameterize(rec_mu, rec_logvar, val_eps=eps0,
-                                              generator=generator))
+        rec_rec = model.decode(_reparam(rec_mu, rec_logvar, eps0, generator))
         fake_mu, fake_logvar = model.encode(fake)
-        rec_fake = model.decode(reparameterize(fake_mu, fake_logvar, val_eps=eps0,
-                                               generator=generator))
-        elbo_red = "mean" if dp else "none"
+        rec_fake = model.decode(_reparam(fake_mu, fake_logvar, eps0, generator))
         loss_e, e_fake, e_rec = soft_intro_encoder_loss(
             loss_rec=loss_rec, kl_real=kl_real,
-            loss_fake_rec=recon(fake, rec_fake, reduction=elbo_red),
-            loss_rec_rec=recon(rec, rec_rec, reduction=elbo_red),
+            loss_fake_rec=elbo_recon(fake, rec_fake),
+            loss_rec_rec=elbo_recon(rec, rec_rec),
             fake_kl=kl(fake_logvar, fake_mu, "none"), rec_kl=kl(rec_logvar, rec_mu, "none"),
             scale=scale, beta_rec=loss_cfg.beta_rec, beta_neg=loss_cfg.beta_neg,
             beta_kl=loss_cfg.beta_kl, exp_elbo_weight=loss_cfg.exp_elbo_weight,
@@ -326,14 +383,11 @@ def _plain_update(state: SIVAETrainState, model: torch.nn.Module, optim_cfg: Opt
                          "create_train_state(..., joint_optimizer=True)")
     drops = _dropouts(model)
     model.train()
-    _set_generator(drops, state.generator)
+    gen = state.generator
+    _set_generator(drops, gen if world_size() == 1 else rank_generator(gen, state.step))
     try:
         loss, aux = loss_fn()
-        state.opt_e.zero_grad(set_to_none=True)
-        loss.backward()
-        for group in state.opt_e.param_groups:
-            group["lr"] = learning_rate(optim_cfg, steps_per_epoch, state.step)
-        state.opt_e.step()
+        _update(state.opt_e, loss, learning_rate(optim_cfg, steps_per_epoch, state.step))
     finally:
         _set_generator(drops, None)
         model.eval()
@@ -352,7 +406,7 @@ def make_vae_train_step(model: SoftIntroVAE, optim_cfg: OptimConfig, steps_per_e
     def train_step(state: SIVAETrainState, real: torch.Tensor):
         def loss_fn():
             mu, logvar = model.encode(real)
-            x_re = model.decode(reparameterize(mu, logvar, generator=state.generator))
+            x_re = model.decode(_reparam(mu, logvar, None, state.generator))
             loss, mse, kld = normal_loss(x_re, mu, logvar, real, msew=mse_w, kldw=kl_w)
             return loss, {"loss": loss, "mse": mse, "kl": kld}
 
@@ -374,7 +428,7 @@ def make_vae_eval_step(model: SoftIntroVAE):
             raise ValueError("the step was built for another model than the state holds")
         model.eval()
         mu, logvar = model.encode(real)
-        x_re = model.decode(reparameterize(mu, logvar, generator=generator))
+        x_re = model.decode(_reparam(mu, logvar, None, generator))
         loss, mse, kld = normal_loss(x_re, mu, logvar, real, msew=1.0, kldw=10.0)
         return {"loss": loss, "mse": mse, "kl": kld}
 

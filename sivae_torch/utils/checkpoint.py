@@ -15,7 +15,11 @@ with orbax; here each step is one `torch.save` file, `<dir>/<step>.pth`:
 
 Each write goes to a temporary file in the same directory, then
 `os.replace`s it into place, so a run killed mid-write leaves the previous
-checkpoints whole. Reading the JAX package's orbax checkpoints needs JAX:
+checkpoints whole. Under data parallelism rank 0 writes (the ranks hold the
+same state) and every rank waits at a barrier until the file is in place;
+every rank restores, and the caller checks the ranks agree
+(`parallel.replicate_state`, as `SoftIntroTrainer.try_resume` does).
+Reading the JAX package's orbax checkpoints needs JAX:
 `tools/torch_from_orbax.py` converts them into this layout.
 """
 
@@ -26,6 +30,8 @@ import struct
 from typing import List, Optional
 
 import torch
+
+from sivae_torch.parallel.distributed import barrier, is_main_process, main_decides
 
 ORBAX_HINT = ("the JAX package's orbax checkpoints convert into port checkpoints with "
               "`python tools/torch_from_orbax.py <ckpt_dir> <out_dir>` (needs JAX)")
@@ -61,6 +67,25 @@ def seeded_generator_state(device_type: str, seed: int) -> torch.Tensor:
     raise ValueError(f"no generator state for device type {device_type!r}")
 
 
+def state_payload(state) -> dict:
+    """The train state as one checkpoint's dict (the layout above)."""
+    opt_d = None if state.opt_d is None else state.opt_d.state_dict()
+    return {"model": state.model.state_dict(), "opt_e": state.opt_e.state_dict(),
+            "opt_d": opt_d, "generator": state.generator.get_state(),
+            "generator_device": state.generator.device.type, "step": int(state.step)}
+
+
+def load_payload(state, payload: dict):
+    """Copy a checkpoint's dict into `state`, in place; returns `state`."""
+    state.model.load_state_dict(payload["model"])
+    state.opt_e.load_state_dict(payload["opt_e"])
+    if state.opt_d is not None:
+        state.opt_d.load_state_dict(payload["opt_d"])
+    state.generator.set_state(payload["generator"])
+    state.step = int(payload["step"])
+    return state
+
+
 class CheckpointManager:
     """save(step, state), restore(state[, step]), latest_step(), all_steps().
 
@@ -84,19 +109,21 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def save(self, step: int, state) -> bool:
-        latest = self.latest_step()
-        if latest is not None and step <= latest:
+        """Under data parallelism rank 0 decides and writes; every rank
+        returns once the file is in place (a collective: call it on every
+        rank)."""
+        main = is_main_process()
+        latest = self.latest_step() if main else None
+        if not main_decides(latest is None or step > latest):
             return False
-        opt_d = None if state.opt_d is None else state.opt_d.state_dict()
-        payload = {"model": state.model.state_dict(), "opt_e": state.opt_e.state_dict(),
-                   "opt_d": opt_d, "generator": state.generator.get_state(),
-                   "generator_device": state.generator.device.type, "step": int(state.step)}
-        tmp = self.path(step) + ".tmp"
-        torch.save(payload, tmp)
-        os.replace(tmp, self.path(step))
-        if self.max_to_keep is not None:
-            for old in self.all_steps()[:-self.max_to_keep]:
-                os.remove(self.path(old))
+        if main:
+            tmp = self.path(step) + ".tmp"
+            torch.save(state_payload(state), tmp)
+            os.replace(tmp, self.path(step))
+            if self.max_to_keep is not None:
+                for old in self.all_steps()[:-self.max_to_keep]:
+                    os.remove(self.path(old))
+        barrier()
         return True
 
     def restore(self, state, step: Optional[int] = None):
@@ -115,13 +142,7 @@ class CheckpointManager:
                              f"generator; the state's is on {state.generator.device.type}")
         if (payload["opt_d"] is None) != (state.opt_d is None):
             raise ValueError(f"{self.path(step)} and the state disagree on a joint optimizer")
-        state.model.load_state_dict(payload["model"])
-        state.opt_e.load_state_dict(payload["opt_e"])
-        if state.opt_d is not None:
-            state.opt_d.load_state_dict(payload["opt_d"])
-        state.generator.set_state(payload["generator"])
-        state.step = int(payload["step"])
-        return state
+        return load_payload(state, payload)
 
     def close(self) -> None:
         """Nothing to wait for: every write is finished when `save` returns."""

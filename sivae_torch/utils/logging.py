@@ -9,6 +9,9 @@ port runs), the reference's observability surface (SURVEY §5):
 - train_losses.txt / val_losses.txt (mse+kl pairs, :541-546)
 - stdout epoch lines with Rec/KL/expELBO/DIFF_KL and wall-clock
 plus metrics.jsonl, one machine-readable record per epoch.
+
+Under data parallelism every rank keeps the history (the epoch means are
+the same on every rank) and only rank 0 writes the files: one set per run.
 """
 
 from __future__ import annotations
@@ -19,6 +22,9 @@ import os
 import time
 from typing import Dict, List, Optional
 
+from sivae_torch.parallel.distributed import is_main_process
+
+
 class MetricsLogger:
     def __init__(self, run_dir: str, csv_columns: Optional[List[str]] = None):
         self.run_dir = run_dir
@@ -27,8 +33,10 @@ class MetricsLogger:
         self.jsonl_path = os.path.join(run_dir, "metrics.jsonl")
         self.columns = csv_columns or [
             "epoch", "train_lossE", "train_lossD", "val_lossE", "val_lossD"]
-        with open(self.csv_path, "w", newline="") as f:
-            csv.writer(f).writerow(self.columns)
+        self.writes = is_main_process()
+        if self.writes:
+            with open(self.csv_path, "w", newline="") as f:
+                csv.writer(f).writerow(self.columns)
         self.history: Dict[str, List[float]] = {}
         self.start_time = time.time()
 
@@ -37,6 +45,8 @@ class MetricsLogger:
             self.history.setdefault(k, []).append(float(v))
 
     def write_epoch(self, epoch: int, row: Dict[str, float]) -> None:
+        if not self.writes:
+            return
         with open(self.csv_path, "a", newline="") as f:
             csv.writer(f).writerow(
                 [epoch] + [row.get(c, float("nan")) for c in self.columns[1:]])
@@ -46,6 +56,8 @@ class MetricsLogger:
 
     # --- reference-format txt dumps (rewritten whole each epoch) ---------
     def write_loss_txt(self) -> None:
+        if not self.writes:
+            return
         h = self.history
         with open(os.path.join(self.run_dir, "loss.txt"), "w") as f:
             for te, ve, td, vd in zip(h.get("train_lossE", []), h.get("val_lossE", []),
@@ -53,6 +65,8 @@ class MetricsLogger:
                 f.write(f"trainE={te}\nvalE==={ve}\ntrainD={td}\nvalD==={vd}\n")
 
     def write_kl_txt(self) -> None:
+        if not self.writes:
+            return
         h = self.history
         with open(os.path.join(self.run_dir, "kl_losses.txt"), "w") as f:
             for a, b, c, d in zip(h.get("kls_real", []), h.get("kls_fake", []),
@@ -60,6 +74,8 @@ class MetricsLogger:
                 f.write(f"kls_real=={a}\nkls_fake=={b}\nkls_rec==={c}\nrec_errs=={d}\n")
 
     def write_mse_kl_txt(self, name: str, mse_key: str, kl_key: str) -> None:
+        if not self.writes:
+            return
         h = self.history
         with open(os.path.join(self.run_dir, name), "w") as f:
             for m, k in zip(h.get(mse_key, []), h.get(kl_key, [])):

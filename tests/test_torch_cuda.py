@@ -14,6 +14,10 @@ fused kernel's plane sums 1e-3 * max(1, max|plain sum|) (fp32 atomics in
 another order, over values a few of which differ by one rounding)."""
 
 import dataclasses
+import os
+import socket
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -770,3 +774,54 @@ def test_checkpoint_restores_on_the_card_bit_for_bit(cuda_device, tmp_path):
     assert other.step == state.step == 1
     with pytest.raises(ValueError, match="generator"):
         mgr.restore(create_train_state(make_model(cfg, device="cpu", seed=4), seed=5))
+
+
+@pytest.mark.gpu
+def test_two_gloo_ranks_on_one_card_match_one_process(cuda_device, tmp_path):
+    """Data parallelism on the card: 2 gloo ranks sharing it
+    (tests/torch_ddp_worker.py --card), each with 2 rows of a global batch
+    of 4, take one fp32 tiny_spatial step through the kernels; one process
+    on the card takes the same step on the whole batch. The ranks end bit
+    for bit alike; against one process the mean of their metrics within
+    1e-4 relative, BN running statistics within 1e-5 (the stem BN's mean
+    1e-4: its conv bias has a zero gradient whose sign is rounding noise),
+    first moments within 1e-3 of their tensor's largest plus 1e-4 of the
+    model's largest (rounding noise where the exact gradient is 0)."""
+    import numpy as np
+
+    from torch_ddp_worker import card_step
+
+    worker = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_ddp_worker.py")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, worker, "--card", str(tmp_path)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True,
+        env={**os.environ, "RANK": str(r), "LOCAL_RANK": "0", "WORLD_SIZE": "2",
+             "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-4000:]
+    ranks = [torch.load(tmp_path / f"rank{r}.pth", weights_only=False) for r in range(2)]
+    assert ranks[0]["digest"] == ranks[1]["digest"]
+    one = card_step(cuda_device)
+    for k, v in one["metrics"].items():
+        got = np.mean([r["metrics"][k] for r in ranks])
+        assert abs(got - v) <= 1e-4 * abs(v) + 1e-30, (k, got, v)
+    two = ranks[0]["payload"]
+    for k, x in one["payload"]["model"].items():
+        if "running" in k:
+            tol = 1e-4 if k == "encoder.blocks.0.1.running_mean" else 1e-5
+            assert (two["model"][k] - x).abs().max().item() <= tol * max(1.0, x.abs().max())
+    moments = [(s["exp_avg"], two[o]["state"][i]["exp_avg"]) for o in ("opt_e", "opt_d")
+               for i, s in one["payload"][o]["state"].items()]
+    noise = 1e-4 * max(a.abs().max().item() for a, _ in moments)
+    for a, b in moments:
+        assert (a - b).abs().max().item() <= 1e-3 * a.abs().max().item() + noise

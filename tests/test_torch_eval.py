@@ -401,7 +401,8 @@ def test_port_package_imports_without_jax_installed():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "for name in ('train.step', 'train.state', 'ops.losses', 'kernels.conv3d_fused',\n"
-        "             'eval.run_dir', 'data.dict_dataset'):\n"
+        "             'eval.run_dir', 'data.dict_dataset', 'parallel.mesh',\n"
+        "             'parallel.distributed'):\n"
         "    assert 'sivae_torch.' + name in names, name\n"
         "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),

@@ -296,13 +296,18 @@ def test_train_cli_refuses_what_the_port_cannot_run(argv, names, capsys):
 
 
 def test_train_cli_refuses_data_parallel_over_several_cards(monkeypatch, capsys):
+    """With 2 visible cards, data parallelism (the default) takes both, and
+    only a global batch that does not divide by 2 is refused."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     with pytest.raises(SystemExit) as ei:
-        cli_train.parse_args(["--preset", "z1200"])
-    assert ei.value.code == 2 and "ROADMAP A.9" in capsys.readouterr().err
-    assert cli_train.parse_args(["--preset", "z1200", "--no-data-parallel"]).device == "cuda:0"
+        cli_train.parse_args(["--preset", "z1200", "--batch", "7"])
+    assert ei.value.code == 2 and "global batch" in capsys.readouterr().err
+    assert cli_train.parse_args(["--preset", "z1200"]).world_size == 2
+    args = cli_train.parse_args(["--preset", "z1200", "--no-data-parallel", "--batch", "7"])
+    assert args.device == "cuda:0" and args.world_size == 1
 
 
 def test_both_clis_raise_without_cuda_unless_the_cpu_is_asked_for():
