@@ -204,9 +204,30 @@ failure exits non-zero and prints no result):
    ones enter the kernel record as `launches_by_path.fullsize` and
    `ddp_ranks`.
 
-`--only kernels,grad,path,stage,train,trainer,families,ddp` runs a subset
-while working on one phase; it ends with `{"ok": false, "partial": ...}`,
-never with the result.
+11. Rematerialisation (`sivae_torch/models/remat.py`), bf16, dropout on
+   where the family has it:
+   (a) spatial_1200 at batch 8 on phase 7's volumes, weights of seed 0, in
+   each mode: off, `remat=True` with each of the five policies, and the
+   step's `remat_calls` (no policy). Per mode from the same seeded state: a
+   warm-up step, whose metrics and Adam first moments must match the off
+   mode's (losses 1e-4 relative, moments 1e-3 of a tensor's max|m| with
+   phase 7's floor), one step with the counters at 0 (launches equal to
+   the off counts derived from the model, 155 / 10 / 12, plus the reruns'
+   derived from its conv sites and the policy), 5 timed steps (median,
+   min, max s/step) and the peak memory since the mode began, which must
+   be below the off mode's.
+   (b) Batches that do not fit an 80 GB card without remat: spatial_1200
+   at batch 48 with `remat_calls` and with policy None, and
+   spatial_1200_fullsize at batch 16 with `remat_calls`: a warm-up step,
+   then two timed steps, the first counted (launches against the derived
+   counts); finite metrics, the peak beside the no-remat peak scaled from
+   (a)'s off mode and phase 10 (d). No run without remat is tried there.
+   (c) fc_150 at batch 8, `remat=True` with the default policy against
+   off, as in (a).
+
+`--only kernels,grad,path,stage,train,trainer,families,ddp,remat` runs a
+subset while working on one phase; it ends with `{"ok": false, "partial":
+...}`, never with the result.
 
 The next-to-last line is the per-kernel JSON record (with every phase-3 row
 of each kernel under "rows"); the last line is
@@ -218,6 +239,7 @@ from __future__ import annotations
 import argparse
 import copy
 import dataclasses
+import functools
 import json
 import math
 import subprocess
@@ -317,7 +339,7 @@ SOURCES = {
 # (8 conv3d_same + 1 conv3d_from1 each) and 6 decodes (5 conv3d_same + 1
 # conv3d_to1 each)
 VAL_LAUNCHES = {"conv3d_same": 54, "conv3d_to1": 6, "conv3d_from1": 3, "conv3d_fused_stats": 0}
-PHASES = ("kernels", "grad", "path", "stage", "train", "trainer", "families", "ddp")
+PHASES = ("kernels", "grad", "path", "stage", "train", "trainer", "families", "ddp", "remat")
 
 
 def log(msg: str) -> None:
@@ -2155,10 +2177,11 @@ def _cli_world_of_one(tmp: str) -> None:
                          f"{done.stdout[-3000:]}\n{done.stderr[-3000:]}")
 
 
-def ddp_fullsize(dev, card: str) -> dict:
+def ddp_fullsize(dev, card: str) -> tuple:
     """(d): spatial_1200_fullsize (160x192x160) bf16, batch 1, dropout on:
     a warm-up step, one counted step against the counts derived from the
-    model, 3 timed steps, peak memory, finite metrics."""
+    model, 3 timed steps, peak memory, finite metrics. Returns (the counted
+    launches, the peak GiB)."""
     from sivae_torch.config import OptimConfig, SoftIntroLossConfig
     from sivae_torch.data.preprocess import preprocess_batch
     from sivae_torch.data.synthetic import SyntheticBrainSource
@@ -2207,14 +2230,14 @@ def ddp_fullsize(dev, card: str) -> dict:
     del state, step, model, real
     torch.cuda.empty_cache()
     build.reset_launches()
-    return counts
+    return counts, peak
 
 
 def phase_ddp(dev, card: str) -> tuple:
     """(a) one process's fp32 reference step here, then 2 gloo ranks on the
     card (`ddp_rank`: (a), (b), (c)), compared; the CLI under WORLD_SIZE=1;
     (d) the fullsize step. Returns (the ranks' counted launches summed, the
-    fullsize step's launches)."""
+    fullsize step's launches, its peak GiB)."""
     import os
     import tempfile
 
@@ -2299,12 +2322,209 @@ def phase_ddp(dev, card: str) -> tuple:
     _cli_world_of_one(tmp.name)
     counted = {k: sum(x["launches"][k] + y["launches"][k] for x, y in zip(b, c))
                for k in TRAIN_LAUNCHES}
-    full = ddp_fullsize(dev, card)
+    full, full_peak = ddp_fullsize(dev, card)
     if failed:
         raise SystemExit("chip_smoke: phase 10: " + "; ".join(failed))
     tmp.cleanup()
     build.reset_launches()
-    return counted, full
+    return counted, full, full_peak
+
+
+# ---------------------------------------------------------------------------
+# phase 11: rematerialisation
+# ---------------------------------------------------------------------------
+
+# (label, "block" (the config's remat) / "calls" (the step's remat_calls) /
+# None (off), policy) of phase 11 (a)
+REMAT_MODES = [("off", None, None)] + [
+    (f"remat {p}", "block", p) for p in (None, "conv_outs", "conv_outs_lo",
+                                         "conv_outs_no_dec_hi", "conv_outs_no_enc_hi")] + [
+    ("remat_calls", "calls", None)]
+
+
+def _first_moments(state) -> dict:
+    names = {p: k for k, p in state.model.named_parameters()}
+    return {names[p]: s["exp_avg"].detach().float().cpu()
+            for opt in (state.opt_e, state.opt_d) for p, s in opt.state.items()}
+
+
+def _moments_worst(got: dict, want: dict):
+    """(worst |got - want| / max(max|want| of the tensor, 1e-2 * the largest
+    moment), its tensor): phase 7's per-tensor rule with its floor."""
+    floor = 1e-2 * max(m.abs().max().item() for m in want.values())
+    return max(((got[k] - w).abs().max().item() / max(w.abs().max().item(), floor), k)
+               for k, w in want.items())
+
+
+def remat_launches(model, kind, policy) -> dict:
+    """The launches of one step: the off counts derived from the model's
+    modules, plus the convs each differentiated forward reruns, derived from
+    its conv sites and the policy (`models/remat.py`)."""
+    from sivae_torch.config import FCVAEConfig
+    from sivae_torch.models.fc_vae import fc_conv_sites
+    from sivae_torch.models.remat import soft_intro_step_recomputes
+    from sivae_torch.models.resnet_vae import spatial_conv_sites
+
+    want = soft_intro_launches(model)
+    if kind is None:
+        return want
+    sites = fc_conv_sites if isinstance(model.cfg, FCVAEConfig) else spatial_conv_sites
+    extra = soft_intro_step_recomputes(*sites(model.cfg), policy, whole_call=kind == "calls")
+    return {k: want[k] + extra.get(k, 0) for k in want}
+
+
+def _note_allocated(held: list, dev, zero_grad, *args, **kwargs):
+    held.append(torch.cuda.memory_allocated(dev))
+    return zero_grad(*args, **kwargs)
+
+
+def remat_mode(dev, cfg, real, kind, policy, timed: int, profile: str = "") -> dict:
+    """One mode of phase 11 from the seeded state: the warm-up step's
+    metrics and first moments, a counted step, `timed` timed steps (the
+    counted one among them where `timed` is below 3), the peak memory since
+    the mode began; with `profile` (its label) one more step under the
+    profiler."""
+    from sivae_torch.config import OptimConfig, SoftIntroLossConfig
+    from sivae_torch.kernels import build
+    from sivae_torch.models.registry import make_model
+    from sivae_torch.train.state import create_train_state
+    from sivae_torch.train.step import make_soft_intro_train_step
+
+    if kind == "block":
+        cfg = dataclasses.replace(cfg, remat=True, remat_policy=policy)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = make_model(cfg, device=dev, seed=0)
+    state = create_train_state(model, seed=0)
+    step = make_soft_intro_train_step(model, SoftIntroLossConfig(), OptimConfig(), 1,
+                                      cfg.input_shape, remat_calls=kind == "calls",
+                                      remat_calls_policy=policy if kind == "calls" else None)
+    want = remat_launches(model, kind, policy)
+    t0 = time.perf_counter()
+    _, m = step(state, real)
+    torch.cuda.synchronize()
+    out = {"warm_s": time.perf_counter() - t0, "metrics": _metrics_line(m),
+           "moments": _first_moments(state), "want": want}
+    # the bytes allocated when each phase's backward begins: its forwards'
+    # saved tensors, the rest of the state and the metrics
+    held = []
+    for opt in (state.opt_e, state.opt_d):
+        opt.zero_grad = functools.partial(_note_allocated, held, dev, opt.zero_grad)
+    build.reset_launches()
+    t0 = time.perf_counter()
+    _, m = step(state, real)
+    torch.cuda.synchronize()
+    counted_s = time.perf_counter() - t0
+    out["launches"] = dict(build.launches)
+    for opt in (state.opt_e, state.opt_d):
+        del opt.zero_grad
+    out["held_gib"] = [h / 2**30 for h in held]
+    times = [counted_s] if timed < 3 else []
+    for _ in range(timed - len(times)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = step(state, real)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    out["times"] = sorted(times)
+    out["last"] = _metrics_line(m)
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    if profile:
+        profile_window(profile, lambda: step(state, real), top=15)
+    del state, step, model
+    torch.cuda.empty_cache()
+    build.reset_launches()
+    return out
+
+
+def _remat_line(tag: str, label: str, r: dict, ref: Optional[dict]) -> list:
+    """Print one mode's line; return what failed."""
+    t = r["times"]
+    failed = []
+    spread = (f"{t[len(t) // 2]:.4f} s/step median, min {t[0]:.4f}, max {t[-1]:.4f} "
+              f"({len(t)} steps)" if len(t) > 2 else f"s/step {[round(x, 4) for x in t]}")
+    line = (f"[remat] {tag} {label}: {spread}; peak {r['peak_gib']:.2f} GiB, allocated as phase "
+            f"E's and D's backward begin {[round(h, 2) for h in r['held_gib']]} GiB; launches "
+            f"{r['launches']} (derived {r['want']})")
+    if r["launches"] != r["want"]:
+        failed.append(f"{tag} {label}: launches {r['launches']}, derived {r['want']}")
+    m = r["last"]
+    if m["nan"] or not all(math.isfinite(v) for k, v in m.items() if k != "nan"):
+        failed.append(f"{tag} {label}: metrics not finite {m}")
+    if ref is not None:
+        rel = {k: abs(r["metrics"][k] - ref["metrics"][k]) / abs(ref["metrics"][k])
+               for k in ("lossE", "lossD")}
+        worst, where = _moments_worst(r["moments"], ref["moments"])
+        line += (f"; warm-up step vs off: lossE rel {rel['lossE']:.2e}, lossD rel "
+                 f"{rel['lossD']:.2e} (limit 1e-4), first moments worst {worst:.2e} of max|m| "
+                 f"at {where} (limit 1e-3); peak {r['peak_gib'] / ref['peak_gib']:.3f} of off's")
+        if max(rel.values()) > 1e-4 or worst > 1e-3:
+            failed.append(f"{tag} {label}: step vs off {rel}, moments {worst:.2e} at {where}")
+        if not r["peak_gib"] < ref["peak_gib"]:
+            failed.append(f"{tag} {label}: peak {r['peak_gib']:.2f} GiB not below off's "
+                          f"{ref['peak_gib']:.2f}")
+    log(line)
+    return failed
+
+
+def phase_remat(dev, vox, fullsize_b1_gib: Optional[float]) -> dict:
+    """Phase 11 (module docstring): (a) the flagship per mode, (b) the
+    batches beyond one card without remat, (c) fc_150. `fullsize_b1_gib`
+    is phase 10 (d)'s peak (None where it did not run), scaled for the
+    no-remat peak printed beside (b)'s fullsize one."""
+    from sivae_torch.data.preprocess import preprocess_batch
+    from sivae_torch.data.synthetic import SyntheticBrainSource
+    from sivae_torch.models.registry import get_model_config
+
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    failed = []
+    bf16 = torch.bfloat16
+    cfg = dataclasses.replace(get_model_config("spatial_1200"), dtype=bf16)
+    real = vox[:8]
+    results = {}
+    for label, kind, policy in REMAT_MODES:
+        # where the added time goes: the step without remat and with the
+        # default policy, each under the profiler once
+        prof = (f"(a) spatial_1200 bf16 batch 8 {label} step"
+                if label in ("off", f"remat {cfg.remat_policy}") else "")
+        results[label] = remat_mode(dev, cfg, real, kind, policy, REPEATS, prof)
+        failed += _remat_line("(a) spatial_1200 bf16 batch 8", label, results[label],
+                              None if label == "off" else results["off"])
+    off_gib = results["off"]["peak_gib"]
+
+    big = torch.cat([vox, vox[:16]])
+    for label, kind in (("remat_calls", "calls"), ("remat None", "block")):
+        r = remat_mode(dev, cfg, big, kind, None, 2)
+        failed += _remat_line("(b) spatial_1200 bf16 batch 48", label, r, None)
+        log(f"[remat] (b) spatial_1200 batch 48 {label}: peak {r['peak_gib']:.2f} GiB against "
+            f"{6 * off_gib:.1f} GiB without remat (6 x (a)'s off peak), card "
+            f"{torch.cuda.get_device_properties(dev).total_memory / 2**30:.1f} GiB; warm-up "
+            f"{r['warm_s']:.2f} s")
+    del big
+    full = dataclasses.replace(get_model_config("spatial_1200_fullsize"), dtype=bf16)
+    # 4 synthetic volumes, each 4 times: making 16 on the host takes longer
+    raw = np.stack([r["voxel"] for r in SyntheticBrainSource(4, full.input_shape, seed=7)])
+    real16 = preprocess_batch(torch.from_numpy(raw).to(dev)).repeat(4, 1, 1, 1, 1)
+    r = remat_mode(dev, full, real16, "calls", None, 2)
+    failed += _remat_line("(b) spatial_1200_fullsize bf16 batch 16", "remat_calls", r, None)
+    scaled = ("phase 10 (d) did not run" if fullsize_b1_gib is None else
+              f"against {16 * fullsize_b1_gib:.1f} GiB without remat (16 x phase 10 (d)'s "
+              f"batch-1 peak)")
+    log(f"[remat] (b) spatial_1200_fullsize batch 16 remat_calls: peak {r['peak_gib']:.2f} GiB "
+        f"{scaled}; warm-up {r['warm_s']:.2f} s")
+    del real16
+
+    fc = dataclasses.replace(get_model_config("fc_150"), dtype=bf16)
+    fc_off = remat_mode(dev, fc, real, None, None, 3)
+    failed += _remat_line("(c) fc_150 bf16 batch 8", "off", fc_off, None)
+    fc_on = remat_mode(dev, fc, real, "block", fc.remat_policy, 3)
+    failed += _remat_line("(c) fc_150 bf16 batch 8", f"remat {fc.remat_policy}", fc_on, fc_off)
+    log(f"[remat] phase 11 in {time.perf_counter() - t_phase:.1f} s")
+    if failed:
+        raise SystemExit("chip_smoke: phase 11: " + "; ".join(failed))
+    return {k: v["launches"] for k, v in results.items()}
 
 
 def main(argv=None):
@@ -2327,15 +2547,21 @@ def main(argv=None):
     rows = phase_kernels(dev) if "kernels" in want else {}
     if "grad" in want:
         phase_gradients(dev)
-    src, vox = synthetic_volumes(dev) if want & {"path", "train", "families"} else (None, None)
+    src, vox = (synthetic_volumes(dev) if want & {"path", "train", "families", "remat"}
+                else (None, None))
     path_n, path32_n, fc32_n = phase_path(dev, src, vox) if "path" in want else ({}, {}, {})
     stage_n = phase_stage(dev) if "stage" in want else {}
     train_n = phase_train(dev, vox[:8]) if "train" in want else {}
     real = vox[:8].clone() if "families" in want else None
+    remat_vox = vox.clone() if "remat" in want else None
     del src, vox
     trainer_n = phase_trainer(dev) if "trainer" in want else {}
     families_n = phase_families(dev, real) if "families" in want else {}
-    ddp_n, fullsize_n = phase_ddp(dev, card) if "ddp" in want else ({}, {})
+    ddp_n, fullsize_n, fullsize_gib = (phase_ddp(dev, card) if "ddp" in want
+                                       else ({}, {}, None))
+    if "remat" in want:
+        phase_remat(dev, remat_vox, fullsize_gib)
+    del remat_vox
     log(card)
     if only:
         print(json.dumps({"ok": False, "partial": only}))

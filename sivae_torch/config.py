@@ -2,10 +2,15 @@
 families.
 
 Port of `sivae_tpu/config.py:27-170`, `:178-260` (the loss, optimizer and
-trainer configs) and `to_json`, with torch dtypes. The JAX package's TPU
-tactics (`remat*`, `use_pallas_*`, `PACK_SAVES`) have no counterpart:
-the port routes every 3x3x3 stride-1 conv the same way, to its CUDA kernel
-for a CUDA tensor and to the plain PyTorch version for a CPU tensor.
+trainer configs) and `to_json`, with torch dtypes. `remat` and
+`remat_policy` keep the JAX names and values (`sivae_torch/models/remat.py`);
+`remat` defaults to False here, where JAX's True was sized for a 16 GB
+TPU: an 80 GB H100 holds the flagship's batch 8 without it, and the
+recompute only costs time there. Two TPU tactics have no counterpart:
+`use_pallas_*`, because the port routes every 3x3x3 stride-1 conv the same
+way, to its CUDA kernel for a CUDA tensor and to the plain PyTorch version
+for a CPU tensor, the body chosen in C; and `PACK_SAVES`, a packing of saved
+conv outputs into 128-lane TPU registers that has no meaning on a GPU.
 """
 
 from __future__ import annotations
@@ -60,6 +65,16 @@ class SpatialVAEConfig:
     variational: bool = True   # False => CAE (single 1x1 head, no mu/var)
     dtype: Any = torch.float32        # compute dtype (bfloat16 on the GPU hot path)
     param_dtype: Any = torch.float32
+    # rematerialise each block in training's backward (off by default, see
+    # the module docstring); remat_policy names what a block keeps:
+    # None its boundaries only (the backward recomputes the block, convs
+    # included); "conv_outs" also every conv output, so only the BN /
+    # activation / pool tail is recomputed; "conv_outs_lo" the conv outputs
+    # below HI_RES_VOXELS; "conv_outs_no_dec_hi" / "conv_outs_no_enc_hi" all
+    # but the decoder's / encoder's full-resolution ones. Every policy keeps
+    # the BN batch statistics (`models/remat.py`).
+    remat: bool = False
+    remat_policy: Optional[str] = "conv_outs_no_dec_hi"
     # Early-training stability (deviations from the reference, kept from the
     # JAX package): zero-init the logvar head so e^logvar starts at 1, and
     # hard-clip logvar as a NaN rail.
@@ -108,6 +123,8 @@ class FCVAEConfig:
     )
     dtype: Any = torch.float32
     param_dtype: Any = torch.float32
+    remat: bool = False
+    remat_policy: Optional[str] = "conv_outs_no_dec_hi"  # see SpatialVAEConfig
     logvar_head_zero_init: bool = True
     logvar_clip: Optional[Tuple[float, float]] = (-30.0, 20.0)
     fuse_upconv: bool = True

@@ -2,7 +2,9 @@
 
 Port of `sivae_tpu/models/blocks.py` (`make_act`, `avg_pool3d`,
 `upsample_nearest3d`, `Conv3d`, `BatchNorm` in both modes, `ConvBlock`,
-`UpBlock`, `ConvBNAct`), and flax's `Dense` as `Linear`. Module and
+`UpBlock`, `ConvBNAct`), and flax's `Dense` as `Linear`. The convs,
+BatchNorm and Dropout take part in activation rematerialisation through
+`models/remat.py`'s tape (a no-op outside a rematerialised region). Module and
 parameter names follow the reference torch `state_dict` (reference
 models/models.py:8-80): `block.{0,1,4,5}` inside a
 residual block, `shortcut` for its 1x1 projection, `{0,1}` inside a
@@ -26,6 +28,7 @@ import torch.nn.functional as F
 from sivae_torch.config import ActivationConfig
 from sivae_torch.kernels.conv3d import conv3d_same
 from sivae_torch.kernels.conv3d_small import conv3d_from1, conv3d_to1
+from sivae_torch.models import remat
 from sivae_torch.ops.fused_upconv import upsampled_conv3x3
 from sivae_torch.parallel.distributed import world_size
 from sivae_torch.parallel.mesh import all_reduce_
@@ -132,7 +135,9 @@ class Dropout(nn.Module):
 
     Identity in eval mode or at rate 0. In training the caller sets
     `generator` (on the activations' device) before the forward; without one
-    it raises rather than draw from the global generator.
+    it raises rather than draw from the global generator. In a
+    rematerialised region's rerun the mask comes from the state the first
+    forward drew it at (`remat._Tape.generator`).
     """
 
     def __init__(self, rate: float):
@@ -143,11 +148,23 @@ class Dropout(nn.Module):
     def forward(self, x):
         if not self.training or self.rate == 0.0:
             return x
-        if self.generator is None:
+        gen = self.generator
+        tape = remat.active_tape()
+        if tape is not None:
+            gen = tape.generator(gen)
+        if gen is None:
             raise RuntimeError("Dropout in training needs an explicit generator")
-        u = torch.empty_like(x, dtype=torch.float32).uniform_(generator=self.generator)
+        u = torch.empty_like(x, dtype=torch.float32).uniform_(generator=gen)
         keep = 1.0 - self.rate
         return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+_KERNELS = {"conv3d_same": conv3d_same, "conv3d_to1": conv3d_to1, "conv3d_from1": conv3d_from1}
+
+
+def kernel_kind(ci: int, co: int) -> str:
+    """The kernel a 3x3x3 `Conv3d` of ci -> co channels routes to."""
+    return "conv3d_to1" if co == 1 else "conv3d_from1" if ci == 1 else "conv3d_same"
 
 
 class Conv3d(nn.Module):
@@ -188,11 +205,8 @@ class Conv3d(nn.Module):
         if self.kernel_size == 1:
             return ncdhw(torch.matmul(ndhwc(x), w.reshape(self.out_ch, self.in_ch).t()))
         wk = w.permute(2, 3, 4, 1, 0).contiguous()  # OIDHW -> DHWIO
-        if self.out_ch == 1:
-            return ncdhw(conv3d_to1(ndhwc(x), wk))
-        if self.in_ch == 1:
-            return ncdhw(conv3d_from1(ndhwc(x), wk))
-        return ncdhw(conv3d_same(ndhwc(x), wk))
+        fn = _KERNELS[kernel_kind(self.in_ch, self.out_ch)]
+        return ncdhw(remat.kernel_conv(fn, ndhwc(x), wk))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self._conv(x.to(self.dtype), self.weight.to(self.dtype))
@@ -207,7 +221,9 @@ class UpsampleConv3d(Conv3d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b = None if self.bias is None else self.bias.to(self.dtype)
-        return upsampled_conv3x3(x.to(self.dtype), self.weight, b)
+        x = x.to(self.dtype)
+        return remat.library_conv(lambda: upsampled_conv3x3(x, self.weight, b),
+                                  8 * x.shape[2] * x.shape[3] * x.shape[4])
 
 
 _BN_AXES = (0, 2, 3, 4)
@@ -233,7 +249,11 @@ class _BatchNormTrain(torch.autograd.Function):
     no kernel here either.
 
     Returns (y, mean, var); mean and var (biased) are not differentiable and
-    feed the running statistics.
+    feed the running statistics. `stats`, when given, is a list: an empty
+    one receives [mean, E[x^2] - mean^2] (before the clamp), and a filled one
+    stands for the batch's, so that a rematerialised region's rerun
+    normalises with its first forward's statistics and reduces nothing
+    (`models/remat.py`).
 
     Under data parallelism (a process group of more than one rank, each with
     an equal shard of the global batch) the statistics are the GLOBAL
@@ -247,18 +267,23 @@ class _BatchNormTrain(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps, slope, out_dtype):
-        xf = widen(x)
+    def forward(ctx, x, weight, bias, eps, slope, out_dtype, stats=None):
         ctx.world = world_size()
         ctx.n = x.numel() // x.shape[1] * ctx.world
-        if ctx.world == 1:
-            mean = xf.mean(dim=_BN_AXES)
-            raw_var = (xf * xf).mean(dim=_BN_AXES) - mean * mean
+        if stats:
+            mean, raw_var = stats
         else:
-            sums = torch.cat([xf.sum(dim=_BN_AXES), (xf * xf).sum(dim=_BN_AXES)])
-            mean, ex2 = all_reduce_(sums, "bn").div_(ctx.n).chunk(2)
-            raw_var = ex2 - mean * mean
-        del xf
+            xf = widen(x)
+            if ctx.world == 1:
+                mean = xf.mean(dim=_BN_AXES)
+                raw_var = (xf * xf).mean(dim=_BN_AXES) - mean * mean
+            else:
+                sums = torch.cat([xf.sum(dim=_BN_AXES), (xf * xf).sum(dim=_BN_AXES)])
+                mean, ex2 = all_reduce_(sums, "bn").div_(ctx.n).chunk(2)
+                raw_var = ex2 - mean * mean
+            del xf
+            if stats is not None:
+                stats += [mean, raw_var]
         var = raw_var.clamp_min(0.0)  # flax's fast variance: max(0, E[x^2] - mean^2)
         rstd = torch.rsqrt(var + eps)
         # same op order as the eval branch (flax `_normalize`)
@@ -294,7 +319,7 @@ class _BatchNormTrain(torch.autograd.Function):
                 sum_gx, sum_g = all_reduce_(torch.cat([dweight, dbias]), "bn_grad").chunk(2)
             dx = xhat.mul_((-k * sum_gx / n).view(_BN_VIEW)).add_(gf)
             dx = dx.sub_((sum_g / n).view(_BN_VIEW)).mul_(mul.view(_BN_VIEW)).to(x.dtype)
-        return dx, dweight.to(weight.dtype), dbias.to(bias.dtype), None, None, None
+        return dx, dweight.to(weight.dtype), dbias.to(bias.dtype), None, None, None, None
 
 
 class BatchNorm(nn.Module):
@@ -313,7 +338,8 @@ class BatchNorm(nn.Module):
     alike on every rank. torch's `SyncBatchNorm` is not used: it stores the
     unbiased variance and has neither the fused activation nor flax's order.
     Buffer names are torch's (`num_batches_tracked` included), so reference
-    checkpoints load.
+    checkpoints load. A rematerialised region's rerun takes the statistics
+    its first forward took and moves no running statistic.
     """
 
     momentum = 0.9  # share of the old running statistic that is kept
@@ -330,8 +356,12 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
+            tape = remat.active_tape()
+            stats = None if tape is None else tape.bn_stats()
             y, mean, var = _BatchNormTrain.apply(x, self.weight, self.bias, self.eps,
-                                                 self.act_slope, self.dtype)
+                                                 self.act_slope, self.dtype, stats)
+            if tape is not None and tape.replaying:
+                return y
             with torch.no_grad():
                 self.running_mean.mul_(self.momentum).add_(mean, alpha=1.0 - self.momentum)
                 self.running_var.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)

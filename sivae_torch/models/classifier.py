@@ -7,7 +7,9 @@ arbitrary CNNs with CrossEntropy through its generic `train` loop
 (utils/confusion.py); the JAX package's classifier reuses the spatial
 encoder's stem (with its dropout) and `ConvBlock`s without the VAE heads.
 Module names follow the spatial encoder's: `blocks.0.{0,1}` (stem),
-`blocks.k.0.block.{0,1,4,5}`, then `fc`.
+`blocks.k.0.block.{0,1,4,5}`, then `fc`. With `cfg.remat` the stem and each
+block rematerialise in training, keeping their boundaries only (policy
+None, whatever `cfg.remat_policy` says: `sivae_tpu/models/classifier.py:28-29`).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch.nn as nn
 
 from sivae_torch.config import SpatialVAEConfig
 from sivae_torch.models.blocks import ConvBlock, ConvBNAct, Linear, to_channels_last
+from sivae_torch.models.remat import Remat
 
 
 class ResNetClassifier(nn.Module):
@@ -35,11 +38,12 @@ class ResNetClassifier(nn.Module):
                 ch = c
         self.blocks = nn.ModuleList(blocks)
         self.fc = Linear(ch, num_classes, **kw)
+        self.remat = Remat(cfg.remat, None, "enc")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x (B, 1, D, H, W) -> logits (B, num_classes), fp32 whatever the
         compute dtype (as the JAX classifier's)."""
         h = to_channels_last(x)
         for block in self.blocks:
-            h = block(h)
+            h = self.remat(self.training, block, h)
         return self.fc(h.mean(dim=(2, 3, 4))).float()   # global average pool

@@ -23,6 +23,12 @@ permutes the `fc` input features and the `dfc` output features
 (`utils/jax_import.py`). The one `encoder.fc` Linear stands for the JAX
 package's two Dense heads: `logvar_head_zero_init` zeroes its rows
 z_ch:2*z_ch, `logvar_clip` clamps its second half.
+
+With `cfg.remat` each conv-BN-act unit (JAX's `cba`,
+`sivae_tpu/models/fc_vae.py:49` and `:105`) rematerialises in training
+(`models/remat.py`; `UNIT2`, `SKIP` and `UP` give them as index ranges of
+the Sequentials `_Parts` makes). The conv-BN that closes a skip block, the
+output conv and the Linears are not wrapped, as in JAX.
 """
 
 from __future__ import annotations
@@ -35,9 +41,15 @@ import torch.nn.functional as F
 
 from sivae_torch.config import FCVAEConfig
 from sivae_torch.models.blocks import (AvgPool, BatchNorm, Conv3d, Linear, UpsampleConv3d,
-                                       Upsample, act_slope, avg_pool3d, make_act,
+                                       Upsample, act_slope, avg_pool3d, kernel_kind, make_act,
                                        to_channels_last)
+from sivae_torch.models.remat import ConvSite, Remat, run_units
 from sivae_torch.models.resnet_vae import SoftIntroVAE
+
+# the conv-BN-act units of each Sequential `_Parts` makes, as index ranges
+UNIT2 = ((0, 2), (3, 5))  # unit2: conv-BN-act, conv-BN-act
+SKIP = ((0, 2),)          # skip (its closing conv-BN is not a unit), block4short, block5
+UP = ((0, 2), (4, 6))     # up and block6: conv-BN-act, upsample / pool, conv-BN-act
 
 
 class _Parts:
@@ -82,6 +94,7 @@ class FCEncoder(nn.Module):
     def __init__(self, cfg: FCVAEConfig, generator: Optional[torch.Generator] = None):
         super().__init__()
         self.cfg = cfg
+        self.remat = Remat(cfg.remat, cfg.remat_policy, "enc")
         p = _Parts(cfg, generator)
         f, s, t, fo = cfg.first_ch, cfg.second_ch, cfg.third_ch, cfg.forth_ch
         self.block1 = p.unit2(1, f, f)
@@ -102,13 +115,16 @@ class FCEncoder(nn.Module):
 
     def forward(self, x: torch.Tensor):
         """x (B, 1, D, H, W) -> (mu, logvar), each (B, z_ch)."""
+        def run(seq, units, t):
+            return run_units(seq, units, t, self.remat, self.training)
+
         h = to_channels_last(x)
         for block in (self.block1, self.block2, self.block3):
-            h = avg_pool3d(block(h), 2)
-        h = self.block4short(h)
-        h = self.act(h + self.block5(h))   # mymodel.py:135-136
-        h = self.block6(h)
-        h = self.act(h + self.block7(h))
+            h = avg_pool3d(run(block, UNIT2, h), 2)
+        h = run(self.block4short, SKIP, h)
+        h = self.act(h + run(self.block5, SKIP, h))   # mymodel.py:135-136
+        h = run(self.block6, UP, h)
+        h = self.act(h + run(self.block7, SKIP, h))
         mu, logvar = self.fc(h.reshape(h.shape[0], -1)).chunk(2, dim=1)
         if self.cfg.logvar_clip is not None:
             logvar = torch.clamp(logvar, *self.cfg.logvar_clip)
@@ -121,6 +137,7 @@ class FCDecoder(nn.Module):
     def __init__(self, cfg: FCVAEConfig, generator: Optional[torch.Generator] = None):
         super().__init__()
         self.cfg = cfg
+        self.remat = Remat(cfg.remat, cfg.remat_policy, "dec")
         p = _Parts(cfg, generator)
         f, s, t, fo = cfg.first_ch, cfg.second_ch, cfg.third_ch, cfg.forth_ch
         d, h, w = cfg.bottleneck_spatial_shape
@@ -136,16 +153,59 @@ class FCDecoder(nn.Module):
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         """z (B, z_ch) -> (B, 1, D, H, W)."""
+        def run(seq, units, t):
+            return run_units(seq, units, t, self.remat, self.training)
+
         b = z.shape[0]
         # the dfc tail is a ReLU, not the body activation (mymodel.py:150-153)
         y = F.relu(self.dfc(z.reshape(b, -1)))
         y = to_channels_last(y.reshape((b, self.cfg.forth_ch) + self.cfg.bottleneck_spatial_shape))
-        y = self.act(y + self.block1(y))   # mymodel.py:221-222
-        y = self.block2u(y)
-        y = self.act(y + self.block3(y))
-        y = self.block6u(self.block5u(self.block4u(y)))
+        y = self.act(y + run(self.block1, SKIP, y))   # mymodel.py:221-222
+        y = run(self.block2u, UP, y)
+        y = self.act(y + run(self.block3, SKIP, y))
+        for block in (self.block4u, self.block5u, self.block6u):
+            y = run(block, UP, y)
         # the output conv is followed by a ReLU (mymodel.py:210-213)
         return F.relu(self.last_block(y))
+
+
+def fc_conv_sites(cfg: FCVAEConfig):
+    """(encoder sites, decoder sites): every conv of one forward of each
+    half, in the JAX modules' order, with the conv-BN-act unit it runs in
+    (`models/remat.py` `ConvSite`), read from the config without a forward."""
+    f, s, t, fo = cfg.first_ch, cfg.second_ch, cfg.third_ch, cfg.forth_ch
+    r = tuple(cfg.input_shape)
+    vox = [r[0] * r[1] * r[2]]
+    for _ in range(4):                      # the four stride-2 pools
+        r = tuple(d // 2 for d in r)
+        vox.append(r[0] * r[1] * r[2])
+
+    def site(ci, co, lvl, scope, name, unit):
+        half = "encoder" if scope == "enc" else "decoder"
+        return ConvSite(kernel_kind(ci, co), scope, vox[lvl], f"{half}.{name}.{unit}")
+
+    enc = []
+    for lvl, (name, ci, cm, co) in enumerate((("block1", 1, f, f), ("block2", f, f, s),
+                                              ("block3", s, s, t))):
+        enc += [site(ci, cm, lvl, "enc", name, "0:2"), site(cm, co, lvl, "enc", name, "3:5")]
+    enc += [site(t, t, 3, "enc", "block4short", "0:2"), site(t, t, 3, "enc", "block5", "0:2"),
+            site(t, t, 3, "enc", "block6", "0:2"), site(t, fo, 4, "enc", "block6", "4:6"),
+            site(fo, fo, 4, "enc", "block7", "0:2"),
+            ConvSite(kernel_kind(fo, fo), "enc", vox[4], None)]
+
+    def up(ci, co, lvl, name):
+        kind = "upconv" if cfg.fuse_upconv else kernel_kind(ci, co)
+        return [site(ci, ci, lvl, "dec", name, "0:2"),
+                ConvSite(kind, "dec", vox[lvl - 1], f"decoder.{name}.4:6")]
+
+    dec = [site(fo, fo, 4, "dec", "block1", "0:2"),
+           ConvSite(kernel_kind(fo, fo), "dec", vox[4], None)]
+    dec += up(fo, t, 4, "block2u")
+    dec += [site(t, t, 3, "dec", "block3", "0:2"),
+            ConvSite(kernel_kind(t, t), "dec", vox[3], None)]
+    dec += up(t, s, 3, "block4u") + up(s, f, 2, "block5u") + up(f, f, 1, "block6u")
+    dec.append(ConvSite(kernel_kind(f, 1), "dec", vox[0], None))
+    return enc, dec
 
 
 def make_fc_soft_intro_vae(cfg: FCVAEConfig,

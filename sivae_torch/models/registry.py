@@ -50,7 +50,8 @@ MODEL_REGISTRY = {
     "spatial_1200_fullsize": SpatialVAEConfig(
         in_ch=32,
         block_setting=((32, 1, 2), (64, 1, 2), (128, 1, 2), (256, 2, 2)),
-        input_shape=(160, 192, 160), act=_LEAKY),
+        input_shape=(160, 192, 160), act=_LEAKY,
+        remat_policy=None),  # 8x the voxels: under remat, keep the least memory
     # tiny configs for tests / CPU smoke runs (16x16x16 input)
     "tiny_spatial": SpatialVAEConfig(
         in_ch=4, block_setting=((4, 1, 2), (8, 2, 2)), input_shape=(16, 16, 16), act=_LEAKY

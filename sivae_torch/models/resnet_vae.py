@@ -14,6 +14,10 @@ Parameters are fp32; `cfg.dtype` is the compute dtype. In eval mode BN
 takes its running statistics and dropout is the identity; in training mode
 (`train/step.py` switches it) BN takes the batch's statistics and moves the
 running ones, and every `Dropout` draws from the generator it was given.
+With `cfg.remat` the regions of `sivae_tpu/models/resnet_vae.py:56-57` and
+`:90-91` rematerialise in training (`models/remat.py`): the encoder's stem
+and each `ConvBlock`, the decoder's head and each `UpBlock`; not the
+encoder's heads nor the decoder's output conv, its activation and dropout.
 """
 
 from __future__ import annotations
@@ -24,8 +28,9 @@ import torch
 import torch.nn as nn
 
 from sivae_torch.config import SpatialVAEConfig
-from sivae_torch.models.blocks import (Conv3d, ConvBlock, ConvBNAct, Dropout, UpBlock, make_act,
-                                       to_channels_last)
+from sivae_torch.models.blocks import (Conv3d, ConvBlock, ConvBNAct, Dropout, UpBlock,
+                                       kernel_kind, make_act, to_channels_last)
+from sivae_torch.models.remat import ConvSite, Remat
 from sivae_torch.utils.dtypes import widen
 
 
@@ -48,11 +53,12 @@ class SpatialEncoder(nn.Module):
             self.var = Conv3d(ch, 1, 1, use_bias=True, zero_init=cfg.logvar_head_zero_init, **kw)
         else:
             self.conv = nn.Sequential(Conv3d(ch, 1, 1, use_bias=True, **kw))
+        self.remat = Remat(cfg.remat, cfg.remat_policy, "enc")
 
     def forward(self, x: torch.Tensor):
         h = to_channels_last(x)
         for block in self.blocks:
-            h = block(h)
+            h = self.remat(self.training, block, h)
         if not self.cfg.variational:
             return self.conv(h)
         mu, logvar = self.mu(h), self.var(h)
@@ -87,12 +93,55 @@ class SpatialDecoder(nn.Module):
         self.blocks = nn.ModuleList(blocks)
         self.tail_act = make_act(cfg.act, which="tail")
         self.dropout = Dropout(cfg.act.dec_out_dropout)
+        self.remat = Remat(cfg.remat, cfg.remat_policy, "dec")
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         h = to_channels_last(z.reshape((z.shape[0],) + self.cfg.latent_shape))
-        for block in self.blocks:
-            h = block(h)
+        tail = len(self.blocks) - 1
+        for i, block in enumerate(self.blocks):
+            h = block(h) if i == tail else self.remat(self.training, block, h)
         return self.dropout(self.tail_act(h))
+
+
+def spatial_conv_sites(cfg: SpatialVAEConfig):
+    """(encoder sites, decoder sites): every conv of one forward of each
+    half, in the JAX modules' order, with the block-remat region it runs in
+    (`models/remat.py` `ConvSite`), read from the config without a forward."""
+    def vox(r):
+        return r[0] * r[1] * r[2]
+
+    r = tuple(cfg.input_shape)
+    enc = [ConvSite(kernel_kind(1, cfg.in_ch), "enc", vox(r), "encoder.blocks.0")]
+    ch, k = cfg.in_ch, 1
+    for c, n, s in cfg.block_setting:
+        for i in range(n):
+            stride, name = (s if i == 0 else 1), f"encoder.blocks.{k}"
+            low = tuple(d // stride for d in r)
+            enc += [ConvSite(kernel_kind(ch, c), "enc", vox(r), name),
+                    ConvSite(kernel_kind(c, c), "enc", vox(low), name)]
+            if stride == 1 and ch != c:
+                enc.append(ConvSite("1x1", "enc", vox(r), name))
+            r, ch, k = low, c, k + 1
+    enc += [ConvSite("1x1", "enc", vox(r), None)] * (2 if cfg.variational else 1)
+
+    r = cfg.latent_spatial_shape
+    ch = cfg.block_setting[-1][0]
+    dec = [ConvSite("1x1", "dec", vox(r), "decoder.blocks.0")]
+    rev, k = cfg.block_setting[::-1], 1
+    for i, (c, n, s) in enumerate(rev):
+        nc = cfg.in_ch if i == len(rev) - 1 else rev[i + 1][0]
+        for j in range(n):
+            last, name = j == n - 1, f"decoder.blocks.{k}"
+            stride, out_c = (s, nc) if last else (1, c)
+            high = tuple(d * stride for d in r)
+            dec += [ConvSite(kernel_kind(ch, ch), "dec", vox(r), name),
+                    ConvSite("upconv" if stride == 2 else kernel_kind(ch, out_c), "dec",
+                             vox(high), name)]
+            if stride == 1 and ch != out_c:
+                dec.append(ConvSite("1x1", "dec", vox(r), name))
+            r, ch, k = high, out_c, k + 1
+    dec.append(ConvSite(kernel_kind(ch, 1), "dec", vox(r), None))
+    return enc, dec
 
 
 def reparameterize(mu: torch.Tensor, logvar: torch.Tensor, val_eps: Optional[float] = None,

@@ -54,6 +54,13 @@ assumes one forward and one backward over a fixed set of parameters, where
 this step runs 13 forwards and two backwards over halves switched by
 `requires_grad_`. In one process none of this runs any collective, and the
 step is the one described above.
+
+Rematerialisation: with the model's `cfg.remat` its blocks rematerialise
+inside every train-mode forward (`models/remat.py`); with `remat_calls`
+the step does it to whole encode and decode calls instead, as the JAX
+step's `_CheckpointedCalls` (`sivae_tpu/train/step.py:57-91`). Neither
+changes the math: the reruns replay the forwards' dropout masks and batch
+statistics, move no running statistic and issue no collective.
 """
 
 from __future__ import annotations
@@ -66,6 +73,7 @@ import torch.nn.functional as F
 
 from sivae_torch.config import OptimConfig, SoftIntroLossConfig
 from sivae_torch.models.blocks import Dropout
+from sivae_torch.models.remat import region, remat_policy_by_name
 from sivae_torch.models.resnet_vae import SoftIntroVAE, reparameterize
 from sivae_torch.ops.losses import (calc_kl, calc_kl_per_position, calc_reconstruction_loss,
                                     normal_loss, soft_intro_decoder_loss,
@@ -137,6 +145,8 @@ def make_soft_intro_train_step(
     optim_cfg: OptimConfig,
     steps_per_epoch: int,
     input_shape: Tuple[int, int, int],
+    remat_calls: bool = False,
+    remat_calls_policy: Optional[str] = None,
     zero_noise: bool = False,
     fixed_noise=None,
     share_phase_d_dropout_keys: bool = True,
@@ -144,6 +154,13 @@ def make_soft_intro_train_step(
     """Build the two-phase step: `state, metrics = step(state, real)` with
     `real` (B, 1, D, H, W) on the model's device. The state is updated in
     place and returned; the model is left in eval mode.
+
+    remat_calls=True rematerialises each encode and decode call whole
+    (`models/remat.py`): only its inputs, outputs and BN statistics stay
+    between the forwards and the backward, plus the conv outputs that
+    `remat_calls_policy` (a `remat_policy` name) keeps; None keeps none.
+    It stands instead of the model's block remat, so a model built with
+    `cfg.remat` raises here: its blocks would be recomputed twice.
 
     zero_noise=True makes the step deterministic (noise batch 0, every
     reparameterize returns mu): test support, never for real training.
@@ -167,6 +184,18 @@ def make_soft_intro_train_step(
     elbo_recon = _elbo_recon(dp)
     enc_drops, dec_drops = _dropouts(model.encoder), _dropouts(model.decoder)
     share = share_phase_d_dropout_keys and bool(dec_drops)
+    encode, decode = model.encode, model.decode
+    if remat_calls:
+        if getattr(model.cfg, "remat", False):
+            raise ValueError("remat_calls rematerialises whole encode / decode calls: build "
+                             "the model with remat=False, or its blocks are recomputed twice")
+        saves = remat_policy_by_name(remat_calls_policy)
+
+        def encode(x):
+            return region(model.encode, saves, "enc", x)
+
+        def decode(z):
+            return region(model.decode, saves, "dec", z)
 
     def train_step(state: SIVAETrainState, real: torch.Tensor):
         if state.model is not model:
@@ -182,10 +211,10 @@ def make_soft_intro_train_step(
         def replayed_decode(z, gen_state):
             """decode with the masks drawn at `gen_state` (phase E's)."""
             if gen_state is None:
-                return model.decode(z)
+                return decode(z)
             _set_generator(dec_drops, torch.Generator(device=dev).set_state(gen_state))
             try:
-                return model.decode(z)
+                return decode(z)
             finally:
                 _set_generator(dec_drops, drop_gen)
 
@@ -193,20 +222,20 @@ def make_soft_intro_train_step(
         def phase_e():
             model.decoder.requires_grad_(False)
             s_fake = drop_gen.get_state() if share else None
-            fake = model.decode(noise)
-            real_mu, real_logvar = model.encode(real)
+            fake = decode(noise)
+            real_mu, real_logvar = encode(real)
             z = reparam(real_mu, real_logvar)
             s_rec = drop_gen.get_state() if share else None
-            rec = model.decode(z)
+            rec = decode(z)
 
             loss_rec = recon(real, rec, reduction="mean")
             kl_real = kl(real_logvar, real_mu, "mean")
 
             # model.forward(rec.detach()) / model.forward(fake.detach())
-            rec_mu, rec_logvar = model.encode(rec.detach())
-            rec_rec = model.decode(reparam(rec_mu, rec_logvar))
-            fake_mu, fake_logvar = model.encode(fake.detach())
-            rec_fake = model.decode(reparam(fake_mu, fake_logvar))
+            rec_mu, rec_logvar = encode(rec.detach())
+            rec_rec = decode(reparam(rec_mu, rec_logvar))
+            fake_mu, fake_logvar = encode(fake.detach())
+            rec_fake = decode(reparam(fake_mu, fake_logvar))
 
             # dp_semantics: the DP reconstruction loss ignores `reduction`, so
             # the expELBO recon terms are batch-mean scalars there, of the
@@ -238,14 +267,14 @@ def make_soft_intro_train_step(
             # gets no reconstruction gradient from this term
             loss_rec = recon(real, rec.detach() if dp else rec, reduction="mean")
 
-            rec_mu, rec_logvar = model.encode(rec)
+            rec_mu, rec_logvar = encode(rec)
             z_rec = reparam(rec_mu, rec_logvar)
-            fake_mu, fake_logvar = model.encode(fake)
+            fake_mu, fake_logvar = encode(fake)
             z_fake = reparam(fake_mu, fake_logvar)
             # dp_semantics: the DP trainer does not detach z_rec / z_fake
             # before the re-decode, unlike my_trainer.py:310-311
-            rec_rec = model.decode(z_rec if dp else z_rec.detach())
-            rec_fake = model.decode(z_fake if dp else z_fake.detach())
+            rec_rec = decode(z_rec if dp else z_rec.detach())
+            rec_fake = decode(z_fake if dp else z_fake.detach())
 
             rec_kl = kl(rec_logvar, rec_mu, "mean")
             fake_kl = kl(fake_logvar, fake_mu, "mean")

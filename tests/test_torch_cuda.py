@@ -825,3 +825,81 @@ def test_two_gloo_ranks_on_one_card_match_one_process(cuda_device, tmp_path):
     noise = 1e-4 * max(a.abs().max().item() for a, _ in moments)
     for a, b in moments:
         assert (a - b).abs().max().item() <= 1e-3 * a.abs().max().item() + noise
+
+
+@pytest.mark.gpu
+def test_remat_modes_on_the_card_take_the_step_without(cuda_device):
+    """Two fp32 steps of `tiny_spatial` with dropout on, through the kernels,
+    in every rematerialisation mode (`remat=True` with each policy, the
+    step's `remat_calls`) against the same steps without remat. The library
+    calls of the backward (weight gradients, matrix products on tensors the
+    reruns placed elsewhere) may sum in another order on the card, and
+    Adam's first step moves a parameter whose gradient is rounding noise
+    (the stem's conv bias in front of its BN) by lr of either sign. After
+    the first step: losses within 1e-5 relative; first moments within 1e-5
+    of their tensor's largest with phase 7's floor; parameters where their
+    moment is above 1e-3 of that scale; running statistics within 1e-5
+    (phase D's encodes run the updated encoder: tests/test_torch_train.py's
+    rule), the stem BN's mean, which sees that bias move, within 1e-4,
+    `num_batches_tracked` equal. After the second: losses within 1e-4. Each
+    step's launches equal the step's without remat plus the reruns'
+    derived counts."""
+    import numpy as np
+
+    from sivae_torch.config import OptimConfig, SoftIntroLossConfig
+    from sivae_torch.models import remat
+    from sivae_torch.models.registry import get_model_config, make_model
+    from sivae_torch.models.resnet_vae import spatial_conv_sites
+    from sivae_torch.train.state import create_train_state
+    from sivae_torch.train.step import make_soft_intro_train_step
+
+    cfg0 = get_model_config("tiny_spatial")
+    real = torch.from_numpy(np.random.RandomState(1).rand(4, 1, *cfg0.input_shape)
+                            .astype(np.float32)).to(cuda_device)
+
+    def run(kind, pol):
+        cfg = cfg0 if kind != "block" else dataclasses.replace(cfg0, remat=True, remat_policy=pol)
+        model = make_model(cfg, device=cuda_device, seed=0)
+        state = create_train_state(model, seed=0)
+        step = make_soft_intro_train_step(model, SoftIntroLossConfig(), OptimConfig(), 1,
+                                          cfg.input_shape, remat_calls=kind == "calls",
+                                          remat_calls_policy=pol if kind == "calls" else None)
+        names = {p: k for k, p in model.named_parameters()}
+        out = []
+        for _ in range(2):
+            build.reset_launches()
+            _, m = step(state, real)
+            out.append(({k: float(m[k]) for k in ("lossE", "lossD")},
+                        {k: v.cpu() for k, v in model.state_dict().items()},
+                        {names[p]: s["exp_avg"].cpu() for opt in (state.opt_e, state.opt_d)
+                         for p, s in opt.state.items()}, dict(build.launches)))
+        return out
+
+    base = run(None, None)
+    floor = 1e-2 * max(v.abs().max().item() for v in base[0][2].values())
+    sites = spatial_conv_sites(cfg0)
+    for kind, pol in [("block", p) for p in remat.POLICIES] + [("calls", None),
+                                                               ("calls", "conv_outs")]:
+        extra = remat.soft_intro_step_recomputes(*sites, pol, whole_call=kind == "calls")
+        got = run(kind, pol)
+        for n, ((ma, sa, mo_a, na), (mb, sb, mo_b, nb)) in enumerate(zip(base, got)):
+            for k, v in ma.items():
+                assert abs(mb[k] - v) <= (1e-5 if n == 0 else 1e-4) * abs(v), (kind, pol, n, k)
+            assert nb == {k: na[k] + extra.get(k, 0) for k in na}, (kind, pol, n)
+        (_, sa, mo_a, _), (_, sb, mo_b, _) = base[0], got[0]
+        for k, v in mo_a.items():
+            scale = max(v.abs().max().item(), floor)
+            assert (mo_b[k] - v).abs().max().item() <= 1e-5 * scale, (kind, pol, k)
+            mask = v.abs() > 1e-3 * scale   # below, a gradient of rounding noise
+            if mask.any():
+                w = sa[k]
+                err = (sb[k] - w)[mask].abs().max().item()
+                assert err <= 1e-5 * max(w.abs().max().item(), 1e-12), (kind, pol, k)
+        for k, v in sa.items():
+            if k.endswith("num_batches_tracked"):
+                assert torch.equal(sb[k], v), (kind, pol, k)
+            elif "running" in k:
+                # phase D's two encodes see the stem's conv bias after a step
+                # of lr of either sign: 2 * lr * (0.1 + 0.09) = 7.6e-5
+                tol = 1e-4 if k == "encoder.blocks.0.1.running_mean" else 1e-5
+                assert (sb[k] - v).abs().max().item() <= tol, (kind, pol, k)

@@ -369,6 +369,53 @@ def test_ranks_hold_identical_states(ddp, name):
 
 
 # ---------------------------------------------------------------------------
+# 5b. rematerialisation under data parallelism (models/remat.py)
+# ---------------------------------------------------------------------------
+
+
+def test_remat_two_ranks_match_one_process_without_remat(ddp):
+    """2 ranks with every block rematerialised (policy None) take the step of
+    one process without remat (float64, eps drawn, no dropout): metrics,
+    running statistics and first moments within 1e-6."""
+    one, two = ddp["one"]["port_soft"], ddp["ranks"][0]["port_remat"]
+    got = _mean_metrics(ddp, "port_remat")
+    for k, v in one["metrics"].items():
+        np.testing.assert_allclose(got[k], v, rtol=1e-6, atol=1e-30, err_msg=k)
+    for k, x in one["payload"]["model"].items():
+        if "running" in k:
+            noisy = k == "encoder.blocks.0.1.running_mean"   # as in the test above
+            assert_close_scaled(two["payload"]["model"][k].numpy(), x.numpy(),
+                                1e-4 if noisy else 1e-6)
+    moments = [(s["exp_avg"], two["payload"][o]["state"][i]["exp_avg"])
+               for o in ("opt_e", "opt_d") for i, s in one["payload"][o]["state"].items()]
+    noise = 1e-12 * max(a.abs().max().item() for a, _ in moments)
+    for a, b in moments:
+        assert (a - b).abs().max().item() <= 1e-6 * a.abs().max().item() + noise
+
+
+@pytest.mark.parametrize("who", ["rank0", "rank1", "one"])
+def test_remat_with_dropout_is_the_step_without_remat(ddp, who):
+    """With dropout on, the rematerialised step of each rank (and of one
+    process) is bit for bit its step without remat: the reruns replay the
+    masks of the rank generator and the global batch's statistics."""
+    res = ddp["one"] if who == "one" else ddp["ranks"][int(who[-1])]
+    a, b = res["port_remat_drop"], res["port_drop"]
+    assert a["digest"] == b["digest"]
+    assert a["metrics"] == b["metrics"]
+
+
+@pytest.mark.parametrize("drop", ["", "_drop"])
+def test_remat_reruns_issue_no_collective(ddp, drop):
+    """The reruns reduce nothing: each rank's all-reduces with remat equal
+    those without (a rerun's collective would also hang the group, which
+    the worker's time limit turns into a failure)."""
+    base = "port_soft" if drop == "" else "port_drop"
+    for r in ddp["ranks"]:
+        assert r[f"port_remat{drop}"]["collectives"] == r[base]["collectives"]
+        assert r[f"port_remat{drop}"]["collectives"]["bn"][0] > 0
+
+
+# ---------------------------------------------------------------------------
 # 6. the pipeline's rows
 # ---------------------------------------------------------------------------
 

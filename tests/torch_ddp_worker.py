@@ -34,16 +34,17 @@ BATCH = 4          # the global batch of every case
 SHAPE = (16, 16, 16)
 
 
-def _cfg(body_act="leaky_relu", dtype=torch.float32):
-    """tiny_spatial without dropout; float64 computes and holds the
-    parameters in float64 (the one-process comparisons, which then see no
-    fp32 reduction-order noise)."""
+def _cfg(body_act="leaky_relu", dtype=torch.float32, dropout=False, remat=False):
+    """tiny_spatial without dropout (unless asked); float64 computes and
+    holds the parameters in float64 (the one-process comparisons, which then
+    see no fp32 reduction-order noise); `remat` rematerialises every block,
+    keeping its boundaries only (policy None)."""
     from sivae_torch.models.registry import get_model_config
 
     cfg = get_model_config("tiny_spatial")
-    return dataclasses.replace(cfg, act=dataclasses.replace(cfg.act.with_no_dropout(),
-                                                            body_act=body_act),
-                               dtype=dtype, param_dtype=dtype)
+    act = cfg.act if dropout else cfg.act.with_no_dropout()
+    return dataclasses.replace(cfg, act=dataclasses.replace(act, body_act=body_act),
+                               dtype=dtype, param_dtype=dtype, remat=remat, remat_policy=None)
 
 
 def _state(cfg, payload_path, joint=False):
@@ -113,6 +114,21 @@ def main(in_dir, out_dir):
             zero_noise=zero, fixed_noise=inp["fixed"])
         reset_collectives()
         _, metrics = step(state, real.to(dt))
+        res[name] = {**_result(state, metrics), "collectives": dict(collectives)}
+
+    # rematerialisation (policy None), float64 with the eps drawn: without
+    # dropout (held against one process without remat), and with dropout,
+    # with and without remat (held against each other on each rank: the
+    # masks come from the rank generator)
+    for name, drop, remat in (("port_remat", False, True), ("port_drop", True, False),
+                              ("port_remat_drop", True, True)):
+        cfg = _cfg(dtype=torch.float64, dropout=drop, remat=remat)
+        state = replicate_state(_state(cfg, os.path.join(in_dir, "soft.pth")))
+        step = port_step.make_soft_intro_train_step(
+            state.model, SoftIntroLossConfig(), OptimConfig(), 1, cfg.input_shape,
+            fixed_noise=inp["fixed"])
+        reset_collectives()
+        _, metrics = step(state, real.to(torch.float64))
         res[name] = {**_result(state, metrics), "collectives": dict(collectives)}
 
     # the VAE step: fp32 with the tests' fixed eps batch for the global batch
