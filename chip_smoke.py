@@ -225,7 +225,43 @@ failure exits non-zero and prints no result):
    (c) fc_150 at batch 8, `remat=True` with the default policy against
    off, as in (a).
 
-`--only kernels,grad,path,stage,train,trainer,families,ddp,remat` runs a
+12. Depth sharding (phase `depth`, `sivae_torch/parallel/mesh.py` and
+   `halo.py`): processes on a `data x spatial` grid, gloo ranks sharing the
+   one card (each 600 s limit; gloo sends host memory only, so each halo
+   exchange is copied through the host, counted apart).
+   (a) spatial_1200_fullsize at its published widths and 160x192x160, fp32,
+   TF32 off, no dropout, global batch 2 (2 synthetic volumes of seed 7), the
+   fixed noise batch of seed 11, `zero_noise`, lr 0 (phase 10 (a) says
+   why): one process's step on the card, the same on the reversed batch,
+   the same in float64 with every conv by cuDNN in float64 (the yardstick),
+   then a 1 x 2 grid (slabs of 80 planes). Losses within 1e-4 relative of
+   one process's, BN running statistics within 1e-5 of the largest, first
+   moments by step 0's rule (`_compare_depth`: the grid's distance from the
+   float64 moment at most twice the farther of one process's two fp32
+   steps', plus 1e-4 of the tensor's largest and 1e-6 of the largest
+   moment; the exactly-zero gradients below 1e-4 of the largest moment);
+   the same rule must refuse two controls made from the grid's moments, P
+   times them (what a `spatial_sum` backward through a differentiable
+   all-reduce gives) and their negation; launches per rank and per step
+   against the counts derived from the model.
+   (b) the same model in bf16, dropout on, global batch 2: one process's
+   step first (s/step, peak, launches, a profile), then a 1 x 4 grid
+   (slabs 48/48/32/32): a warm-up step, one counted step (launches against
+   the derived counts, halo exchanges against `soft_intro_step_halos`, their
+   bytes and the host copies, the all-reduces, the body of every kernel
+   site), 5 timed steps (median, min, max s/step of the slower rank), peak
+   GiB a rank, equal digests, finite metrics. Four ranks share one card:
+   not a scaling figure.
+   (c) `encode_dataset` of phase 5's first 8 volumes by spatial_1200 fp32
+   (seed 0) on the 1 x 2 grid of (a) against one process: mu within 1e-3
+   relative, the same launches.
+   The ranks' counted launches of (a) and (b) enter the kernel record as
+   `launches_by_path.depth_ranks`. `python3 chip_smoke.py --depth-cards`,
+   on a machine with 4 cards, runs phase 12 alone with its ranks on a card
+   each, joined by NCCL (the halo planes card to card); it ends with
+   `{"ok": false, "partial": ["depth-cards"]}`.
+
+`--only kernels,grad,path,stage,train,trainer,families,ddp,remat,depth` runs a
 subset while working on one phase; it ends with `{"ok": false, "partial":
 ...}`, never with the result.
 
@@ -339,7 +375,8 @@ SOURCES = {
 # (8 conv3d_same + 1 conv3d_from1 each) and 6 decodes (5 conv3d_same + 1
 # conv3d_to1 each)
 VAL_LAUNCHES = {"conv3d_same": 54, "conv3d_to1": 6, "conv3d_from1": 3, "conv3d_fused_stats": 0}
-PHASES = ("kernels", "grad", "path", "stage", "train", "trainer", "families", "ddp", "remat")
+PHASES = ("kernels", "grad", "path", "stage", "train", "trainer", "families", "ddp", "remat",
+          "depth")
 
 
 def log(msg: str) -> None:
@@ -1544,6 +1581,25 @@ def soft_intro_launches(model) -> dict:
             "conv3d_from1": 5 * e["conv3d_from1"] + 7 * d["conv3d_to1"], "conv3d_fused_stats": 0}
 
 
+def soft_intro_step_halos(cfg) -> int:
+    """Halo exchanges one two-phase Soft-IntroVAE step makes on each rank
+    under depth sharding, from the conv sites: one per 3x3x3 or upsample +
+    conv site in each of the 5 encodes and 8 decodes, and one more in the
+    backward wherever the site's input needs a gradient: in the 7 decodes
+    with a graph (phase E's decode of the noise has none) at every site, in
+    all 5 encodes past the stem, and at the stem in phase D's 2 encodes of
+    decoded volumes. Remat adds none (its reruns exchange nothing)."""
+    from sivae_torch.models.remat import STEP_DECODES, STEP_ENCODES
+    from sivae_torch.models.resnet_vae import spatial_conv_sites
+
+    enc, dec = spatial_conv_sites(cfg)
+    e = sum(s.kind != "1x1" for s in enc)
+    d = sum(s.kind != "1x1" for s in dec)
+    forward = STEP_ENCODES * e + (STEP_DECODES + 1) * d
+    backward = STEP_DECODES * d + STEP_ENCODES * (e - 1) + 2
+    return forward + backward
+
+
 def soft_intro_eval_launches(model) -> dict:
     """One validation step: 3 encodes, 6 decodes, no backward."""
     e, d = conv_sites(model.encoder), conv_sites(model.decoder)
@@ -2075,6 +2131,49 @@ def ddp_rank(out_dir: str) -> int:
     return 0
 
 
+def run_ranks(tag: str, args: list, world: int, out_dir: str, limit_s: float,
+              own_cards: bool = False) -> list:
+    """Start `world` processes of this script with `args` as the ranks of
+    one process group: all on the one card (`LOCAL_RANK` 0), or with
+    `own_cards` each on its own (`LOCAL_RANK` = rank); print their output;
+    return what each saved to `<out_dir>/rank<r>.pth`. A rank that fails,
+    or the time limit `limit_s`, ends them all (a rank's peers would wait in
+    a collective) and fails the run."""
+    import os
+
+    port = _free_port()
+    procs, logs = [], []
+    for r in range(world):
+        env = {**_launcher_free_env(), "RANK": str(r), "LOCAL_RANK": str(r if own_cards else 0),
+               "WORLD_SIZE": str(world), "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+               "OMP_NUM_THREADS": str(max(1, (os.cpu_count() or 2) // world))}
+        logs.append(open(os.path.join(out_dir, f"{tag}_rank{r}.log"), "w+"))
+        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__)] + args,
+                                      env=env, stdout=logs[-1], stderr=subprocess.STDOUT,
+                                      text=True))
+    deadline = time.monotonic() + limit_s
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.returncode for p in procs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for r, f in enumerate(logs):
+            f.seek(0)
+            for line in f.read().splitlines():
+                log(f"[{tag} rank {r} output] {line}")
+            f.close()
+    if any(p.returncode != 0 for p in procs):
+        raise SystemExit(f"chip_smoke: a {tag} rank failed or ran out of time: "
+                         f"{[p.returncode for p in procs]}")
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pth"), weights_only=False)
+            for r in range(world)]
+
+
 def _compare_equality(ref: dict, ctl: dict, ranks: list) -> list:
     """(a): the mean of the ranks' lossE / lossD within 1e-4 relative of one
     process's; each first moment within 1e-3 of max|m| of its tensor (one
@@ -2238,7 +2337,6 @@ def phase_ddp(dev, card: str) -> tuple:
     card (`ddp_rank`: (a), (b), (c)), compared; the CLI under WORLD_SIZE=1;
     (d) the fullsize step. Returns (the ranks' counted launches summed, the
     fullsize step's launches, its peak GiB)."""
-    import os
     import tempfile
 
     from sivae_torch.kernels import build
@@ -2251,34 +2349,8 @@ def phase_ddp(dev, card: str) -> tuple:
         f"{time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
 
-    port, t0 = _free_port(), time.perf_counter()
-    procs = []
-    for r in range(DDP_WORLD):
-        env = {**_launcher_free_env(), "RANK": str(r), "LOCAL_RANK": "0",
-               "WORLD_SIZE": str(DDP_WORLD), "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
-               "OMP_NUM_THREADS": str(max(1, (os.cpu_count() or 2) // DDP_WORLD))}
-        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), "--ddp-rank",
-                                       tmp.name], env=env, stdout=subprocess.PIPE,
-                                      stderr=subprocess.STDOUT, text=True))
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=DDP_LIMIT_S)[0])
-    except subprocess.TimeoutExpired:
-        outs.append("(killed at the time limit)")
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    for r, out in enumerate(outs):
-        for line in out.splitlines():
-            log(f"[ddp rank {r} output] {line}")
-    if any(p.returncode != 0 for p in procs):
-        raise SystemExit(f"chip_smoke: a data-parallel rank failed: "
-                         f"{[p.returncode for p in procs]}")
-    ranks = [torch.load(os.path.join(tmp.name, f"rank{r}.pth"), weights_only=False)
-             for r in range(DDP_WORLD)]
+    t0 = time.perf_counter()
+    ranks = run_ranks("ddp", ["--ddp-rank", tmp.name], DDP_WORLD, tmp.name, DDP_LIMIT_S)
     log(f"[ddp] {DDP_WORLD} gloo ranks on the one card (gloo all-reduces the CUDA tensors), "
         f"(a) + (b) + (c) in {time.perf_counter() - t0:.1f} s")
 
@@ -2527,17 +2599,458 @@ def phase_remat(dev, vox, fullsize_b1_gib: Optional[float]) -> dict:
     return {k: v["launches"] for k, v in results.items()}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: depth sharding
+# ---------------------------------------------------------------------------
+
+DEPTH_LIMIT_S = 600          # each rank process's time limit, build load included
+DEPTH_A_WORLD, DEPTH_B_WORLD = 2, 4
+TOL_DEPTH_ZERO_GRAD = 1e-4  # an exactly-zero gradient's moment, of the largest moment
+TOL_DEPTH_ENCODE = 1e-3
+
+
+def _fullsize_cfg(dtype, dropout: bool):
+    from sivae_torch.models.registry import get_model_config
+
+    cfg = dataclasses.replace(get_model_config("spatial_1200_fullsize"), dtype=dtype)
+    return cfg if dropout else dataclasses.replace(cfg, act=cfg.act.with_no_dropout())
+
+
+def depth_inputs(path: str) -> dict:
+    """The phase's inputs, made once and saved for its rank processes: 2
+    fullsize synthetic volumes (seed 7, preprocessed), the fixed numpy noise
+    batch of seed 11, and phase 5's first 8 spatial_1200 volumes, on the
+    host."""
+    import numpy as np
+
+    from sivae_torch.data.preprocess import preprocess_batch
+    from sivae_torch.data.synthetic import SyntheticBrainSource
+
+    cfg = _fullsize_cfg(torch.float32, False)
+    raw = np.stack([r["voxel"] for r in SyntheticBrainSource(2, cfg.input_shape, seed=7)])
+    fixed = np.random.RandomState(11).randn(2, cfg.latent_dim).astype(np.float32)
+    inp = {"full": preprocess_batch(torch.from_numpy(raw)), "fixed": torch.from_numpy(fixed),
+           "vox": synthetic_volumes(torch.device("cpu"), 8)[1]}
+    torch.save(inp, path)
+    return inp
+
+
+def _library_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """A 3x3x3 SAME conv of NDHWC `x` and DHWIO `w` by the library
+    (cuDNN), in their dtype: the float64 yardstick's convs."""
+    y = F.conv3d(x.permute(0, 4, 1, 2, 3).contiguous(), w.permute(4, 3, 0, 1, 2).contiguous(),
+                 padding=1)
+    return y.permute(0, 2, 3, 4, 1)
+
+
+def depth_step(dev, inp: dict, mesh=None, reverse: bool = False, exact: bool = False) -> dict:
+    """(a) on this process's depth slab (the whole batch without `mesh`): one
+    fp32 spatial_1200_fullsize step at its published widths, 160x192x160,
+    TF32 off, no dropout, global batch 2, the fixed noise batch, zero_noise
+    and a learning rate of 0 (`ddp_equality_step` says why; `reverse` as
+    there), counted: metrics, first moments, running statistics, the
+    tensors whose exact gradient is 0, the digest, launches against the
+    derived counts, collectives, seconds and peak GiB. With `exact` the
+    same step in float64, the same weights, every conv by cuDNN in float64
+    (the kernels have no float64 form): the yardstick of the fp32 runs."""
+    import numpy as np
+
+    from sivae_torch.config import OptimConfig, SoftIntroLossConfig
+    from sivae_torch.kernels import build
+    from sivae_torch.models import blocks
+    from sivae_torch.models.registry import make_model
+    from sivae_torch.models.resnet_vae import depth_levels
+    from sivae_torch.parallel import replicate_state
+    from sivae_torch.parallel.mesh import (collectives, reset_collectives, shard_batch,
+                                           state_digest)
+    from sivae_torch.train.state import create_train_state
+    from sivae_torch.train.step import make_soft_intro_train_step
+
+    cfg = _fullsize_cfg(torch.float32, False)
+    real, fixed = inp["full"], inp["fixed"].numpy()
+    if reverse:
+        real, fixed = real.flip(0), np.ascontiguousarray(fixed[::-1])
+    if mesh is not None:
+        real = shard_batch(real, mesh, spatial_axis="spatial", levels=depth_levels(cfg))
+    model = make_model(cfg, device=dev, seed=0)
+    kernels = dict(blocks._KERNELS)
+    if exact:
+        f64 = torch.float64
+        wide = make_model(dataclasses.replace(cfg, dtype=f64, param_dtype=f64), device=dev)
+        wide.load_state_dict(model.state_dict())
+        model, real = wide, real.to(f64)
+        blocks._KERNELS.update(dict.fromkeys(kernels, _library_conv))
+    real = real.to(dev)
+    state = replicate_state(create_train_state(model, seed=0))
+    step = make_soft_intro_train_step(model, SoftIntroLossConfig(), OptimConfig(lr=0.0), 1,
+                                      cfg.input_shape, zero_noise=True, fixed_noise=fixed)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    build.reset_launches()
+    reset_collectives()
+    t0 = time.perf_counter()
+    try:
+        _, metrics = step(state, real)
+        torch.cuda.synchronize()
+    finally:
+        blocks._KERNELS.update(kernels)
+    secs = time.perf_counter() - t0
+    names = {p: k for k, p in model.named_parameters()}
+    out = {"metrics": _metrics_line(metrics),
+           "moments": {names[p]: s["exp_avg"].detach().double().cpu()
+                       for opt in (state.opt_e, state.opt_d) for p, s in opt.state.items()},
+           "stats": {k: v.detach().double().cpu() for k, v in model.state_dict().items()
+                     if "running" in k},
+           "zero_grad": zero_gradient_tensors(model), "digest": state_digest(state).hex(),
+           "launches": dict(build.launches),
+           "want": ({k: 0 for k in TRAIN_LAUNCHES} if exact else soft_intro_launches(model)),
+           "collectives": {k: list(v) for k, v in collectives.items()}, "s": secs,
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+           "slab": tuple(real.shape[2:])}
+    del state, step, model, real
+    torch.cuda.empty_cache()
+    build.reset_launches()
+    return out
+
+
+def _depth_moment_check(grid: dict, ref: dict, ctl: dict, exact: dict) -> tuple:
+    """Step 0's rule on first moments `grid` (name: tensor), the float64
+    step (`exact`) the yardstick (`_compare_depth`): (the tensors over the
+    limit, the largest ratio of the grid's distance from float64 to the
+    farther of one process's two fp32 steps' with its tensor, the largest
+    exactly-zero gradient over the largest moment)."""
+    top = max(m.abs().max().item() for m in exact["moments"].values())
+    bad, noise, worst = [], 0.0, (0.0, "")
+    for k, want in exact["moments"].items():
+        runs = {"grid": grid[k], "one": ref["moments"][k], "rev": ctl["moments"][k]}
+        scale = want.abs().max().item()
+        if k in exact["zero_grad"] and scale <= 1e-12 * top:
+            noise = max([noise] + [v.abs().max().item() / top for v in runs.values()])
+            continue
+        dist = {n: (v - want).abs().max().item() for n, v in runs.items()}
+        lim = 2 * max(dist["one"], dist["rev"]) + 1e-4 * scale + 1e-6 * top
+        worst = max(worst, (dist["grid"] / max(dist["one"], dist["rev"], 1e-300), k))
+        if dist["grid"] > lim:
+            bad.append((k, dist["grid"] / scale, dist["one"] / scale, dist["rev"] / scale))
+    if noise >= TOL_DEPTH_ZERO_GRAD:
+        bad.append(("exactly-zero gradients", noise, 0.0, 0.0))
+    return bad, worst, noise
+
+
+def _compare_depth(ref: dict, ctl: dict, exact: dict, ranks: list, what: str) -> list:
+    """(a): the mean of the ranks' lossE / lossD within 1e-4 relative of one
+    process's fp32 step; BN running statistics within 1e-5 of the largest;
+    the ranks' digests equal. First moments by step 0's rule
+    (tests/torch_port_common.py `assert_nearer_float64`), the float64 step
+    (`exact`) the yardstick: each tensor of the grid's fp32 step at most
+    twice as far from the float64 moment as the farther of one process's
+    two fp32 steps (the batch as it is and reversed: the same step, its sums
+    in other orders) plus 1e-4 of the tensor's largest float64 value and
+    1e-6 of the model's largest moment (fp32 rounding at the scale of the
+    largest gradient, tests/test_torch_ddp.py's noise; it decides only for
+    a gradient near 0 in exact arithmetic, as the latent 1x1 conv's is when
+    its BN's variance lies far above eps). A
+    1e-3 bound against one process's fp32 moments is out of reach even for
+    its own reversed batch: the decoder's head, a 1x1 conv from the one
+    latent channel into a BN, projects the cotangent of mu onto the part
+    that BN does not normalise away, a near-cancelling sum that every
+    encoder gradient passes through (on the CPU at 32^3 the reversed
+    batch's mu cotangent lies 2e-3 from the float64 one, the batch as it is
+    8e-6). The tensors whose exact gradient is 0 (`zero_gradient_tensors`:
+    the conv biases in front of a BN, and the latent 1x1 conv weight when
+    its float64 moment is below 1e-12 of the largest) must stay below
+    TOL_DEPTH_ZERO_GRAD of the largest moment in every run
+    (`assert_moments_close`'s noise rule). The rule must also refuse two
+    controls made from the grid's moments (Adam's first moment at step 1 is
+    0.1 x the gradient): P times them, a grid whose `spatial_sum` backward
+    all-reduces the cotangent, and their negation, a wrong sign."""
+    two = ranks[0]
+    rel = {k: abs(sum(r["metrics"][k] for r in ranks) / len(ranks) - ref["metrics"][k])
+           / abs(ref["metrics"][k]) for k in ("lossE", "lossD")}
+    bad, worst, noise = _depth_moment_check(two["moments"], ref, ctl, exact)
+    p = len(ranks)
+    controls = {f"{p} x the grid's": {k: p * v for k, v in two["moments"].items()},
+                "the negated grid's": {k: -v for k, v in two["moments"].items()}}
+    refused = {}
+    for name, m in controls.items():
+        c_bad, c_worst, _ = _depth_moment_check(m, ref, ctl, exact)
+        refused[name] = (len(c_bad), c_worst[0])
+    top_s = max(v.abs().max().item() for v in ref["stats"].values())
+    stat_worst = max(((two["stats"][k] - v).abs().max().item() / top_s, k)
+                     for k, v in ref["stats"].items())
+    same = len({r["digest"] for r in ranks}) == 1
+    over = sum((two["moments"][k] - v).abs().max().item() > 1e-3 * v.abs().max().item()
+               for k, v in ref["moments"].items())
+    log(f"{what}: lossE rel {rel['lossE']:.2e}, lossD rel {rel['lossD']:.2e} (limit 1e-4); first "
+        f"moments against the float64 step: the grid's distance over the farther of one "
+        f"process's two fp32 steps at most {worst[0]:.2f} ({worst[1]}; limit 2, plus 1e-4 of "
+        f"the tensor's largest and 1e-6 of the largest moment); over 1e-3 of max|m| from one "
+        f"process's fp32 moments: {over} tensors; exactly-zero gradients at most {noise:.2e} of "
+        f"the largest moment (limit {TOL_DEPTH_ZERO_GRAD:.0e}); controls, [tensors refused, "
+        f"largest ratio]: " + ", ".join(f"{n} moments {v[0]} / {v[1]:.3g}"
+                                       for n, v in refused.items())
+        + f"; BN running statistics worst {stat_worst[0]:.2e} of the largest {top_s:.3f} at "
+        f"{stat_worst[1]} (limit 1e-5); ranks' digests equal {same}")
+    for k, g, o, r in bad:
+        log(f"[depth] (a) over the limit: {k}: grid {g:.2e}, one {o:.2e}, reversed {r:.2e} of "
+            f"max|m| from the float64 moment")
+    failed = []
+    if max(rel.values()) > 1e-4 or bad or stat_worst[0] > 1e-5 or not same:
+        failed.append(f"(a) the grid disagrees with one process: {rel} {bad} noise {noise:.2e} "
+                      f"{stat_worst} digests equal {same}")
+    if not all(n for n, _ in refused.values()):
+        failed.append(f"(a) the moment rule passes a control: {refused}")
+    return failed
+
+
+def depth_flagship_rank(dev, inp: dict, mesh=None) -> dict:
+    """(b), one rank: spatial_1200_fullsize bf16 with dropout on this rank's
+    slab of the 2 volumes (both whole without `mesh`: one process's step,
+    the yardstick); a warm-up step, one counted step (launches, collectives,
+    the bodies its sites took), 5 timed steps, one more under the profiler
+    on rank 0, peak GiB, the digest, the last metrics."""
+    from sivae_torch.config import OptimConfig, SoftIntroLossConfig
+    from sivae_torch.kernels import build
+    from sivae_torch.models.registry import make_model
+    from sivae_torch.models.resnet_vae import depth_levels
+    from sivae_torch.parallel import rank, replicate_state
+    from sivae_torch.parallel.mesh import (collectives, reset_collectives, shard_batch,
+                                           state_digest)
+    from sivae_torch.train.state import create_train_state
+    from sivae_torch.train.step import make_soft_intro_train_step
+
+    cfg = _fullsize_cfg(torch.bfloat16, True)
+    real = inp["full"]
+    if mesh is not None:
+        real = shard_batch(real, mesh, spatial_axis="spatial", levels=depth_levels(cfg))
+    real = real.to(dev)
+    model = make_model(cfg, device=dev, seed=0)
+    state = replicate_state(create_train_state(model, seed=0))
+    step = make_soft_intro_train_step(model, SoftIntroLossConfig(), OptimConfig(), 1,
+                                      cfg.input_shape)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    step(state, real)   # warm-up
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    build.reset_launches()
+    reset_collectives()
+    step(state, real)
+    torch.cuda.synchronize()
+    counts, coll = dict(build.launches), {k: list(v) for k, v in collectives.items()}
+    bodies = site_bodies(dev)
+    times = []
+    for _ in range(REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, metrics = step(state, real)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    # one more step on every rank (their exchanges pair up), rank 0's under
+    # the profiler: its own kernels, so its idle share holds the other
+    # ranks' turns on the card, the host copies of the halo planes and the
+    # waits
+    if rank() == 0:
+        what = ("fullsize step, one process" if mesh is None else
+                f"depth-sharded fullsize step, rank 0 of {DEPTH_B_WORLD}")
+        profile_window(what, lambda: step(state, real), top=12)
+    else:
+        step(state, real)
+    replicate_state(state)
+    out = {"launches": counts, "want": soft_intro_launches(model), "collectives": coll,
+           "halos_want": soft_intro_step_halos(cfg), "bodies": bodies, "times": times,
+           "warm_s": warm, "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+           "metrics": _metrics_line(metrics), "digest": state_digest(state).hex(),
+           "slab": tuple(real.shape[2:])}
+    del state, step, model, real
+    torch.cuda.empty_cache()
+    build.reset_launches()
+    return out
+
+
+def depth_encode(dev, inp: dict) -> dict:
+    """(c): `encode_dataset` of phase 5's first 8 volumes by spatial_1200
+    fp32 (seed 0 weights) at batch 8, under this process's grid (the whole
+    latents on every rank), counted and timed."""
+    from sivae_torch.eval.latent_probe import encode_dataset
+    from sivae_torch.kernels import build
+    from sivae_torch.models.registry import get_model_config, make_model
+    from sivae_torch.parallel.mesh import collectives, reset_collectives
+
+    model = make_model(get_model_config("spatial_1200"), device=dev, seed=0)
+    build.reset_launches()
+    reset_collectives()
+    t0 = time.perf_counter()
+    mu = encode_dataset(model, inp["vox"], batch_size=8)
+    torch.cuda.synchronize()
+    out = {"mu": mu, "s": time.perf_counter() - t0, "launches": dict(build.launches),
+           "collectives": {k: list(v) for k, v in collectives.items()}}
+    del model
+    torch.cuda.empty_cache()
+    build.reset_launches()
+    return out
+
+
+def depth_rank(out_dir: str, part: str, backend: str) -> int:
+    """One of phase 12's ranks (`phase_depth`, the launcher's environment;
+    `backend` "gloo": all on the one card, "nccl": one card each): part "a"
+    runs (a) and (c) on a 1 x 2 grid, part "b" runs (b) on a 1 x 4 grid."""
+    import os
+
+    from sivae_torch.kernels import build
+    from sivae_torch.parallel import init_distributed, make_mesh, rank, shutdown
+    from sivae_torch.utils.device import resolve_device
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: CUDA is not available")
+    dev = init_distributed(backend=backend)
+    resolve_device(dev)   # TF32 off
+    build.library()       # the parent's build, from the cache
+    inp = torch.load(os.path.join(out_dir, "inputs.pt"), weights_only=False)
+    t0 = time.perf_counter()
+    if part == "a":
+        mesh = make_mesh((1, DEPTH_A_WORLD), ("data", "spatial"))
+        res = {"a": depth_step(dev, inp, mesh)}
+        log(f"[depth rank {rank()}] (a) {time.perf_counter() - t0:.1f} s")
+        res["c"] = depth_encode(dev, inp)
+        log(f"[depth rank {rank()}] (c) {time.perf_counter() - t0:.1f} s")
+    else:
+        mesh = make_mesh((1, DEPTH_B_WORLD), ("data", "spatial"))
+        res = {"b": depth_flagship_rank(dev, inp, mesh)}
+        log(f"[depth rank {rank()}] (b) {time.perf_counter() - t0:.1f} s")
+    torch.save(res, os.path.join(out_dir, f"rank{rank()}.pth"))
+    shutdown()
+    return 0
+
+
+def _mib(nbytes: int) -> str:
+    return f"{nbytes / 2**20:.1f} MiB"
+
+
+def phase_depth(dev, card: str, own_cards: bool = False) -> dict:
+    """Phase 12 (module docstring): (a) fp32 fullsize step, one process and
+    a 1 x 2 grid; (c) the spatial_1200 encode, one process and 1 x 2; (b)
+    the bf16 fullsize step on a 1 x 4 grid; gloo ranks sharing the one
+    card, or with `own_cards` NCCL ranks on a card each
+    (`--depth-cards`). Returns the ranks' counted launches, summed."""
+    import os
+    import tempfile
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_depth_")
+    t_phase = time.perf_counter()
+    inp = depth_inputs(os.path.join(tmp.name, "inputs.pt"))
+    ref = depth_step(dev, inp)
+    ctl = depth_step(dev, inp, reverse=True)
+    exact = depth_step(dev, inp, exact=True)
+    enc = depth_encode(dev, inp)
+    log(f"[depth] (a) one process: fp32 spatial_1200_fullsize 160x192x160 batch 2 step "
+        f"{ref['s']:.2f} s (the reversed batch {ctl['s']:.2f} s), peak {ref['peak_gib']:.2f} "
+        f"GiB; the float64 step (cuDNN's convs) {exact['s']:.2f} s, peak "
+        f"{exact['peak_gib']:.2f} GiB; (c) one process's encode of 8 volumes {enc['s']:.3f} s "
+        f"({card})")
+    failed = []
+    for tag, r in (("one process", ref), ("reversed batch", ctl), ("float64", exact)):
+        if r["launches"] != r["want"]:
+            failed.append(f"(a) {tag}: launches {r['launches']}, derived {r['want']}")
+
+    backend = "nccl" if own_cards else "gloo"
+    where = "one card each, NCCL" if own_cards else "gloo, sharing the one card"
+    t0 = time.perf_counter()
+    ranks = run_ranks("depth", ["--depth-rank", tmp.name, "a", backend], DEPTH_A_WORLD,
+                      tmp.name, DEPTH_LIMIT_S, own_cards)
+    log(f"[depth] (a) + (c): {DEPTH_A_WORLD} ranks ({where}) in {time.perf_counter() - t0:.1f} s")
+    a = [r["a"] for r in ranks]
+    failed += _compare_depth(
+        ref, ctl, exact, a, f"[depth] (a) fp32 spatial_1200_fullsize 160x192x160 step at lr 0, "
+        f"global batch 2: a 1 x {DEPTH_A_WORLD} grid (slabs {[x['slab'] for x in a]}; {where}) "
+        f"vs one process on a card")
+    for r, x in enumerate(a):
+        c = x["collectives"]
+        log(f"[depth] (a) rank {r}: step {x['s']:.2f} s, peak {x['peak_gib']:.2f} GiB, launches "
+            f"{x['launches']} (derived {x['want']}), halo exchanges {c.get('halo')} [calls, "
+            f"bytes sent], through the host {c.get('halo_host')}, BN statistics {c.get('bn')}, "
+            f"spatial sums {c.get('spatial')}, gradient buckets {c.get('grad')} ({card})")
+        if x["launches"] != x["want"]:
+            failed.append(f"(a) rank {r}: launches {x['launches']}, derived {x['want']}")
+    rel = max(_rel(torch.from_numpy(r["c"]["mu"]), torch.from_numpy(enc["mu"])) for r in ranks)
+    log(f"[depth] (c) spatial_1200 fp32 encode_dataset of 8 volumes on 1 x {DEPTH_A_WORLD} vs one "
+        f"process: mu rel err {rel:.2e} (limit {TOL_DEPTH_ENCODE}); {[round(r['c']['s'], 3) for r in ranks]} "
+        f"s, launches {ranks[0]['c']['launches']} (one process {enc['launches']}), gathers "
+        f"{ranks[0]['c']['collectives'].get('gather')}")
+    if not rel <= TOL_DEPTH_ENCODE or ranks[0]["c"]["launches"] != enc["launches"]:
+        failed.append(f"(c) encode on the grid: rel {rel:.2e}, launches "
+                      f"{ranks[0]['c']['launches']} vs {enc['launches']}")
+    del ref, ctl, exact, enc
+    torch.cuda.empty_cache()
+
+    one = depth_flagship_rank(dev, inp)
+    t = sorted(one["times"])
+    log(f"[depth] (b) one process on a card ({card}): spatial_1200_fullsize bf16, dropout on, "
+        f"batch 2: median {t[REPEATS // 2]:.4f} s/step, min {t[0]:.4f}, max {t[-1]:.4f}, peak "
+        f"{one['peak_gib']:.2f} GiB, launches {one['launches']} (derived {one['want']})")
+    if one["launches"] != one["want"]:
+        failed.append(f"(b) one process: launches {one['launches']}, derived {one['want']}")
+    t0 = time.perf_counter()
+    ranks_b = run_ranks("depth", ["--depth-rank", tmp.name, "b", backend], DEPTH_B_WORLD,
+                        tmp.name, DEPTH_LIMIT_S, own_cards)
+    log(f"[depth] (b): {DEPTH_B_WORLD} ranks ({where}) in {time.perf_counter() - t0:.1f} s")
+    b = [r["b"] for r in ranks_b]
+    medians = [sorted(x["times"])[REPEATS // 2] for x in b]
+    slow = max(range(DEPTH_B_WORLD), key=lambda r: medians[r])
+    t = sorted(b[slow]["times"])
+    same = len({x["digest"] for x in b}) == 1
+    finite = all(not x["metrics"]["nan"] and all(math.isfinite(v) for k, v in
+                                                 x["metrics"].items() if k != "nan") for x in b)
+    halos = [x["collectives"].get("halo", [0, 0]) for x in b]
+    log(f"[depth] (b) spatial_1200_fullsize bf16 160x192x160, dropout on, global batch 2 on a 1 x "
+        f"{DEPTH_B_WORLD} grid (slabs {[x['slab'] for x in b]}), {DEPTH_B_WORLD} ranks ({where}; "
+        f"{card}{'' if own_cards else '; not a scaling figure'}): slower rank {slow} median {t[REPEATS // 2]:.4f} "
+        f"s/step, min {t[0]:.4f}, max {t[-1]:.4f} ({REPEATS} steps; rank medians "
+        f"{[round(x, 4) for x in medians]}; warm-up {[round(x['warm_s'], 2) for x in b]} s); "
+        f"peak GiB per rank {[round(x['peak_gib'], 2) for x in b]}; halo exchanges a step per "
+        f"rank {[h[0] for h in halos]} (derived {b[0]['halos_want']}), bytes sent "
+        f"{[_mib(h[1]) for h in halos]}, through the host "
+        f"{[_mib(x['collectives'].get('halo_host', [0, 0])[1]) for x in b]}; launches per rank "
+        f"{[x['launches'] for x in b]} (derived {b[0]['want']}); digests equal {same}; metrics "
+        f"{json.dumps(b[0]['metrics'])}")
+    log(f"[depth] (b) all-reduces of rank 0 in one step [calls, bytes]: "
+        f"{json.dumps({k: v for k, v in b[0]['collectives'].items() if k != 'halo'})}")
+    log(f"[depth] (b) bodies at the sharded sites: {json.dumps(b[0]['bodies'])}")
+    _require_tensor_core_bodies("phase 12 (b)", b[0]["bodies"])
+    if (any(x["launches"] != x["want"] for x in b) or not same or not finite
+            or any(h[0] != b[0]["halos_want"] for h in halos)):
+        failed.append(f"(b) the depth-sharded fullsize step: launches "
+                      f"{[x['launches'] for x in b]}, halos {halos}, digests equal {same}, "
+                      f"finite {finite}")
+    log(f"[depth] phase 12 in {time.perf_counter() - t_phase:.1f} s")
+    if failed:
+        raise SystemExit("chip_smoke: phase 12: " + "; ".join(failed))
+    tmp.cleanup()
+    return {k: sum(x["launches"].get(k, 0) for x in a + b) for k in TRAIN_LAUNCHES}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="", help="comma-separated subset of " + ",".join(PHASES))
     ap.add_argument("--ddp-rank", default=None, help=argparse.SUPPRESS)   # phase 10's ranks
+    ap.add_argument("--depth-rank", nargs=3, default=None, help=argparse.SUPPRESS)   # phase 12's
+    ap.add_argument("--depth-cards", action="store_true",
+                    help=f"phase 12 alone, its ranks on a card each (NCCL; needs "
+                         f"{DEPTH_B_WORLD} cards)")
     args = ap.parse_args(argv)
     if args.ddp_rank is not None:
         return ddp_rank(args.ddp_rank)
+    if args.depth_rank is not None:
+        return depth_rank(*args.depth_rank)
     only = [p for p in args.only.split(",") if p]
     if any(p not in PHASES for p in only):
         ap.error(f"--only takes {PHASES}")
     want = set(only or PHASES)
+    if args.depth_cards:
+        if torch.cuda.is_available() and torch.cuda.device_count() < DEPTH_B_WORLD:
+            ap.error(f"--depth-cards needs {DEPTH_B_WORLD} cards")
+        only, want = ["depth-cards"], set()
 
     name, card = phase_device()
     from sivae_torch.utils.device import resolve_device
@@ -2562,6 +3075,9 @@ def main(argv=None):
     if "remat" in want:
         phase_remat(dev, remat_vox, fullsize_gib)
     del remat_vox
+    depth_n = phase_depth(dev, card) if "depth" in want else {}
+    if args.depth_cards:
+        phase_depth(dev, card, own_cards=True)
     log(card)
     if only:
         print(json.dumps({"ok": False, "partial": only}))
@@ -2582,7 +3098,7 @@ def main(argv=None):
                     "fused_stage": stage_n[kname],
                     "train_step": train_n[kname], "trainer": trainer_n[kname],
                     "families": families_n[kname], "ddp_ranks": ddp_n[kname],
-                    "fullsize": fullsize_n[kname]}
+                    "fullsize": fullsize_n[kname], "depth_ranks": depth_n[kname]}
         launches = sum(per_path.values())
         if launches == 0:
             raise SystemExit(f"chip_smoke: no counted path launched {kname}")

@@ -15,7 +15,9 @@ import numpy as np
 import torch
 
 from sivae_torch.eval.recon_quality import eval_mode
-from sivae_torch.models.resnet_vae import reparameterize
+from sivae_torch.models.resnet_vae import depth_levels, reparameterize
+from sivae_torch.parallel.distributed import spatial_ranks
+from sivae_torch.parallel.mesh import gather_depth, volume_slab
 
 
 @torch.no_grad()
@@ -36,6 +38,12 @@ def encode_dataset(
       - "z": sampled z like logistic1.ipynb cell 7 (needs `generator`)
     The tail batch is zero-padded to `batch_size`, as in the JAX package,
     so every batch has one shape; the padding rows are dropped.
+
+    Under depth sharding (a `1 x P` grid, `parallel.mesh.make_mesh`) every
+    spatial rank passes the whole volumes, encodes its depth slab
+    (`volume_slab` at the model's `depth_levels`) and gets the whole latents
+    back (`gather_depth`), as JAX's encode on a `volume_sharding` does
+    (tests/test_spatial_sharding.py).
     """
     if representation not in ("mu", "z_val", "z"):
         raise ValueError(f"unknown representation {representation!r}")
@@ -52,7 +60,14 @@ def encode_dataset(
             if keep < batch_size:
                 pad = torch.zeros((batch_size - keep,) + tuple(chunk.shape[1:]), device=dev)
                 chunk = torch.cat([chunk, pad])
+            sharded = spatial_ranks() > 1
+            if sharded:
+                chunk = chunk[:, :, volume_slab(chunk.shape[2], levels=depth_levels(model.cfg))]
             mu, logvar = model.encode(chunk)
+            if sharded:
+                depth = model.cfg.latent_shape[1]
+                mu = gather_depth(mu, depth)
+                logvar = logvar if representation == "mu" else gather_depth(logvar, depth)
             if representation == "mu":
                 z = mu.float()
             elif representation == "z_val":

@@ -4,7 +4,10 @@ Port of `sivae_tpu/models/blocks.py` (`make_act`, `avg_pool3d`,
 `upsample_nearest3d`, `Conv3d`, `BatchNorm` in both modes, `ConvBlock`,
 `UpBlock`, `ConvBNAct`), and flax's `Dense` as `Linear`. The convs,
 BatchNorm and Dropout take part in activation rematerialisation through
-`models/remat.py`'s tape (a no-op outside a rematerialised region). Module and
+`models/remat.py`'s tape (a no-op outside a rematerialised region). Under
+depth sharding (`parallel/mesh.py`) every tensor is this rank's depth slab:
+the 3x3x3 convs pad it with their neighbours' halo planes
+(`parallel/halo.py`) and BatchNorm takes the whole grid's statistics. Module and
 parameter names follow the reference torch `state_dict` (reference
 models/models.py:8-80): `block.{0,1,4,5}` inside a
 residual block, `shortcut` for its 1x1 projection, `{0,1}` inside a
@@ -30,7 +33,8 @@ from sivae_torch.kernels.conv3d import conv3d_same
 from sivae_torch.kernels.conv3d_small import conv3d_from1, conv3d_to1
 from sivae_torch.models import remat
 from sivae_torch.ops.fused_upconv import upsampled_conv3x3
-from sivae_torch.parallel.distributed import world_size
+from sivae_torch.parallel import halo
+from sivae_torch.parallel.distributed import spatial_ranks, world_size
 from sivae_torch.parallel.mesh import all_reduce_
 from sivae_torch.utils.dtypes import widen
 
@@ -167,6 +171,18 @@ def kernel_kind(ci: int, co: int) -> str:
     return "conv3d_to1" if co == 1 else "conv3d_from1" if ci == 1 else "conv3d_same"
 
 
+def halo_padded(x: torch.Tensor) -> torch.Tensor:
+    """NDHWC slab `x` with one halo plane of each depth neighbour on either
+    side (zeros at the grid's edges), the planes taped inside a
+    rematerialised region so that its rerun exchanges nothing."""
+    tape = remat.active_tape()
+    if tape is None:
+        received = halo.exchange_planes(x)
+    else:
+        received = tape.received(lambda: halo.exchange_planes(x))
+    return halo.pad_depth(x, received)
+
+
 class Conv3d(nn.Module):
     """k x k x k SAME stride-1 conv (k in {1, 3}) with He-normal init.
 
@@ -178,6 +194,11 @@ class Conv3d(nn.Module):
     in JAX. Bias is added here, after the kernel (`blocks.py:158-161`).
     Weights are stored OIDHW (torch layout) in `param_dtype`; the forward
     casts input and weights to the compute `dtype`.
+
+    Under depth sharding a 3x3x3 conv runs the same kernel on its slab
+    padded with one halo plane each side (`halo_padded`) and crops the first
+    and last output planes: the kernel's own SAME padding in depth only
+    reaches those two. 1x1 convs stay local.
     """
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3, use_bias: bool = False,
@@ -206,7 +227,11 @@ class Conv3d(nn.Module):
             return ncdhw(torch.matmul(ndhwc(x), w.reshape(self.out_ch, self.in_ch).t()))
         wk = w.permute(2, 3, 4, 1, 0).contiguous()  # OIDHW -> DHWIO
         fn = _KERNELS[kernel_kind(self.in_ch, self.out_ch)]
-        return ncdhw(remat.kernel_conv(fn, ndhwc(x), wk))
+        if spatial_ranks() == 1:
+            return ncdhw(remat.kernel_conv(fn, ndhwc(x), wk))
+        d, h, w_ = x.shape[2:]
+        y = remat.kernel_conv(fn, halo_padded(ndhwc(x)), wk, d * h * w_)
+        return ncdhw(y[:, 1:-1].contiguous())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self._conv(x.to(self.dtype), self.weight.to(self.dtype))
@@ -217,13 +242,22 @@ class Conv3d(nn.Module):
 
 class UpsampleConv3d(Conv3d):
     """nearest-upsample(2) + 3x3x3 SAME conv, fused exactly into one stride-2
-    transposed conv (`ops/fused_upconv.py`). Same parameters as `Conv3d`."""
+    transposed conv (`ops/fused_upconv.py`). Same parameters as `Conv3d`.
+
+    Under depth sharding the low-resolution slab gets one halo plane each
+    side; of the 2 (d + 2) output planes the first and last two are cropped
+    (those the padded tensor's own edges reach), which leaves the slab's
+    2d."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b = None if self.bias is None else self.bias.to(self.dtype)
         x = x.to(self.dtype)
-        return remat.library_conv(lambda: upsampled_conv3x3(x, self.weight, b),
-                                  8 * x.shape[2] * x.shape[3] * x.shape[4])
+        voxels = 8 * x.shape[2] * x.shape[3] * x.shape[4]
+        if spatial_ranks() == 1:
+            return remat.library_conv(lambda: upsampled_conv3x3(x, self.weight, b), voxels)
+        xp = ncdhw(halo_padded(ndhwc(x)))
+        y = remat.library_conv(lambda: upsampled_conv3x3(xp, self.weight, b), voxels)
+        return y[:, :, 2:-2].contiguous(memory_format=CL)
 
 
 _BN_AXES = (0, 2, 3, 4)
@@ -250,40 +284,46 @@ class _BatchNormTrain(torch.autograd.Function):
 
     Returns (y, mean, var); mean and var (biased) are not differentiable and
     feed the running statistics. `stats`, when given, is a list: an empty
-    one receives [mean, E[x^2] - mean^2] (before the clamp), and a filled one
-    stands for the batch's, so that a rematerialised region's rerun
+    one receives [mean, E[x^2] - mean^2 (before the clamp), the count], and
+    a filled one stands for the batch's, so that a rematerialised region's rerun
     normalises with its first forward's statistics and reduces nothing
     (`models/remat.py`).
 
-    Under data parallelism (a process group of more than one rank, each with
-    an equal shard of the global batch) the statistics are the GLOBAL
-    batch's, as GSPMD makes them in the JAX package
+    Under data parallelism and depth sharding (a process group of more than
+    one rank, each with its rows of the global batch and its depth slab) the
+    statistics are the whole grid's, as GSPMD makes them in the JAX package
     (`sivae_tpu/parallel/mesh.py:4-10`): the forward all-reduces
     `[sum x, sum x^2]` once and divides by the global count, and the
-    backward all-reduces `[sum g, sum g * xhat]` once for `dx`. The weight
+    backward all-reduces `[sum g, sum g * xhat]` once for `dx`. The count
+    joins the forward's sums (depth slabs may differ in size), all in
+    float64 (a count past 2**24 stays exact). The weight
     and bias gradients it returns stay this rank's own sums: the step's
-    gradient all-reduce averages them with every other gradient. In one
+    gradient all-reduce adds them up with every other gradient. In one
     process no collective runs and the arithmetic is the one above.
     """
 
     @staticmethod
     def forward(ctx, x, weight, bias, eps, slope, out_dtype, stats=None):
         ctx.world = world_size()
-        ctx.n = x.numel() // x.shape[1] * ctx.world
         if stats:
-            mean, raw_var = stats
+            mean, raw_var, ctx.n = stats
         else:
             xf = widen(x)
             if ctx.world == 1:
+                ctx.n = x.numel() // x.shape[1]
                 mean = xf.mean(dim=_BN_AXES)
                 raw_var = (xf * xf).mean(dim=_BN_AXES) - mean * mean
             else:
-                sums = torch.cat([xf.sum(dim=_BN_AXES), (xf * xf).sum(dim=_BN_AXES)])
-                mean, ex2 = all_reduce_(sums, "bn").div_(ctx.n).chunk(2)
+                local = x.new_full((1,), x.numel() // x.shape[1], dtype=torch.float64)
+                sums = torch.cat([xf.sum(dim=_BN_AXES).double(),
+                                  (xf * xf).sum(dim=_BN_AXES).double(), local])
+                sums = all_reduce_(sums, "bn")
+                ctx.n = sums[-1:].to(xf.dtype)
+                mean, ex2 = (sums[:-1] / sums[-1]).to(xf.dtype).chunk(2)
                 raw_var = ex2 - mean * mean
             del xf
             if stats is not None:
-                stats += [mean, raw_var]
+                stats += [mean, raw_var, ctx.n]
         var = raw_var.clamp_min(0.0)  # flax's fast variance: max(0, E[x^2] - mean^2)
         rstd = torch.rsqrt(var + eps)
         # same op order as the eval branch (flax `_normalize`)

@@ -22,6 +22,7 @@ import torch.nn as nn
 from sivae_torch.config import SpatialVAEConfig
 from sivae_torch.models.blocks import ConvBlock, ConvBNAct, Linear, to_channels_last
 from sivae_torch.models.remat import Remat
+from sivae_torch.parallel.mesh import require_unsharded
 
 
 class ResNetClassifier(nn.Module):
@@ -43,6 +44,7 @@ class ResNetClassifier(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x (B, 1, D, H, W) -> logits (B, num_classes), fp32 whatever the
         compute dtype (as the JAX classifier's)."""
+        require_unsharded("the classifier's global pool")
         h = to_channels_last(x)
         for block in self.blocks:
             h = self.remat(self.training, block, h)

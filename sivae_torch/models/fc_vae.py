@@ -45,6 +45,7 @@ from sivae_torch.models.blocks import (AvgPool, BatchNorm, Conv3d, Linear, Upsam
                                        to_channels_last)
 from sivae_torch.models.remat import ConvSite, Remat, run_units
 from sivae_torch.models.resnet_vae import SoftIntroVAE
+from sivae_torch.parallel.mesh import require_unsharded
 
 # the conv-BN-act units of each Sequential `_Parts` makes, as index ranges
 UNIT2 = ((0, 2), (3, 5))  # unit2: conv-BN-act, conv-BN-act
@@ -115,6 +116,8 @@ class FCEncoder(nn.Module):
 
     def forward(self, x: torch.Tensor):
         """x (B, 1, D, H, W) -> (mu, logvar), each (B, z_ch)."""
+        require_unsharded("the FC encoder's head")
+
         def run(seq, units, t):
             return run_units(seq, units, t, self.remat, self.training)
 
@@ -153,6 +156,8 @@ class FCDecoder(nn.Module):
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         """z (B, z_ch) -> (B, 1, D, H, W)."""
+        require_unsharded("the FC decoder's head")
+
         def run(seq, units, t):
             return run_units(seq, units, t, self.remat, self.training)
 

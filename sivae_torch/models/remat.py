@@ -33,7 +33,12 @@ forward writes a tape that the rerun reads:
 - the state of the generator each Dropout drew its mask from. The rerun
   draws the same mask from a copy of that state, whatever generator the
   module holds by then (phase D's replayed decodes swap it, and data
-  parallelism's masks come from a rank generator).
+  parallelism's masks come from a rank generator);
+- under depth sharding, the halo planes each conv received from its depth
+  neighbours (`parallel/halo.py`): the rerun pads with them and exchanges
+  nothing. With the statistics above, a rerun issues no collective. The
+  halo's backward (its cotangents to their owners) belongs to the first
+  forward's node and runs once.
 1x1 convs (the spatial decoder's head and the encoder's heads, at the
 latent's resolution in every registry model) are recomputed under every
 policy, where the JAX policies would keep them.
@@ -49,6 +54,7 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
+from fractions import Fraction
 from typing import Callable, Dict, FrozenSet, List, Optional, Sequence
 
 import torch
@@ -108,13 +114,17 @@ class _Tape:
     """What one call of a region keeps for its rerun, in the order its
     forward met the sites (the rerun meets them in the same order)."""
 
-    def __init__(self, saves: FrozenSet[str], scope: str):
+    def __init__(self, saves: FrozenSet[str], scope: str, depth_scale: Fraction = Fraction(1)):
         self.saves, self.scope = saves, scope
+        # the whole volume's depth over this rank's slab's, under depth
+        # sharding: a site's tag follows the whole volume's voxels
+        self.depth_scale = depth_scale
         self.convs: List[Optional[torch.Tensor]] = []
         self.stats: List[list] = []
         self.gens: list = []
+        self.halos: list = []
         self.replaying = False
-        self.at = {"conv": 0, "stats": 0, "gen": 0}
+        self.at = {"conv": 0, "stats": 0, "gen": 0, "halo": 0}
 
     def contexts(self):
         """checkpoint's `context_fn`: (first forward, rerun)."""
@@ -132,7 +142,7 @@ class _Tape:
         compute() again."""
         if not self.replaying:
             y = compute()
-            keep = site_tag(voxels, self.scope) in self.saves
+            keep = site_tag(int(voxels * self.depth_scale), self.scope) in self.saves
             self.convs.append(y.detach() if keep else None)
             return y
         kept = self._next("conv", self.convs)
@@ -145,6 +155,14 @@ class _Tape:
             self.stats.append([])
             return self.stats[-1]
         return self._next("stats", self.stats)
+
+    def received(self, exchange: Callable[[], tuple]) -> tuple:
+        """exchange() (a halo exchange) in the first forward, its planes
+        kept; in the rerun the kept planes, and no exchange."""
+        if not self.replaying:
+            self.halos.append(exchange())
+            return self.halos[-1]
+        return self._next("halo", self.halos)
 
     def generator(self, gen: Optional[torch.Generator]) -> Optional[torch.Generator]:
         """The generator a Dropout draws its mask from: its own in the first
@@ -206,15 +224,18 @@ class _ReturnKept(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-def kernel_conv(fn: Callable, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def kernel_conv(fn: Callable, x: torch.Tensor, w: torch.Tensor,
+                voxels: Optional[int] = None) -> torch.Tensor:
     """fn(x, w) for one of the kernels' differentiable wrappers
     (`conv3d_same`, `conv3d_to1`, `conv3d_from1`; NDHWC x), taped inside a
-    region."""
+    region. `voxels`: the output's spatial voxels on this rank (x's, unless
+    x carries halo planes)."""
     tape = active_tape()
     if tape is None:
         return fn(x, w)
-    return tape.conv(x.shape[1] * x.shape[2] * x.shape[3], lambda: fn(x, w),
-                     lambda kept: _Kept.apply(x, w, kept))
+    if voxels is None:
+        voxels = x.shape[1] * x.shape[2] * x.shape[3]
+    return tape.conv(voxels, lambda: fn(x, w), lambda kept: _Kept.apply(x, w, kept))
 
 
 def library_conv(compute: Callable[[], torch.Tensor], voxels: int) -> torch.Tensor:
@@ -239,13 +260,16 @@ def _replay_convolution(compute, kept: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def region(fn: Callable, saves: FrozenSet[str], scope: str, *args):
+def region(fn: Callable, saves: FrozenSet[str], scope: str, *args,
+           depth_scale: Fraction = Fraction(1)):
     """fn(*args) as one rematerialised region that keeps `saves` (a
-    `remat_policy_by_name` set) in the encoder or decoder `scope`.
-    preserve_rng_state=False: nothing in a region draws from torch's global
-    generators (dropout masks come from explicit generators, whose states
-    the tape keeps), so there is no global state to stash and restore."""
-    tape = _Tape(saves, scope)
+    `remat_policy_by_name` set) in the encoder or decoder `scope`
+    (`depth_scale`: the volume's depth over this rank's slab's, under depth
+    sharding). preserve_rng_state=False: nothing in a region draws from
+    torch's global generators (dropout masks come from explicit generators,
+    whose states the tape keeps), so there is no global state to stash and
+    restore."""
+    tape = _Tape(saves, scope, depth_scale)
     return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
                       context_fn=tape.contexts)
 
@@ -263,11 +287,12 @@ class Remat:
     def wraps(self, training: bool) -> bool:
         return self.saves is not None and training and torch.is_grad_enabled()
 
-    def __call__(self, training: bool, fn: Callable, *args):
+    def __call__(self, training: bool, fn: Callable, *args,
+                 depth_scale: Fraction = Fraction(1)):
         """fn(*args), as a region when `wraps(training)`."""
         if not self.wraps(training):
             return fn(*args)
-        return region(fn, self.saves, self.scope, *args)
+        return region(fn, self.saves, self.scope, *args, depth_scale=depth_scale)
 
 
 def chain(modules: Sequence[torch.nn.Module], h: torch.Tensor) -> torch.Tensor:

@@ -18,6 +18,11 @@ With `cfg.remat` the regions of `sivae_tpu/models/resnet_vae.py:56-57` and
 `:90-91` rematerialise in training (`models/remat.py`): the encoder's stem
 and each `ConvBlock`, the decoder's head and each `UpBlock`; not the
 encoder's heads nor the decoder's output conv, its activation and dropout.
+
+Under depth sharding (`parallel/mesh.py`) both halves run on this rank's
+depth slab: the encoder takes a volume slab (`shard_batch` at `depth_levels`)
+and returns the latent's slab, the decoder takes a latent slab (flat or
+shaped, `slab_shape(latent_shape)`) and returns the volume's slab.
 """
 
 from __future__ import annotations
@@ -31,7 +36,14 @@ from sivae_torch.config import SpatialVAEConfig
 from sivae_torch.models.blocks import (Conv3d, ConvBlock, ConvBNAct, Dropout, UpBlock,
                                        kernel_kind, make_act, to_channels_last)
 from sivae_torch.models.remat import ConvSite, Remat
+from sivae_torch.parallel.mesh import depth_scale, slab_shape, volume_slab
 from sivae_torch.utils.dtypes import widen
+
+
+def depth_levels(cfg: SpatialVAEConfig) -> int:
+    """The number of stride-2 stages in depth, input to latent: the
+    `levels` a volume's depth slabs are split at (`parallel.mesh.volume_slab`)."""
+    return (cfg.input_shape[0] // cfg.latent_spatial_shape[0]).bit_length() - 1
 
 
 class SpatialEncoder(nn.Module):
@@ -57,8 +69,9 @@ class SpatialEncoder(nn.Module):
 
     def forward(self, x: torch.Tensor):
         h = to_channels_last(x)
+        scale = depth_scale(self.cfg.latent_spatial_shape[0])
         for block in self.blocks:
-            h = self.remat(self.training, block, h)
+            h = self.remat(self.training, block, h, depth_scale=scale)
         if not self.cfg.variational:
             return self.conv(h)
         mu, logvar = self.mu(h), self.var(h)
@@ -96,10 +109,12 @@ class SpatialDecoder(nn.Module):
         self.remat = Remat(cfg.remat, cfg.remat_policy, "dec")
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
-        h = to_channels_last(z.reshape((z.shape[0],) + self.cfg.latent_shape))
+        h = to_channels_last(z.reshape((z.shape[0],) + slab_shape(self.cfg.latent_shape)))
+        scale = depth_scale(self.cfg.latent_spatial_shape[0])
         tail = len(self.blocks) - 1
         for i, block in enumerate(self.blocks):
-            h = block(h) if i == tail else self.remat(self.training, block, h)
+            h = block(h) if i == tail else self.remat(self.training, block, h,
+                                                      depth_scale=scale)
         return self.dropout(self.tail_act(h))
 
 
@@ -186,11 +201,15 @@ class SoftIntroVAE(nn.Module):
         (the JAX package decodes with train=False: call it in eval mode)."""
         z = torch.randn((num_samples,) + self.cfg.latent_shape, generator=generator,
                         device=generator.device, dtype=torch.float32)
+        if len(self.cfg.latent_shape) == 4:   # a spatial latent: this rank's depth slab
+            z = z[:, :, volume_slab(self.cfg.latent_shape[1])]
         return self.decode(z)
 
     def sample(self, z: torch.Tensor) -> torch.Tensor:
-        """Decode given flat latents (reference models/models.py:292-296)."""
-        return self.decode(z.reshape((-1,) + self.cfg.latent_shape))
+        """Decode given flat latents (reference models/models.py:292-296);
+        under depth sharding, this rank's slab of each."""
+        shape = self.cfg.latent_shape
+        return self.decode(z.reshape((-1,) + (slab_shape(shape) if len(shape) == 4 else shape)))
 
 
 def make_spatial_soft_intro_vae(cfg: SpatialVAEConfig,

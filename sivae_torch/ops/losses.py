@@ -12,6 +12,13 @@ Port of `sivae_tpu/ops/losses.py:28-198`, function for function:
 Every reduction is taken in float32 whatever the activation type: the
 expELBO term exponentiates `-2 s (beta_rec rec + 1024 kl)`, which underflows
 quickly, and conv outputs may be bfloat16.
+
+Under depth sharding (`parallel/mesh.py`) the volumes and latents here are
+this rank's depth slabs: every sum over voxels or latent positions is a
+partial sum, added over the ranks of the same rows (`spatial_sum`, or
+`spatial_mean` for a mean over positions) before any non-linear term (the
+expELBO's `exp`) or batch reduction sees it; a whole value that meets a
+per-position term goes through `spatial_broadcast`.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from typing import Tuple, Union
 
 import torch
 
+from sivae_torch.parallel.mesh import spatial_broadcast, spatial_mean, spatial_sum
 from sivae_torch.utils.dtypes import widen
 
 Tensor = torch.Tensor
@@ -37,9 +45,20 @@ def _reduce(per_item: Tensor, reduce: str) -> Tensor:
     return per_item
 
 
+def _reduce_positions(per_position: Tensor, reduce: str) -> Tensor:
+    """`_reduce` of a (B, d, h, w) tensor over a depth-sharded latent: the
+    mean and the sum over the whole latent."""
+    if reduce == "mean":
+        return spatial_mean(per_position)
+    if reduce == "sum":
+        return spatial_sum(per_position.sum())
+    return per_position
+
+
 def calc_reconstruction_loss(x: Tensor, recon_x: Tensor, reduction: str = "none") -> Tensor:
     """Sum of squares over voxels per sample; batch mean iff reduction='mean'."""
     per_sample = ((_flatten_per_sample(x) - _flatten_per_sample(recon_x)) ** 2).sum(dim=1)
+    per_sample = spatial_sum(per_sample)
     return per_sample.mean() if reduction == "mean" else per_sample
 
 
@@ -47,7 +66,7 @@ def calc_kl(logvar: Tensor, mu: Tensor, reduce: str = "none") -> Tensor:
     """Analytic KL to N(0, I): per-sample sum over latent dims. Argument
     order (logvar, mu) as in the reference."""
     mu, logvar = _flatten_per_sample(mu), _flatten_per_sample(logvar)
-    kl = -0.5 * (1.0 + logvar - mu ** 2 - torch.exp(logvar)).sum(dim=1)
+    kl = -0.5 * spatial_sum((1.0 + logvar - mu ** 2 - torch.exp(logvar)).sum(dim=1))
     return _reduce(kl, reduce)
 
 
@@ -62,8 +81,8 @@ def calc_kl_general(logvar: Tensor, mu: Tensor, mu_o: Union[Tensor, float] = 0.0
     the DataParallel trainer (reference main_DataParallel.py:87-98)."""
     mu, logvar = _flatten_per_sample(mu), _flatten_per_sample(logvar)
     mu_o, logvar_o = _as_prior(mu_o, mu), _as_prior(logvar_o, mu)
-    kl = -0.5 * (1.0 + logvar - logvar_o - (mu - mu_o) ** 2 * torch.exp(-logvar_o)
-                 - torch.exp(logvar - logvar_o)).sum(dim=1)
+    kl = -0.5 * spatial_sum((1.0 + logvar - logvar_o - (mu - mu_o) ** 2 * torch.exp(-logvar_o)
+                             - torch.exp(logvar - logvar_o)).sum(dim=1))
     return _reduce(kl, reduce)
 
 
@@ -76,10 +95,16 @@ def calc_kl_per_position(logvar: Tensor, mu: Tensor, reduce: str = "none") -> Te
     """
     mu, logvar = mu.float(), logvar.float()
     kl = -0.5 * (1.0 + logvar - mu ** 2 - torch.exp(logvar)).sum(dim=1)
-    return _reduce(kl, reduce)
+    return _reduce_positions(kl, reduce)
 
 
 # --- plain-VAE losses (reference models/lossf.py) --------------------------
+
+
+def voxel_mse(out: Tensor, x: Tensor) -> Tensor:
+    """The mean squared error over every voxel of the batch (torch
+    `nn.MSELoss`'s default), in fp32."""
+    return spatial_mean((out.float() - x.float()) ** 2)
 
 
 def mse_loss(out: Tensor, x: Tensor) -> Tensor:
@@ -118,9 +143,13 @@ def exp_elbo(rec_per_sample: Tensor, kl_per_sample: Tensor, *, scale: float, bet
              beta_neg: float) -> Tensor:
     """mean_b exp(-2 s (beta_rec rec_b + beta_neg kl_b)), in fp32
     (my_trainer.py:278-279). The argument is large and negative for confident
-    fakes, so this underflows to 0."""
+    fakes, so this underflows to 0. A per-position KL (dp_semantics: (B, d,
+    h, w)) makes it a mean over the whole latent's positions too."""
+    if kl_per_sample.dim() > 1:   # on this rank's slab of the latent
+        rec_per_sample = spatial_broadcast(rec_per_sample)
     arg = -2.0 * scale * (beta_rec * rec_per_sample + beta_neg * kl_per_sample)
-    return torch.exp(widen(arg)).mean()
+    e = torch.exp(widen(arg))
+    return spatial_mean(e) if e.dim() > 1 else e.mean()
 
 
 def soft_intro_encoder_loss(*, loss_rec: Tensor, kl_real: Tensor, loss_fake_rec: Tensor,

@@ -49,6 +49,26 @@ global-batch step of the JAX package's mesh:
   the ranks together draw one process's noise; dropout masks, the size of
   the activations, come from a generator that folds in the rank
   (`rank_generator`). The state's generator moves alike on every rank.
+Depth sharding (a `data x spatial` grid, `parallel.mesh.make_mesh`): each
+rank runs this step on its rows and its depth slab (`shard_batch`), and the
+step computes the global-batch step of the JAX package's 2-D mesh
+(`tests/test_spatial_sharding.py`):
+- the convs exchange halo planes and BatchNorm takes the grid's statistics
+  (`models/blocks.py`);
+- the per-sample voxel and latent sums are added over the spatial ranks
+  before the losses use them (`ops/losses.py`): every rank of the same rows
+  then holds the same loss, its rows', and backpropagates it once;
+- a rank's gradient is its slab's part of that loss's gradient: the sum of
+  the spatial ranks' is the whole, and the gradient all-reduce sums over
+  every rank and divides by the number of data ranks (`average_gradients`).
+  The spatial sum's backward is the identity, so no rank's partial sum
+  takes the cotangent more than once: a differentiable all-reduce there
+  (whose backward all-reduces the P equal cotangents) would make every
+  gradient P times too large;
+- the noise batch and the reparameterisation eps are drawn for the global
+  batch and the whole latent; each rank keeps its rows and its depth slab
+  (`normal_rows(..., depth_axis=2)`), so the ranks together draw one
+  process's noise.
 `torch.nn.parallel.DistributedDataParallel` is not used: its reducer
 assumes one forward and one backward over a fixed set of parameters, where
 this step runs 13 forwards and two backwards over halves switched by
@@ -77,10 +97,10 @@ from sivae_torch.models.remat import region, remat_policy_by_name
 from sivae_torch.models.resnet_vae import SoftIntroVAE, reparameterize
 from sivae_torch.ops.losses import (calc_kl, calc_kl_per_position, calc_reconstruction_loss,
                                     normal_loss, soft_intro_decoder_loss,
-                                    soft_intro_encoder_loss)
-from sivae_torch.parallel.distributed import local_batch_slice, world_size
-from sivae_torch.parallel.mesh import (average_gradients, global_mean, normal_rows,
-                                       rank_generator)
+                                    soft_intro_encoder_loss, voxel_mse)
+from sivae_torch.parallel.distributed import grid, local_batch_slice, world_size
+from sivae_torch.parallel.mesh import (average_gradients, depth_scale, global_mean, normal_rows,
+                                       rank_generator, slab_shape, volume_slab)
 from sivae_torch.train.state import SIVAETrainState, learning_rate
 from sivae_torch.utils.dtypes import widen
 
@@ -96,28 +116,40 @@ def _set_generator(drops: Sequence[Dropout], gen: Optional[torch.Generator]) -> 
         m.generator = gen
 
 
+def _depth_axis(latent_shape) -> Optional[int]:
+    """The depth axis of a (B,) + `latent_shape` latent: 2 for a spatial
+    latent (1, d, h, w), None for a flat one."""
+    return 2 if len(latent_shape) == 4 else None
+
+
 def _noise_batch(b: int, latent_shape, dev, zero_noise: bool, fixed_noise,
                  gen: Optional[torch.Generator]) -> torch.Tensor:
-    """This rank's `b` rows of the global batch's noise; `fixed_noise` holds
-    the global batch's values."""
+    """This rank's `b` rows (and, under depth sharding, depth slab) of the
+    global batch's noise; `fixed_noise` holds the global batch's values."""
     shape = (b,) + tuple(latent_shape)
+    axis = _depth_axis(latent_shape)
     if fixed_noise is not None:
+        rows = b * grid().data
         full = torch.as_tensor(fixed_noise, dtype=torch.float32).to(dev)
-        full = full.reshape((b * world_size(),) + tuple(latent_shape))
-        return full[local_batch_slice(full.shape[0])]
+        full = full.reshape((rows,) + tuple(latent_shape))[local_batch_slice(rows)]
+        return full if axis is None else full[:, :, volume_slab(latent_shape[1])]
     if zero_noise:
-        return torch.zeros(shape, dtype=torch.float32, device=dev)
-    return normal_rows(shape, gen, dev)
+        local = shape if axis is None else (b,) + slab_shape(latent_shape)
+        return torch.zeros(local, dtype=torch.float32, device=dev)
+    return normal_rows(shape, gen, dev, depth_axis=axis)
 
 
 def _reparam(mu: torch.Tensor, logvar: torch.Tensor, val_eps: Optional[float],
-             gen: Optional[torch.Generator]) -> torch.Tensor:
+             gen: Optional[torch.Generator], latent_shape: tuple) -> torch.Tensor:
     """`reparameterize`, whose random eps is drawn for the global batch and
-    this rank's rows kept under data parallelism."""
+    this rank's rows kept under data parallelism; under depth sharding for
+    the whole `latent_shape` and this rank's depth slab kept."""
     if val_eps is not None or world_size() == 1:
         return reparameterize(mu, logvar, val_eps=val_eps, generator=gen)
     std = torch.exp(0.5 * widen(logvar))
-    return widen(mu) + normal_rows(tuple(std.shape), gen, std.device) * std
+    eps = normal_rows((std.shape[0],) + tuple(latent_shape), gen, std.device,
+                      depth_axis=_depth_axis(latent_shape))
+    return widen(mu) + eps * std
 
 
 def _update(opt: torch.optim.Adam, loss: torch.Tensor, lr: float) -> None:
@@ -133,7 +165,9 @@ def _update(opt: torch.optim.Adam, loss: torch.Tensor, lr: float) -> None:
 
 def _elbo_recon(dp: bool):
     """The expELBO's reconstruction terms: per sample, or under dp_semantics
-    the global batch's mean, which goes inside `exp` (`global_mean`)."""
+    the global batch's mean, which goes inside `exp` (`global_mean`; the
+    per-sample sums are whole first, `calc_reconstruction_loss` takes them
+    over the depth slabs)."""
     if dp:
         return lambda x, y: global_mean(calc_reconstruction_loss(x, y, reduction="mean"))
     return calc_reconstruction_loss
@@ -190,12 +224,13 @@ def make_soft_intro_train_step(
             raise ValueError("remat_calls rematerialises whole encode / decode calls: build "
                              "the model with remat=False, or its blocks are recomputed twice")
         saves = remat_policy_by_name(remat_calls_policy)
+        latent_depth = model.cfg.latent_shape[1] if len(model.cfg.latent_shape) == 4 else 1
 
         def encode(x):
-            return region(model.encode, saves, "enc", x)
+            return region(model.encode, saves, "enc", x, depth_scale=depth_scale(latent_depth))
 
         def decode(z):
-            return region(model.decode, saves, "dec", z)
+            return region(model.decode, saves, "dec", z, depth_scale=depth_scale(latent_depth))
 
     def train_step(state: SIVAETrainState, real: torch.Tensor):
         if state.model is not model:
@@ -206,7 +241,7 @@ def make_soft_intro_train_step(
         drop_gen = gen if world_size() == 1 else rank_generator(gen, state.step)
 
         def reparam(mu, logvar):
-            return _reparam(mu, logvar, eps0, gen)
+            return _reparam(mu, logvar, eps0, gen, model.cfg.latent_shape)
 
         def replayed_decode(z, gen_state):
             """decode with the masks drawn at `gen_state` (phase E's)."""
@@ -361,9 +396,11 @@ def make_soft_intro_eval_step(
         kl_real = kl(real_logvar, real_mu, "mean")
 
         rec_mu, rec_logvar = model.encode(rec)
-        rec_rec = model.decode(_reparam(rec_mu, rec_logvar, eps0, generator))
+        rec_rec = model.decode(_reparam(rec_mu, rec_logvar, eps0, generator,
+                                        model.cfg.latent_shape))
         fake_mu, fake_logvar = model.encode(fake)
-        rec_fake = model.decode(_reparam(fake_mu, fake_logvar, eps0, generator))
+        rec_fake = model.decode(_reparam(fake_mu, fake_logvar, eps0, generator,
+                                         model.cfg.latent_shape))
         loss_e, e_fake, e_rec = soft_intro_encoder_loss(
             loss_rec=loss_rec, kl_real=kl_real,
             loss_fake_rec=elbo_recon(fake, rec_fake),
@@ -435,7 +472,8 @@ def make_vae_train_step(model: SoftIntroVAE, optim_cfg: OptimConfig, steps_per_e
     def train_step(state: SIVAETrainState, real: torch.Tensor):
         def loss_fn():
             mu, logvar = model.encode(real)
-            x_re = model.decode(_reparam(mu, logvar, None, state.generator))
+            x_re = model.decode(_reparam(mu, logvar, None, state.generator,
+                                         model.cfg.latent_shape))
             loss, mse, kld = normal_loss(x_re, mu, logvar, real, msew=mse_w, kldw=kl_w)
             return loss, {"loss": loss, "mse": mse, "kl": kld}
 
@@ -457,7 +495,7 @@ def make_vae_eval_step(model: SoftIntroVAE):
             raise ValueError("the step was built for another model than the state holds")
         model.eval()
         mu, logvar = model.encode(real)
-        x_re = model.decode(_reparam(mu, logvar, None, generator))
+        x_re = model.decode(_reparam(mu, logvar, None, generator, model.cfg.latent_shape))
         loss, mse, kld = normal_loss(x_re, mu, logvar, real, msew=1.0, kldw=10.0)
         return {"loss": loss, "mse": mse, "kl": kld}
 
@@ -512,7 +550,7 @@ def make_cae_train_step(model: SoftIntroVAE, optim_cfg: OptimConfig, steps_per_e
     def train_step(state: SIVAETrainState, real: torch.Tensor):
         def loss_fn():
             out = model.decode(model.encode(real))
-            loss = torch.mean((out.float() - real.float()) ** 2)
+            loss = voxel_mse(out, real)
             return loss, {"loss": loss}
 
         return state, _plain_update(state, model, optim_cfg, steps_per_epoch, loss_fn)

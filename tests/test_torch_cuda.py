@@ -903,3 +903,79 @@ def test_remat_modes_on_the_card_take_the_step_without(cuda_device):
                 # of lr of either sign: 2 * lr * (0.1 + 0.09) = 7.6e-5
                 tol = 1e-4 if k == "encoder.blocks.0.1.running_mean" else 1e-5
                 assert (sb[k] - v).abs().max().item() <= tol, (kind, pol, k)
+
+
+def check_sharded_sites(ranks, dev):
+    """tests/torch_depth_worker.py's `card_sites` of 2 ranks on a 1 x 2 grid
+    against each conv site on the whole volume on `dev` (forward and the
+    input gradient within the fp32 tolerance 1e-4 * max(1, max|ref|): the
+    same kernel on halo-padded slabs; the two ranks' weight and bias
+    gradients, each its slab's part, summed: 1e-4 of max(1, max|ref|)); the halo planes exchanged
+    exactly (zeros at the grid's edges); each rank's launches and halo
+    exchanges, and on CUDA tensors under gloo the host copies counted."""
+    from sivae_torch.models.blocks import Conv3d, UpsampleConv3d
+
+    for name, cls in (("from1", Conv3d), ("same", Conv3d), ("to1", Conv3d),
+                      ("upconv", UpsampleConv3d)):
+        got = [r[name] for r in ranks]
+        ci, co = got[0]["w"].shape[1], got[0]["w"].shape[0]
+        conv = cls(ci, co, use_bias=True).to(dev)
+        with torch.no_grad():
+            conv.weight.copy_(got[0]["w"])
+            conv.bias.copy_(got[0]["b"])
+        x = got[0]["x"].to(dev).contiguous(memory_format=torch.channels_last_3d)
+        x.requires_grad_(True)
+        y = conv(x)
+        (y.float() * got[0]["g"].to(dev)).sum().backward()
+        want = {"y": y.detach().float().cpu(), "dx": x.grad.float().cpu(),
+                "dw": conv.weight.grad.cpu(), "db": conv.bias.grad.cpu()}
+        summed = {"dw": sum(r["dw"] for r in got), "db": sum(r["db"] for r in got)}
+        # each rank's whole y and dx; the slabs' parts of dw and db summed
+        for r, keys in [(r, ("y", "dx")) for r in got] + [(summed, ("dw", "db"))]:
+            for k in keys:
+                err = (r[k] - want[k]).abs().max().item()
+                assert err <= 1e-4 * max(1.0, want[k].abs().max().item()), (name, k, err)
+    whole = ranks[0]["planes"]["whole"]
+    assert torch.equal(ranks[0]["planes"]["below"], torch.zeros_like(whole[:, :1]))
+    assert torch.equal(ranks[0]["planes"]["above"], whole[:, 2:3])
+    assert torch.equal(ranks[1]["planes"]["below"], whole[:, 1:2])
+    assert torch.equal(ranks[1]["planes"]["above"], torch.zeros_like(whole[:, :1]))
+    for r in ranks:
+        c = r["collectives"]
+        assert c["halo"][0] == 2 * 4 + 1, c   # 4 sites forward and backward, the planes
+        assert ("halo_host" in c) == (dev.type == "cuda"), c
+    return ranks[0]["launches"]
+
+
+@pytest.mark.gpu
+def test_depth_sharded_conv_sites_on_the_card_match_the_whole_volume(cuda_device, tmp_path):
+    """Depth sharding on the card: 2 gloo ranks sharing it on a 1 x 2 grid
+    (tests/torch_depth_worker.py --card) run the halo exchange and one
+    sharded conv site of each kernel kind (`conv3d_from1`, `conv3d_same`,
+    `conv3d_to1`, the upsample + conv) forward and backward through the
+    kernels, fp32; held against the same sites on the whole volume
+    (`check_sharded_sites`). Each rank launches each kernel twice: its
+    forward, and the input gradient of another site (`conv3d_to1`'s is a
+    `conv3d_from1` launch and the other way round)."""
+    worker = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_depth_worker.py")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, worker, "--card", str(tmp_path)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True,
+        env={**os.environ, "RANK": str(r), "LOCAL_RANK": "0", "WORLD_SIZE": "2",
+             "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-4000:]
+    ranks = [torch.load(tmp_path / f"rank{r}.pth", weights_only=False) for r in range(2)]
+    launches = check_sharded_sites(ranks, cuda_device)
+    assert launches == {"conv3d_same": 2, "conv3d_to1": 2, "conv3d_from1": 2,
+                        "conv3d_fused_stats": 0}, launches

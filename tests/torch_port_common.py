@@ -174,16 +174,47 @@ def flat_state(trees):
     return out
 
 
-def assert_moments_close(got, want, zero_grad=()):
+# The weight of the decoder's first unit: a 1x1 conv from the one-channel
+# latent map into a BatchNorm. BN(w z + b) depends on w only through BN's
+# eps, so the gradient of w is a sum that nearly cancels: fp32 stacks land
+# far from its exact value, each in its own way (on one AVX-512 host the JAX
+# step's first moment lies 1.34e-3 of max|m| from the float64 step's, the
+# port's 2.9e-4). Against another stack it is held to the float64 step
+# (`assert_nearer_float64`), not to the other stack's value.
+LATENT_CONV_KERNEL = "ConvBNAct_0/Conv3d_0/Conv_0/kernel"
+# the fp32 floor of that comparison, of max|float64 value|: the largest
+# distance from the float64 step that either stack shows on the step's other
+# moment tensors is 3.1e-4 (JAX's; the port's 3.4e-6)
+FP32_FLOOR = 1e-4
+
+
+def assert_nearer_float64(got, ref, exact, what: str = "") -> None:
+    """`got` (an fp32 result) lies from `exact` (the same result of a
+    float64 step) at most twice as far as `ref` (the fp32 result it is
+    compared with) does, plus FP32_FLOOR of max|exact|."""
+    exact = np.asarray(exact, np.float64)
+    d_got = np.abs(np.asarray(got, np.float64) - exact).max()
+    d_ref = np.abs(np.asarray(ref, np.float64) - exact).max()
+    lim = 2.0 * d_ref + FP32_FLOOR * np.abs(exact).max()
+    assert d_got <= lim, (f"{what}: {d_got:.3e} from float64 > 2 x {d_ref:.3e} + "
+                          f"{FP32_FLOOR} x {np.abs(exact).max():.3e}")
+
+
+def assert_moments_close(got, want, zero_grad=(), float64=None):
     """Adam first moments after one step (0.1 x the gradient), per tensor:
     |got - want| <= 1e-3 * max|want| where |want| > 1e-3 * max|want|. The
     tensors in `zero_grad` (conv biases feeding a BN, whose exact gradient
     is 0: the mean subtraction cancels them) hold rounding noise in both
-    stacks and must stay below 1e-4 of the largest first moment of all."""
+    stacks and must stay below 1e-4 of the largest first moment of all. The
+    tensors in `float64` (name: the float64 step's moment) are held to it
+    instead (`assert_nearer_float64`)."""
     bad = []
     noise = 1e-4 * max(np.abs(w).max() for w in want.values())
     for k, w in want.items():
         g = got[k]
+        if float64 and k in float64:
+            assert_nearer_float64(g, w, float64[k], k)
+            continue
         if k in zero_grad:
             if max(np.abs(g).max(), np.abs(w).max()) >= noise:
                 bad.append((k, "noise", float(np.abs(g).max()), float(np.abs(w).max())))
