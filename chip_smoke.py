@@ -228,7 +228,9 @@ failure exits non-zero and prints no result):
 12. Depth sharding (phase `depth`, `sivae_torch/parallel/mesh.py` and
    `halo.py`): processes on a `data x spatial` grid, gloo ranks sharing the
    one card (each 600 s limit; gloo sends host memory only, so each halo
-   exchange is copied through the host, counted apart).
+   exchange is copied through the host, counted apart). The spatial
+   family in (a)-(c), the FC family, the classifier, the plain steps and
+   the lucky AE in (d)-(f).
    (a) spatial_1200_fullsize at its published widths and 160x192x160, fp32,
    TF32 off, no dropout, global batch 2 (2 synthetic volumes of seed 7), the
    fixed noise batch of seed 11, `zero_noise`, lr 0 (phase 10 (a) says
@@ -255,11 +257,30 @@ failure exits non-zero and prints no result):
    (c) `encode_dataset` of phase 5's first 8 volumes by spatial_1200 fp32
    (seed 0) on the 1 x 2 grid of (a) against one process: mu within 1e-3
    relative, the same launches.
-   The ranks' counted launches of (a) and (b) enter the kernel record as
-   `launches_by_path.depth_ranks`. `python3 chip_smoke.py --depth-cards`,
-   on a machine with 4 cards, runs phase 12 alone with its ranks on a card
-   each, joined by NCCL (the halo planes card to card); it ends with
-   `{"ok": false, "partial": ["depth-cards"]}`.
+   (d) fc_600 (the z600-wide preset's model) at its published widths and
+   80x96x80, fp32, TF32 off, global batch 2 (phase 5's first 2 volumes),
+   its own fixed noise batch (seed 13), `zero_noise`, lr 0: one process,
+   the reversed batch, float64 with cuDNN's convs, then the 1 x 2 grid of
+   (a) (slabs 48/32: the bottleneck's 5 planes split 3/2), held by (a)'s
+   rule (`TOL_DEPTH_ZERO_GRAD` for the 24 conv biases in front of a BN),
+   launches against the derived counts, halo exchanges against
+   `soft_intro_step_halos` (312 a step).
+   (e) fc_600 in bf16 (the FC family has no dropout), global batch 2: one
+   process's step, then the 1 x 4 grid of (b) (slabs 32/16/16/16), as (b):
+   launches and halo exchanges on every rank against the derived counts,
+   equal digests, tensor-core bodies at every sharded site on every rank,
+   s/step and peak GiB a rank beside one process's.
+   (f) On the 1 x 2 grid against one process, fp32, no dropout, weights of
+   seed 0, lr 0: one step each of the spatial_150 classifier, the VAE
+   (vae_150) and the CAE (cae_150) on phase 5's first 2 volumes (losses
+   within 1e-4 relative, each rank's launches one process's, equal
+   digests), and the lucky AE's train-mode forward on all 8 (code and
+   output within 1e-3 of their largest).
+   The ranks' counted launches of (a), (b), (d), (e) and (f) enter the
+   kernel record as `launches_by_path.depth_ranks`. `python3 chip_smoke.py
+   --depth-cards`, on a machine with 4 cards, runs phase 12 alone with its
+   ranks on a card each, joined by NCCL (the halo planes card to card); it
+   ends with `{"ok": false, "partial": ["depth-cards"]}`.
 
 `--only kernels,grad,path,stage,train,trainer,families,ddp,remat,depth` runs a
 subset while working on one phase; it ends with `{"ok": false, "partial":
@@ -1588,11 +1609,16 @@ def soft_intro_step_halos(cfg) -> int:
     backward wherever the site's input needs a gradient: in the 7 decodes
     with a graph (phase E's decode of the noise has none) at every site, in
     all 5 encodes past the stem, and at the stem in phase D's 2 encodes of
-    decoded volumes. Remat adds none (its reruns exchange nothing)."""
+    decoded volumes. Remat adds none (its reruns exchange nothing). `cfg`
+    is a spatial or an FC config (the FC decoder's first 3x3x3 conv takes
+    the dfc's output, which needs a gradient in every decode with a graph,
+    as the spatial decoder's first conv does)."""
+    from sivae_torch.config import FCVAEConfig
+    from sivae_torch.models.fc_vae import fc_conv_sites
     from sivae_torch.models.remat import STEP_DECODES, STEP_ENCODES
     from sivae_torch.models.resnet_vae import spatial_conv_sites
 
-    enc, dec = spatial_conv_sites(cfg)
+    enc, dec = (fc_conv_sites if isinstance(cfg, FCVAEConfig) else spatial_conv_sites)(cfg)
     e = sum(s.kind != "1x1" for s in enc)
     d = sum(s.kind != "1x1" for s in dec)
     forward = STEP_ENCODES * e + (STEP_DECODES + 1) * d
@@ -2616,11 +2642,27 @@ def _fullsize_cfg(dtype, dropout: bool):
     return cfg if dropout else dataclasses.replace(cfg, act=cfg.act.with_no_dropout())
 
 
+def _fc_cfg(dtype):
+    """fc_600, the z600-wide preset's model, at its published widths (the FC
+    family has no dropout)."""
+    from sivae_torch.models.registry import get_model_config
+
+    return dataclasses.replace(get_model_config("fc_600"), dtype=dtype)
+
+
+def _step_inputs(inp: dict, family: str) -> tuple:
+    """(the step's fp32 config, its 2 volumes, its fixed noise batch) of
+    (a) ("fullsize") or (d) ("fc": phase 5's first 2 volumes)."""
+    if family == "fc":
+        return _fc_cfg(torch.float32), inp["vox"][:2], inp["fc_fixed"].numpy()
+    return _fullsize_cfg(torch.float32, False), inp["full"], inp["fixed"].numpy()
+
+
 def depth_inputs(path: str) -> dict:
     """The phase's inputs, made once and saved for its rank processes: 2
     fullsize synthetic volumes (seed 7, preprocessed), the fixed numpy noise
-    batch of seed 11, and phase 5's first 8 spatial_1200 volumes, on the
-    host."""
+    batch of seed 11 (and one of fc_600's latent width, seed 13), and phase
+    5's first 8 spatial_1200 volumes, on the host."""
     import numpy as np
 
     from sivae_torch.data.preprocess import preprocess_batch
@@ -2629,7 +2671,9 @@ def depth_inputs(path: str) -> dict:
     cfg = _fullsize_cfg(torch.float32, False)
     raw = np.stack([r["voxel"] for r in SyntheticBrainSource(2, cfg.input_shape, seed=7)])
     fixed = np.random.RandomState(11).randn(2, cfg.latent_dim).astype(np.float32)
+    fc_fixed = np.random.RandomState(13).randn(2, _fc_cfg(torch.float32).z_ch)
     inp = {"full": preprocess_batch(torch.from_numpy(raw)), "fixed": torch.from_numpy(fixed),
+           "fc_fixed": torch.from_numpy(fc_fixed.astype(np.float32)),
            "vox": synthetic_volumes(torch.device("cpu"), 8)[1]}
     torch.save(inp, path)
     return inp
@@ -2643,7 +2687,8 @@ def _library_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 4, 1)
 
 
-def depth_step(dev, inp: dict, mesh=None, reverse: bool = False, exact: bool = False) -> dict:
+def depth_step(dev, inp: dict, mesh=None, reverse: bool = False, exact: bool = False,
+               family: str = "fullsize") -> dict:
     """(a) on this process's depth slab (the whole batch without `mesh`): one
     fp32 spatial_1200_fullsize step at its published widths, 160x192x160,
     TF32 off, no dropout, global batch 2, the fixed noise batch, zero_noise
@@ -2652,7 +2697,8 @@ def depth_step(dev, inp: dict, mesh=None, reverse: bool = False, exact: bool = F
     tensors whose exact gradient is 0, the digest, launches against the
     derived counts, collectives, seconds and peak GiB. With `exact` the
     same step in float64, the same weights, every conv by cuDNN in float64
-    (the kernels have no float64 form): the yardstick of the fp32 runs."""
+    (the kernels have no float64 form): the yardstick of the fp32 runs.
+    `family` "fc": (d), the same for fc_600 at 80x96x80 (`_step_inputs`)."""
     import numpy as np
 
     from sivae_torch.config import OptimConfig, SoftIntroLossConfig
@@ -2666,8 +2712,7 @@ def depth_step(dev, inp: dict, mesh=None, reverse: bool = False, exact: bool = F
     from sivae_torch.train.state import create_train_state
     from sivae_torch.train.step import make_soft_intro_train_step
 
-    cfg = _fullsize_cfg(torch.float32, False)
-    real, fixed = inp["full"], inp["fixed"].numpy()
+    cfg, real, fixed = _step_inputs(inp, family)
     if reverse:
         real, fixed = real.flip(0), np.ascontiguousarray(fixed[::-1])
     if mesh is not None:
@@ -2737,8 +2782,9 @@ def _depth_moment_check(grid: dict, ref: dict, ctl: dict, exact: dict) -> tuple:
     return bad, worst, noise
 
 
-def _compare_depth(ref: dict, ctl: dict, exact: dict, ranks: list, what: str) -> list:
-    """(a): the mean of the ranks' lossE / lossD within 1e-4 relative of one
+def _compare_depth(ref: dict, ctl: dict, exact: dict, ranks: list, what: str,
+                   part: str = "a") -> list:
+    """(a) (and (d), `part`): the mean of the ranks' lossE / lossD within 1e-4 relative of one
     process's fp32 step; BN running statistics within 1e-5 of the largest;
     the ranks' digests equal. First moments by step 0's rule
     (tests/torch_port_common.py `assert_nearer_float64`), the float64 step
@@ -2792,23 +2838,24 @@ def _compare_depth(ref: dict, ctl: dict, exact: dict, ranks: list, what: str) ->
         + f"; BN running statistics worst {stat_worst[0]:.2e} of the largest {top_s:.3f} at "
         f"{stat_worst[1]} (limit 1e-5); ranks' digests equal {same}")
     for k, g, o, r in bad:
-        log(f"[depth] (a) over the limit: {k}: grid {g:.2e}, one {o:.2e}, reversed {r:.2e} of "
+        log(f"[depth] ({part}) over the limit: {k}: grid {g:.2e}, one {o:.2e}, reversed {r:.2e} of "
             f"max|m| from the float64 moment")
     failed = []
     if max(rel.values()) > 1e-4 or bad or stat_worst[0] > 1e-5 or not same:
-        failed.append(f"(a) the grid disagrees with one process: {rel} {bad} noise {noise:.2e} "
-                      f"{stat_worst} digests equal {same}")
+        failed.append(f"({part}) the grid disagrees with one process: {rel} {bad} noise "
+                      f"{noise:.2e} {stat_worst} digests equal {same}")
     if not all(n for n, _ in refused.values()):
-        failed.append(f"(a) the moment rule passes a control: {refused}")
+        failed.append(f"({part}) the moment rule passes a control: {refused}")
     return failed
 
 
-def depth_flagship_rank(dev, inp: dict, mesh=None) -> dict:
+def depth_flagship_rank(dev, inp: dict, mesh=None, family: str = "fullsize") -> dict:
     """(b), one rank: spatial_1200_fullsize bf16 with dropout on this rank's
     slab of the 2 volumes (both whole without `mesh`: one process's step,
     the yardstick); a warm-up step, one counted step (launches, collectives,
     the bodies its sites took), 5 timed steps, one more under the profiler
-    on rank 0, peak GiB, the digest, the last metrics."""
+    on rank 0, peak GiB, the digest, the last metrics. `family` "fc": (e),
+    the same for fc_600 in bf16 on phase 5's first 2 volumes."""
     from sivae_torch.config import OptimConfig, SoftIntroLossConfig
     from sivae_torch.kernels import build
     from sivae_torch.models.registry import make_model
@@ -2819,8 +2866,10 @@ def depth_flagship_rank(dev, inp: dict, mesh=None) -> dict:
     from sivae_torch.train.state import create_train_state
     from sivae_torch.train.step import make_soft_intro_train_step
 
-    cfg = _fullsize_cfg(torch.bfloat16, True)
-    real = inp["full"]
+    if family == "fc":
+        cfg, real, name = _fc_cfg(torch.bfloat16), inp["vox"][:2], "fc_600"
+    else:
+        cfg, real, name = _fullsize_cfg(torch.bfloat16, True), inp["full"], "fullsize"
     if mesh is not None:
         real = shard_batch(real, mesh, spatial_axis="spatial", levels=depth_levels(cfg))
     real = real.to(dev)
@@ -2852,8 +2901,8 @@ def depth_flagship_rank(dev, inp: dict, mesh=None) -> dict:
     # ranks' turns on the card, the host copies of the halo planes and the
     # waits
     if rank() == 0:
-        what = ("fullsize step, one process" if mesh is None else
-                f"depth-sharded fullsize step, rank 0 of {DEPTH_B_WORLD}")
+        what = (f"{name} step, one process" if mesh is None else
+                f"depth-sharded {name} step, rank 0 of {DEPTH_B_WORLD}")
         profile_window(what, lambda: step(state, real), top=12)
     else:
         step(state, real)
@@ -2892,10 +2941,76 @@ def depth_encode(dev, inp: dict) -> dict:
     return out
 
 
+def depth_others(dev, inp: dict, mesh=None) -> dict:
+    """(f), on this process's grid (one process without `mesh`): one fp32
+    step (TF32 off, no dropout, weights of seed 0, lr 0) of the spatial_150
+    classifier (labels 0 and 1), the VAE (vae_150, its eps drawn from the
+    state's generator) and the CAE (cae_150) on this rank's slab of phase 5's
+    first 2 volumes, and the lucky AE's train-mode forward on its slab of
+    all 8 (its BatchNorm over the decoder Linear's features normalises each
+    feature over the batch alone: over 2 samples a feature whose two values
+    nearly agree turns rounding into O(1)); each counted: metrics, launches,
+    the digest; the lucky AE's code and its output, gathered whole."""
+    from sivae_torch.config import OptimConfig
+    from sivae_torch.kernels import build
+    from sivae_torch.models.classifier import ResNetClassifier
+    from sivae_torch.models.lucky_ae import LuckyDecoder, LuckyEncoder
+    from sivae_torch.models.registry import get_model_config, make_model
+    from sivae_torch.models.resnet_vae import depth_levels
+    from sivae_torch.parallel.mesh import gather_depth, shard_batch, state_digest
+    from sivae_torch.train.state import create_train_state
+    from sivae_torch.train.step import (make_cae_train_step, make_classifier_train_step,
+                                        make_vae_train_step)
+
+    whole = inp["vox"][:2]
+
+    def part(levels, x=whole):
+        if mesh is not None:
+            x = shard_batch(x, mesh, spatial_axis="spatial", levels=levels)
+        return x.to(dev)
+
+    def cfg(name):
+        c = get_model_config(name)
+        return dataclasses.replace(c, act=c.act.with_no_dropout())
+
+    opt = OptimConfig(lr=0.0)
+    out = {}
+    steps = {
+        "classifier": lambda m: make_classifier_train_step(m, opt, 1),
+        "vae": lambda m: make_vae_train_step(m, opt, 1),
+        "cae": lambda m: make_cae_train_step(m, opt, 1)}
+    for name, c in (("classifier", cfg("spatial_150")), ("vae", cfg("vae_150")),
+                    ("cae", cfg("cae_150"))):
+        gen = torch.Generator().manual_seed(0)
+        model = (ResNetClassifier(c, num_classes=2, generator=gen) if name == "classifier"
+                 else make_model(c, device="cpu", seed=0)).to(dev).eval()
+        state = create_train_state(model, seed=0, joint_optimizer=True)
+        extra = (torch.tensor([0, 1], device=dev),) if name == "classifier" else ()
+        build.reset_launches()
+        _, metrics = steps[name](model)(state, part(depth_levels(c)), *extra)
+        torch.cuda.synchronize()
+        out[name] = {"metrics": _metrics_line(metrics), "launches": dict(build.launches),
+                     "digest": state_digest(state).hex()}
+        del model, state
+    gen = torch.Generator().manual_seed(0)
+    enc = LuckyEncoder(whole.shape[2:], generator=gen).to(dev).train()
+    dec = LuckyDecoder(tuple(d // 8 for d in whole.shape[2:]), generator=gen).to(dev).train()
+    build.reset_launches()
+    with torch.no_grad():
+        z = enc(part(enc.depth_levels, inp["vox"]))
+        y = gather_depth(dec(z), whole.shape[2])
+    torch.cuda.synchronize()
+    out["lucky"] = {"z": z.cpu(), "y": y.cpu(), "launches": dict(build.launches)}
+    torch.cuda.empty_cache()
+    build.reset_launches()
+    return out
+
+
 def depth_rank(out_dir: str, part: str, backend: str) -> int:
     """One of phase 12's ranks (`phase_depth`, the launcher's environment;
     `backend` "gloo": all on the one card, "nccl": one card each): part "a"
-    runs (a) and (c) on a 1 x 2 grid, part "b" runs (b) on a 1 x 4 grid."""
+    runs (a), (c), (d) and (f) on a 1 x 2 grid, part "b" runs (b) and (e) on
+    a 1 x 4 grid."""
     import os
 
     from sivae_torch.kernels import build
@@ -2915,10 +3030,16 @@ def depth_rank(out_dir: str, part: str, backend: str) -> int:
         log(f"[depth rank {rank()}] (a) {time.perf_counter() - t0:.1f} s")
         res["c"] = depth_encode(dev, inp)
         log(f"[depth rank {rank()}] (c) {time.perf_counter() - t0:.1f} s")
+        res["d"] = depth_step(dev, inp, mesh, family="fc")
+        log(f"[depth rank {rank()}] (d) {time.perf_counter() - t0:.1f} s")
+        res["f"] = depth_others(dev, inp, mesh)
+        log(f"[depth rank {rank()}] (f) {time.perf_counter() - t0:.1f} s")
     else:
         mesh = make_mesh((1, DEPTH_B_WORLD), ("data", "spatial"))
         res = {"b": depth_flagship_rank(dev, inp, mesh)}
         log(f"[depth rank {rank()}] (b) {time.perf_counter() - t0:.1f} s")
+        res["e"] = depth_flagship_rank(dev, inp, mesh, family="fc")
+        log(f"[depth rank {rank()}] (e) {time.perf_counter() - t0:.1f} s")
     torch.save(res, os.path.join(out_dir, f"rank{rank()}.pth"))
     shutdown()
     return 0
@@ -2928,106 +3049,173 @@ def _mib(nbytes: int) -> str:
     return f"{nbytes / 2**20:.1f} MiB"
 
 
+TOL_DEPTH_OTHERS = 1e-4      # (f): losses, relative to one process's
+TOL_DEPTH_LUCKY = 1e-3       # (f): the lucky AE's code and output, of their largest
+
+
+def _depth_timed(part: str, one: dict, ranks: list, what: str, where: str, card: str,
+                 own_cards: bool) -> list:
+    """(b) and (e): one process's step, then the 1 x 4 grid's (the slower
+    rank's times, peak GiB a rank, halo exchanges and launches against the
+    derived counts, equal digests, finite metrics, tensor-core bodies at
+    every sharded site). Returns the failures."""
+    failed = []
+    t = sorted(one["times"])
+    log(f"[depth] ({part}) one process on a card ({card}): {what}: median {t[REPEATS // 2]:.4f} "
+        f"s/step, min {t[0]:.4f}, max {t[-1]:.4f}, peak {one['peak_gib']:.2f} GiB, launches "
+        f"{one['launches']} (derived {one['want']})")
+    if one["launches"] != one["want"]:
+        failed.append(f"({part}) one process: launches {one['launches']}, derived {one['want']}")
+    medians = [sorted(x["times"])[REPEATS // 2] for x in ranks]
+    slow = max(range(len(ranks)), key=lambda r: medians[r])
+    t = sorted(ranks[slow]["times"])
+    same = len({x["digest"] for x in ranks}) == 1
+    finite = all(not x["metrics"]["nan"] and all(math.isfinite(v) for k, v in
+                                                 x["metrics"].items() if k != "nan")
+                 for x in ranks)
+    halos = [x["collectives"].get("halo", [0, 0]) for x in ranks]
+    log(f"[depth] ({part}) {what} on a 1 x {len(ranks)} grid (slabs "
+        f"{[x['slab'] for x in ranks]}), {len(ranks)} ranks ({where}; "
+        f"{card}{'' if own_cards else '; not a scaling figure'}): slower rank {slow} median "
+        f"{t[REPEATS // 2]:.4f} s/step, min {t[0]:.4f}, max {t[-1]:.4f} ({REPEATS} steps; rank "
+        f"medians {[round(x, 4) for x in medians]}; warm-up "
+        f"{[round(x['warm_s'], 2) for x in ranks]} s); peak GiB per rank "
+        f"{[round(x['peak_gib'], 2) for x in ranks]}; halo exchanges a step per rank "
+        f"{[h[0] for h in halos]} (derived {ranks[0]['halos_want']}), bytes sent "
+        f"{[_mib(h[1]) for h in halos]}, through the host "
+        f"{[_mib(x['collectives'].get('halo_host', [0, 0])[1]) for x in ranks]}; launches per "
+        f"rank {[x['launches'] for x in ranks]} (derived {ranks[0]['want']}); digests equal "
+        f"{same}; metrics {json.dumps(ranks[0]['metrics'])}")
+    log(f"[depth] ({part}) all-reduces of rank 0 in one step [calls, bytes]: "
+        f"{json.dumps({k: v for k, v in ranks[0]['collectives'].items() if k != 'halo'})}")
+    log(f"[depth] ({part}) bodies at the sharded sites: {json.dumps(ranks[0]['bodies'])}")
+    for x in ranks:
+        _require_tensor_core_bodies(f"phase 12 ({part})", x["bodies"])
+    if (any(x["launches"] != x["want"] for x in ranks) or not same or not finite
+            or any(h[0] != ranks[0]["halos_want"] for h in halos)):
+        failed.append(f"({part}) the depth-sharded step: launches "
+                      f"{[x['launches'] for x in ranks]}, halos {halos}, digests equal {same}, "
+                      f"finite {finite}")
+    return failed
+
+
+def _depth_others_check(one: dict, ranks: list, card: str) -> list:
+    """(f): each model's losses on 1 x 2 within TOL_DEPTH_OTHERS of one
+    process's, its launches on every rank one process's, the ranks' digests
+    equal; the lucky AE's code and output within TOL_DEPTH_LUCKY."""
+    failed = []
+    for name in ("classifier", "vae", "cae"):
+        mine = [r[name] for r in ranks]
+        rel = {k: max(abs(x["metrics"][k] - v) / max(abs(v), 1e-30) for x in mine)
+               for k, v in one[name]["metrics"].items() if k not in ("nan", "acc")}
+        same = len({x["digest"] for x in mine}) == 1
+        launches = [x["launches"] for x in mine]
+        log(f"[depth] (f) {name} fp32 step on 1 x {len(ranks)} vs one process: losses rel "
+            f"{json.dumps({k: f'{v:.2e}' for k, v in rel.items()})} (limit "
+            f"{TOL_DEPTH_OTHERS}), metrics {json.dumps(mine[0]['metrics'])}; launches per rank "
+            f"{launches} (one process {one[name]['launches']}); digests equal {same} ({card})")
+        if (max(rel.values()) > TOL_DEPTH_OTHERS or not same or mine[0]["metrics"]["nan"]
+                or any(x != one[name]["launches"] for x in launches)):
+            failed.append(f"(f) {name}: rel {rel}, digests equal {same}, launches {launches}")
+    errs = {k: max(_rel(r["lucky"][k], one["lucky"][k]) for r in ranks) for k in ("z", "y")}
+    log(f"[depth] (f) lucky AE train-mode forward, 80x96x80 batch 8, on 1 x {len(ranks)} vs one "
+        f"process: code rel {errs['z']:.2e}, output rel {errs['y']:.2e} (limit "
+        f"{TOL_DEPTH_LUCKY}); launches per rank {[r['lucky']['launches'] for r in ranks]} (one "
+        f"process {one['lucky']['launches']})")
+    if max(errs.values()) > TOL_DEPTH_LUCKY or not all(
+            bool(torch.isfinite(r["lucky"]["y"]).all()) for r in ranks):
+        failed.append(f"(f) lucky AE: {errs}")
+    return failed
+
+
 def phase_depth(dev, card: str, own_cards: bool = False) -> dict:
     """Phase 12 (module docstring): (a) fp32 fullsize step, one process and
-    a 1 x 2 grid; (c) the spatial_1200 encode, one process and 1 x 2; (b)
-    the bf16 fullsize step on a 1 x 4 grid; gloo ranks sharing the one
-    card, or with `own_cards` NCCL ranks on a card each
-    (`--depth-cards`). Returns the ranks' counted launches, summed."""
+    a 1 x 2 grid; (c) the spatial_1200 encode, one process and 1 x 2; (d)
+    the fp32 fc_600 step, one process and 1 x 2; (f) the classifier, VAE,
+    CAE and lucky AE, one process and 1 x 2; (b) and (e) the bf16 fullsize
+    and fc_600 steps on a 1 x 4 grid; gloo ranks sharing the one card, or
+    with `own_cards` NCCL ranks on a card each (`--depth-cards`). Returns the
+    ranks' counted launches, summed."""
     import os
     import tempfile
 
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_depth_")
     t_phase = time.perf_counter()
     inp = depth_inputs(os.path.join(tmp.name, "inputs.pt"))
-    ref = depth_step(dev, inp)
-    ctl = depth_step(dev, inp, reverse=True)
-    exact = depth_step(dev, inp, exact=True)
+    refs = {fam: (depth_step(dev, inp, family=fam), depth_step(dev, inp, reverse=True, family=fam),
+                  depth_step(dev, inp, exact=True, family=fam)) for fam in ("fullsize", "fc")}
     enc = depth_encode(dev, inp)
-    log(f"[depth] (a) one process: fp32 spatial_1200_fullsize 160x192x160 batch 2 step "
-        f"{ref['s']:.2f} s (the reversed batch {ctl['s']:.2f} s), peak {ref['peak_gib']:.2f} "
-        f"GiB; the float64 step (cuDNN's convs) {exact['s']:.2f} s, peak "
-        f"{exact['peak_gib']:.2f} GiB; (c) one process's encode of 8 volumes {enc['s']:.3f} s "
-        f"({card})")
+    others = depth_others(dev, inp)
     failed = []
-    for tag, r in (("one process", ref), ("reversed batch", ctl), ("float64", exact)):
-        if r["launches"] != r["want"]:
-            failed.append(f"(a) {tag}: launches {r['launches']}, derived {r['want']}")
+    for part, fam, what in (("a", "fullsize", "fp32 spatial_1200_fullsize 160x192x160"),
+                            ("d", "fc", "fp32 fc_600 80x96x80")):
+        ref, ctl, exact = refs[fam]
+        log(f"[depth] ({part}) one process: {what} batch 2 step {ref['s']:.2f} s (the reversed "
+            f"batch {ctl['s']:.2f} s), peak {ref['peak_gib']:.2f} GiB; the float64 step "
+            f"(cuDNN's convs) {exact['s']:.2f} s, peak {exact['peak_gib']:.2f} GiB ({card})")
+        for tag, r in (("one process", ref), ("reversed batch", ctl), ("float64", exact)):
+            if r["launches"] != r["want"]:
+                failed.append(f"({part}) {tag}: launches {r['launches']}, derived {r['want']}")
+    log(f"[depth] (c) one process's encode of 8 volumes {enc['s']:.3f} s ({card})")
 
     backend = "nccl" if own_cards else "gloo"
     where = "one card each, NCCL" if own_cards else "gloo, sharing the one card"
     t0 = time.perf_counter()
     ranks = run_ranks("depth", ["--depth-rank", tmp.name, "a", backend], DEPTH_A_WORLD,
                       tmp.name, DEPTH_LIMIT_S, own_cards)
-    log(f"[depth] (a) + (c): {DEPTH_A_WORLD} ranks ({where}) in {time.perf_counter() - t0:.1f} s")
-    a = [r["a"] for r in ranks]
-    failed += _compare_depth(
-        ref, ctl, exact, a, f"[depth] (a) fp32 spatial_1200_fullsize 160x192x160 step at lr 0, "
-        f"global batch 2: a 1 x {DEPTH_A_WORLD} grid (slabs {[x['slab'] for x in a]}; {where}) "
-        f"vs one process on a card")
-    for r, x in enumerate(a):
-        c = x["collectives"]
-        log(f"[depth] (a) rank {r}: step {x['s']:.2f} s, peak {x['peak_gib']:.2f} GiB, launches "
-            f"{x['launches']} (derived {x['want']}), halo exchanges {c.get('halo')} [calls, "
-            f"bytes sent], through the host {c.get('halo_host')}, BN statistics {c.get('bn')}, "
-            f"spatial sums {c.get('spatial')}, gradient buckets {c.get('grad')} ({card})")
-        if x["launches"] != x["want"]:
-            failed.append(f"(a) rank {r}: launches {x['launches']}, derived {x['want']}")
+    log(f"[depth] (a), (c), (d), (f): {DEPTH_A_WORLD} ranks ({where}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    grids = {}
+    for part, fam, what in (("a", "fullsize", "spatial_1200_fullsize 160x192x160"),
+                            ("d", "fc", "fc_600 80x96x80")):
+        grid = grids[part] = [r[part] for r in ranks]
+        failed += _compare_depth(
+            *refs[fam], grid, f"[depth] ({part}) fp32 {what} step at lr 0, global batch 2: a 1 x "
+            f"{DEPTH_A_WORLD} grid (slabs {[x['slab'] for x in grid]}; {where}) vs one process on "
+            f"a card", part)
+        for r, x in enumerate(grid):
+            c = x["collectives"]
+            log(f"[depth] ({part}) rank {r}: step {x['s']:.2f} s, peak {x['peak_gib']:.2f} GiB, "
+                f"launches {x['launches']} (derived {x['want']}), halo exchanges {c.get('halo')} "
+                f"[calls, bytes sent], through the host {c.get('halo_host')}, BN statistics "
+                f"{c.get('bn')}, spatial sums {c.get('spatial')}, gradient buckets "
+                f"{c.get('grad')} ({card})")
+            if x["launches"] != x["want"]:
+                failed.append(f"({part}) rank {r}: launches {x['launches']}, derived {x['want']}")
+    halos = soft_intro_step_halos(_fc_cfg(torch.float32))
+    if any(x["collectives"].get("halo", [0])[0] != halos for x in grids["d"]):
+        failed.append(f"(d) halo exchanges {[x['collectives'].get('halo') for x in grids['d']]}, "
+                      f"derived {halos}")
     rel = max(_rel(torch.from_numpy(r["c"]["mu"]), torch.from_numpy(enc["mu"])) for r in ranks)
     log(f"[depth] (c) spatial_1200 fp32 encode_dataset of 8 volumes on 1 x {DEPTH_A_WORLD} vs one "
-        f"process: mu rel err {rel:.2e} (limit {TOL_DEPTH_ENCODE}); {[round(r['c']['s'], 3) for r in ranks]} "
-        f"s, launches {ranks[0]['c']['launches']} (one process {enc['launches']}), gathers "
-        f"{ranks[0]['c']['collectives'].get('gather')}")
+        f"process: mu rel err {rel:.2e} (limit {TOL_DEPTH_ENCODE}); "
+        f"{[round(r['c']['s'], 3) for r in ranks]} s, launches {ranks[0]['c']['launches']} (one "
+        f"process {enc['launches']}), gathers {ranks[0]['c']['collectives'].get('gather')}")
     if not rel <= TOL_DEPTH_ENCODE or ranks[0]["c"]["launches"] != enc["launches"]:
         failed.append(f"(c) encode on the grid: rel {rel:.2e}, launches "
                       f"{ranks[0]['c']['launches']} vs {enc['launches']}")
-    del ref, ctl, exact, enc
+    failed += _depth_others_check(others, [r["f"] for r in ranks], card)
+    del refs, enc
     torch.cuda.empty_cache()
 
-    one = depth_flagship_rank(dev, inp)
-    t = sorted(one["times"])
-    log(f"[depth] (b) one process on a card ({card}): spatial_1200_fullsize bf16, dropout on, "
-        f"batch 2: median {t[REPEATS // 2]:.4f} s/step, min {t[0]:.4f}, max {t[-1]:.4f}, peak "
-        f"{one['peak_gib']:.2f} GiB, launches {one['launches']} (derived {one['want']})")
-    if one["launches"] != one["want"]:
-        failed.append(f"(b) one process: launches {one['launches']}, derived {one['want']}")
+    ones = {fam: depth_flagship_rank(dev, inp, family=fam) for fam in ("fullsize", "fc")}
     t0 = time.perf_counter()
     ranks_b = run_ranks("depth", ["--depth-rank", tmp.name, "b", backend], DEPTH_B_WORLD,
                         tmp.name, DEPTH_LIMIT_S, own_cards)
-    log(f"[depth] (b): {DEPTH_B_WORLD} ranks ({where}) in {time.perf_counter() - t0:.1f} s")
-    b = [r["b"] for r in ranks_b]
-    medians = [sorted(x["times"])[REPEATS // 2] for x in b]
-    slow = max(range(DEPTH_B_WORLD), key=lambda r: medians[r])
-    t = sorted(b[slow]["times"])
-    same = len({x["digest"] for x in b}) == 1
-    finite = all(not x["metrics"]["nan"] and all(math.isfinite(v) for k, v in
-                                                 x["metrics"].items() if k != "nan") for x in b)
-    halos = [x["collectives"].get("halo", [0, 0]) for x in b]
-    log(f"[depth] (b) spatial_1200_fullsize bf16 160x192x160, dropout on, global batch 2 on a 1 x "
-        f"{DEPTH_B_WORLD} grid (slabs {[x['slab'] for x in b]}), {DEPTH_B_WORLD} ranks ({where}; "
-        f"{card}{'' if own_cards else '; not a scaling figure'}): slower rank {slow} median {t[REPEATS // 2]:.4f} "
-        f"s/step, min {t[0]:.4f}, max {t[-1]:.4f} ({REPEATS} steps; rank medians "
-        f"{[round(x, 4) for x in medians]}; warm-up {[round(x['warm_s'], 2) for x in b]} s); "
-        f"peak GiB per rank {[round(x['peak_gib'], 2) for x in b]}; halo exchanges a step per "
-        f"rank {[h[0] for h in halos]} (derived {b[0]['halos_want']}), bytes sent "
-        f"{[_mib(h[1]) for h in halos]}, through the host "
-        f"{[_mib(x['collectives'].get('halo_host', [0, 0])[1]) for x in b]}; launches per rank "
-        f"{[x['launches'] for x in b]} (derived {b[0]['want']}); digests equal {same}; metrics "
-        f"{json.dumps(b[0]['metrics'])}")
-    log(f"[depth] (b) all-reduces of rank 0 in one step [calls, bytes]: "
-        f"{json.dumps({k: v for k, v in b[0]['collectives'].items() if k != 'halo'})}")
-    log(f"[depth] (b) bodies at the sharded sites: {json.dumps(b[0]['bodies'])}")
-    _require_tensor_core_bodies("phase 12 (b)", b[0]["bodies"])
-    if (any(x["launches"] != x["want"] for x in b) or not same or not finite
-            or any(h[0] != b[0]["halos_want"] for h in halos)):
-        failed.append(f"(b) the depth-sharded fullsize step: launches "
-                      f"{[x['launches'] for x in b]}, halos {halos}, digests equal {same}, "
-                      f"finite {finite}")
+    log(f"[depth] (b), (e): {DEPTH_B_WORLD} ranks ({where}) in {time.perf_counter() - t0:.1f} s")
+    for part, fam, what in (("b", "fullsize", "spatial_1200_fullsize bf16 160x192x160, dropout "
+                                              "on, global batch 2"),
+                            ("e", "fc", "fc_600 bf16 80x96x80 (no dropout in the FC family), "
+                                        "global batch 2")):
+        grids[part] = [r[part] for r in ranks_b]
+        failed += _depth_timed(part, ones[fam], grids[part], what, where, card, own_cards)
     log(f"[depth] phase 12 in {time.perf_counter() - t_phase:.1f} s")
     if failed:
         raise SystemExit("chip_smoke: phase 12: " + "; ".join(failed))
     tmp.cleanup()
-    return {k: sum(x["launches"].get(k, 0) for x in a + b) for k in TRAIN_LAUNCHES}
+    counted = [x["launches"] for g in grids.values() for x in g]
+    counted += [r["f"][m]["launches"] for r in ranks for m in ("classifier", "vae", "cae", "lucky")]
+    return {k: sum(c.get(k, 0) for c in counted) for k in TRAIN_LAUNCHES}
 
 
 def main(argv=None):

@@ -43,7 +43,8 @@ def encode_dataset(
     spatial rank passes the whole volumes, encodes its depth slab
     (`volume_slab` at the model's `depth_levels`) and gets the whole latents
     back (`gather_depth`), as JAX's encode on a `volume_sharding` does
-    (tests/test_spatial_sharding.py).
+    (tests/test_spatial_sharding.py); a flat latent (the FC family) comes
+    out of the encoder whole, with nothing to gather.
     """
     if representation not in ("mu", "z_val", "z"):
         raise ValueError(f"unknown representation {representation!r}")
@@ -64,7 +65,7 @@ def encode_dataset(
             if sharded:
                 chunk = chunk[:, :, volume_slab(chunk.shape[2], levels=depth_levels(model.cfg))]
             mu, logvar = model.encode(chunk)
-            if sharded:
+            if sharded and len(model.cfg.latent_shape) == 4:
                 depth = model.cfg.latent_shape[1]
                 mu = gather_depth(mu, depth)
                 logvar = logvar if representation == "mu" else gather_depth(logvar, depth)

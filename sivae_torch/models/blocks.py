@@ -34,8 +34,8 @@ from sivae_torch.kernels.conv3d_small import conv3d_from1, conv3d_to1
 from sivae_torch.models import remat
 from sivae_torch.ops.fused_upconv import upsampled_conv3x3
 from sivae_torch.parallel import halo
-from sivae_torch.parallel.distributed import spatial_ranks, world_size
-from sivae_torch.parallel.mesh import all_reduce_
+from sivae_torch.parallel.distributed import grid, spatial_ranks, world_size
+from sivae_torch.parallel.mesh import all_reduce_, slab_features, whole_features
 from sivae_torch.utils.dtypes import widen
 
 CL = torch.channels_last_3d
@@ -296,15 +296,19 @@ class _BatchNormTrain(torch.autograd.Function):
     `[sum x, sum x^2]` once and divides by the global count, and the
     backward all-reduces `[sum g, sum g * xhat]` once for `dx`. The count
     joins the forward's sums (depth slabs may differ in size), all in
-    float64 (a count past 2**24 stays exact). The weight
+    float64 (a count past 2**24 stays exact). With `rows_only` (the
+    features of a depth-sharded Linear, `FeatureBatchNorm`) each spatial rank
+    holds other features, and the statistics are taken over the data ranks
+    of this rank's slab alone. The weight
     and bias gradients it returns stay this rank's own sums: the step's
     gradient all-reduce adds them up with every other gradient. In one
     process no collective runs and the arithmetic is the one above.
     """
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps, slope, out_dtype, stats=None):
-        ctx.world = world_size()
+    def forward(ctx, x, weight, bias, eps, slope, out_dtype, stats=None, rows_only=False):
+        ctx.world, ctx.group = (grid().data, grid().data_group) if rows_only else \
+            (world_size(), None)
         if stats:
             mean, raw_var, ctx.n = stats
         else:
@@ -317,7 +321,7 @@ class _BatchNormTrain(torch.autograd.Function):
                 local = x.new_full((1,), x.numel() // x.shape[1], dtype=torch.float64)
                 sums = torch.cat([xf.sum(dim=_BN_AXES).double(),
                                   (xf * xf).sum(dim=_BN_AXES).double(), local])
-                sums = all_reduce_(sums, "bn")
+                sums = all_reduce_(sums, "bn", ctx.group)
                 ctx.n = sums[-1:].to(xf.dtype)
                 mean, ex2 = (sums[:-1] / sums[-1]).to(xf.dtype).chunk(2)
                 raw_var = ex2 - mean * mean
@@ -356,10 +360,11 @@ class _BatchNormTrain(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             sum_gx, sum_g = dweight, dbias
             if ctx.world > 1:
-                sum_gx, sum_g = all_reduce_(torch.cat([dweight, dbias]), "bn_grad").chunk(2)
+                sum_gx, sum_g = all_reduce_(torch.cat([dweight, dbias]), "bn_grad",
+                                            ctx.group).chunk(2)
             dx = xhat.mul_((-k * sum_gx / n).view(_BN_VIEW)).add_(gf)
             dx = dx.sub_((sum_g / n).view(_BN_VIEW)).mul_(mul.view(_BN_VIEW)).to(x.dtype)
-        return dx, dweight.to(weight.dtype), dbias.to(bias.dtype), None, None, None, None
+        return dx, dweight.to(weight.dtype), dbias.to(bias.dtype), None, None, None, None, None
 
 
 class BatchNorm(nn.Module):
@@ -407,11 +412,53 @@ class BatchNorm(nn.Module):
                 self.running_var.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)
                 self.num_batches_tracked += 1
             return y
-        y = x - self.running_mean.view(_BN_VIEW)
-        mul = torch.rsqrt(self.running_var.view(_BN_VIEW) + self.eps) * self.weight.view(_BN_VIEW)
+        return self._normalise(x, self.running_mean, self.running_var, self.weight, self.bias)
+
+    def _normalise(self, x, mean, var, weight, bias) -> torch.Tensor:
+        """Eval mode: by the running statistics `mean` and `var`."""
+        y = x - mean.view(_BN_VIEW)
+        mul = torch.rsqrt(var.view(_BN_VIEW) + self.eps) * weight.view(_BN_VIEW)
         y = y * mul
-        y = y + self.bias.view(_BN_VIEW)
+        y = y + bias.view(_BN_VIEW)
         return _act(y.to(self.dtype), self.act_slope)
+
+
+class FeatureBatchNorm(BatchNorm):
+    """`BatchNorm` over the features of a Linear's output whose features are
+    a (C, D, H, W) volume `whole` flattened in that order (the lucky
+    decoder's `fc_bn`), applied to a (B, F) tensor through a (B, F, 1, 1, 1)
+    view: statistics over the batch alone, as flax's BatchNorm over a
+    Dense's output. Under depth sharding the input holds this rank's slab of
+    the features (`linear_to_slab`): the parameters and running statistics
+    stay whole and each rank uses its slab of them (`slab_features`), the
+    batch statistics are reduced over the data ranks of its slab alone (the
+    other spatial ranks hold other features), and the running statistics
+    move by the whole features' statistics, joined over the spatial ranks
+    (`whole_features`), so they stay the same on every rank."""
+
+    def __init__(self, whole, dtype=torch.float32, param_dtype=torch.float32,
+                 eps: float = 1e-5, act_slope: Optional[float] = None):
+        self.whole = tuple(whole)
+        super().__init__(math.prod(self.whole), dtype=dtype, param_dtype=param_dtype, eps=eps,
+                         act_slope=act_slope)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        v = x.reshape(x.shape[0], -1, 1, 1, 1)
+        if spatial_ranks() == 1:
+            return super().forward(v).reshape(x.shape)
+        weight, bias = (slab_features(p, self.whole) for p in (self.weight, self.bias))
+        if not self.training:
+            mean, var = (slab_features(t, self.whole)
+                         for t in (self.running_mean, self.running_var))
+            return self._normalise(v, mean, var, weight, bias).reshape(x.shape)
+        y, mean, var = _BatchNormTrain.apply(v, weight, bias, self.eps, self.act_slope,
+                                             self.dtype, None, True)
+        with torch.no_grad():
+            mean, var = whole_features(torch.stack([mean, var]), self.whole)
+            self.running_mean.mul_(self.momentum).add_(mean, alpha=1.0 - self.momentum)
+            self.running_var.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)
+            self.num_batches_tracked += 1
+        return y.reshape(x.shape)
 
 
 class ConvBNAct(nn.Sequential):

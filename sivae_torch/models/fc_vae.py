@@ -24,6 +24,14 @@ permutes the `fc` input features and the `dfc` output features
 package's two Dense heads: `logvar_head_zero_init` zeroes its rows
 z_ch:2*z_ch, `logvar_clip` clamps its second half.
 
+Under depth sharding (`parallel/mesh.py`; the input split at `depth_levels`,
+the four pools', so a slab keeps whole planes down to the bottleneck) the
+conv trunk runs on this rank's slab with halo exchanges and the grid's
+BatchNorm (`models/blocks.py`); `encoder.fc` takes the slab's columns of its
+weight and sums the ranks' partial products (`linear_from_slab`), and
+`decoder.dfc.0` computes the slab's rows of its output from the whole `z`
+(`linear_to_slab`). (mu, logvar) and `z` are whole on every spatial rank.
+
 With `cfg.remat` each conv-BN-act unit (JAX's `cba`,
 `sivae_tpu/models/fc_vae.py:49` and `:105`) rematerialises in training
 (`models/remat.py`; `UNIT2`, `SKIP` and `UP` give them as index ranges of
@@ -45,7 +53,7 @@ from sivae_torch.models.blocks import (AvgPool, BatchNorm, Conv3d, Linear, Upsam
                                        to_channels_last)
 from sivae_torch.models.remat import ConvSite, Remat, run_units
 from sivae_torch.models.resnet_vae import SoftIntroVAE
-from sivae_torch.parallel.mesh import require_unsharded
+from sivae_torch.parallel.mesh import depth_scale, linear_from_slab, linear_to_slab
 
 # the conv-BN-act units of each Sequential `_Parts` makes, as index ranges
 UNIT2 = ((0, 2), (3, 5))  # unit2: conv-BN-act, conv-BN-act
@@ -116,10 +124,11 @@ class FCEncoder(nn.Module):
 
     def forward(self, x: torch.Tensor):
         """x (B, 1, D, H, W) -> (mu, logvar), each (B, z_ch)."""
-        require_unsharded("the FC encoder's head")
+        bottleneck = (self.cfg.forth_ch,) + self.cfg.bottleneck_spatial_shape
+        scale = depth_scale(bottleneck[1])
 
         def run(seq, units, t):
-            return run_units(seq, units, t, self.remat, self.training)
+            return run_units(seq, units, t, self.remat, self.training, depth_scale=scale)
 
         h = to_channels_last(x)
         for block in (self.block1, self.block2, self.block3):
@@ -128,7 +137,7 @@ class FCEncoder(nn.Module):
         h = self.act(h + run(self.block5, SKIP, h))   # mymodel.py:135-136
         h = run(self.block6, UP, h)
         h = self.act(h + run(self.block7, SKIP, h))
-        mu, logvar = self.fc(h.reshape(h.shape[0], -1)).chunk(2, dim=1)
+        mu, logvar = linear_from_slab(self.fc, h, bottleneck).chunk(2, dim=1)
         if self.cfg.logvar_clip is not None:
             logvar = torch.clamp(logvar, *self.cfg.logvar_clip)
         return mu, logvar
@@ -155,16 +164,17 @@ class FCDecoder(nn.Module):
         self.act = make_act(cfg.act)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
-        """z (B, z_ch) -> (B, 1, D, H, W)."""
-        require_unsharded("the FC decoder's head")
+        """z (B, z_ch) -> (B, 1, D, H, W); under depth sharding this
+        rank's slab of the volume."""
+        bottleneck = (self.cfg.forth_ch,) + self.cfg.bottleneck_spatial_shape
+        scale = depth_scale(bottleneck[1])
 
         def run(seq, units, t):
-            return run_units(seq, units, t, self.remat, self.training)
+            return run_units(seq, units, t, self.remat, self.training, depth_scale=scale)
 
-        b = z.shape[0]
         # the dfc tail is a ReLU, not the body activation (mymodel.py:150-153)
-        y = F.relu(self.dfc(z.reshape(b, -1)))
-        y = to_channels_last(y.reshape((b, self.cfg.forth_ch) + self.cfg.bottleneck_spatial_shape))
+        y = F.relu(linear_to_slab(self.dfc[0], z.reshape(z.shape[0], -1), bottleneck))
+        y = to_channels_last(y)
         y = self.act(y + run(self.block1, SKIP, y))   # mymodel.py:221-222
         y = run(self.block2u, UP, y)
         y = self.act(y + run(self.block3, SKIP, y))

@@ -10,6 +10,14 @@ a stride-1 SAME conv with a flipped kernel, so it is a `Conv3d` here, and
 every 3x3x3 conv goes through the port's conv routing (1 -> C, C -> 1 and
 the general kernel). Weights are drawn with flax's initialisers, as the
 JAX package's: lecun-normal kernels and zero biases.
+
+Under depth sharding (`parallel/mesh.py`, the input split at `depth_levels`
+= 3, the max-pools') the convs, pools and upsamples run on this rank's
+slab, the encoder's Linear takes its slab's columns
+(`linear_from_slab`) and the decoder's its slab's rows (`linear_to_slab`),
+and the BatchNorm over the decoder Linear's features reduces over the data
+ranks alone (`FeatureBatchNorm`): the other spatial ranks hold other
+features.
 """
 
 from __future__ import annotations
@@ -20,8 +28,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from sivae_torch.models.blocks import (BatchNorm, Conv3d, Linear, lecun_normal_,
-                                       to_channels_last, upsample_nearest3d)
+from sivae_torch.models.blocks import (BatchNorm, Conv3d, FeatureBatchNorm, Linear,
+                                       lecun_normal_, to_channels_last, upsample_nearest3d)
+from sivae_torch.parallel.mesh import linear_from_slab, linear_to_slab
 
 
 def _conv(ci: int, co: int, dtype, generator) -> Conv3d:
@@ -31,13 +40,16 @@ def _conv(ci: int, co: int, dtype, generator) -> Conv3d:
 
 
 class LuckyEncoder(nn.Module):
+    depth_levels = 3   # the max-pools: a depth slab is split at 8-plane units
+
     def __init__(self, input_shape: Tuple[int, int, int] = (80, 96, 80), dtype=torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.convs = nn.ModuleList([_conv(ci, co, dtype, generator)
                                     for ci, co in ((1, 3), (3, 3), (3, 32), (32, 64))])
         self.bns = nn.ModuleList([BatchNorm(c, dtype=dtype, act_slope=0.0) for c in (3, 3, 32, 64)])
-        d, h, w = (s // 8 for s in input_shape)
+        self.bottleneck = tuple(s // 8 for s in input_shape)
+        d, h, w = self.bottleneck
         self.fc = Linear(64 * d * h * w, 512, dtype=dtype, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -47,28 +59,27 @@ class LuckyEncoder(nn.Module):
             h = bn(conv(h))                      # conv -> BN -> ReLU
             if i != 2:
                 h = F.max_pool3d(h, 2)
-        return F.relu(self.fc(h.reshape(h.shape[0], -1)))
+        return F.relu(linear_from_slab(self.fc, h, (64,) + self.bottleneck))
 
 
 class LuckyDecoder(nn.Module):
+    depth_levels = LuckyEncoder.depth_levels
+
     def __init__(self, bottleneck: Tuple[int, int, int] = (10, 12, 10), dtype=torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.bottleneck = tuple(bottleneck)
         d, h, w = self.bottleneck
         self.fc = Linear(512, d * h * w * 64, dtype=dtype, generator=generator)
-        self.fc_bn = BatchNorm(d * h * w * 64, dtype=dtype, act_slope=0.0)
+        self.fc_bn = FeatureBatchNorm((64, d, h, w), dtype=dtype, act_slope=0.0)
         self.convs = nn.ModuleList([_conv(ci, co, dtype, generator)
                                     for ci, co in ((64, 32), (32, 3), (3, 3), (3, 1))])
         self.bns = nn.ModuleList([BatchNorm(c, dtype=dtype, act_slope=0.0) for c in (32, 3, 3)])
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         """z (B, 512) -> (B, 1, 8d, 8h, 8w) in (0, 1)."""
-        b = z.shape[0]
-        # BatchNorm over the dense features: a (B, F, 1, 1, 1) view reduces
-        # over the batch alone
-        y = self.fc_bn(self.fc(z).reshape(b, -1, 1, 1, 1))
-        y = to_channels_last(y.reshape((b, 64) + self.bottleneck))
+        # BatchNorm over the dense features (their batch statistics alone)
+        y = to_channels_last(self.fc_bn(linear_to_slab(self.fc, z, (64,) + self.bottleneck)))
         for i, (conv, bn) in enumerate(zip(self.convs[:3], self.bns)):
             if i != 1:
                 y = upsample_nearest3d(y, 2)

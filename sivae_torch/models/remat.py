@@ -35,10 +35,12 @@ forward writes a tape that the rerun reads:
   module holds by then (phase D's replayed decodes swap it, and data
   parallelism's masks come from a rank generator);
 - under depth sharding, the halo planes each conv received from its depth
-  neighbours (`parallel/halo.py`): the rerun pads with them and exchanges
-  nothing. With the statistics above, a rerun issues no collective. The
-  halo's backward (its cotangents to their owners) belongs to the first
-  forward's node and runs once.
+  neighbours (`parallel/halo.py`), and each sum over the spatial ranks (an
+  FC head's partial products, `parallel.mesh.spatial_sum`): the rerun pads
+  with the kept planes and takes the kept sums, and exchanges nothing. With
+  the statistics above, a rerun issues no collective. The halo's backward
+  (its cotangents to their owners) belongs to the first forward's node and
+  runs once.
 1x1 convs (the spatial decoder's head and the encoder's heads, at the
 latent's resolution in every registry model) are recomputed under every
 policy, where the JAX policies would keep them.
@@ -157,8 +159,9 @@ class _Tape:
         return self._next("stats", self.stats)
 
     def received(self, exchange: Callable[[], tuple]) -> tuple:
-        """exchange() (a halo exchange) in the first forward, its planes
-        kept; in the rerun the kept planes, and no exchange."""
+        """exchange() (a collective: a halo exchange, a sum over the spatial
+        ranks) in the first forward, its tensors kept; in the rerun the kept
+        tensors, and no collective."""
         if not self.replaying:
             self.halos.append(exchange())
             return self.halos[-1]
@@ -302,15 +305,17 @@ def chain(modules: Sequence[torch.nn.Module], h: torch.Tensor) -> torch.Tensor:
 
 
 def run_units(seq: torch.nn.Sequential, units: Sequence[tuple], h: torch.Tensor,
-              remat: Remat, training: bool) -> torch.Tensor:
+              remat: Remat, training: bool, depth_scale: Fraction = Fraction(1)) -> torch.Tensor:
     """seq's modules in order, each index range [a, b) of `units` as one
-    region: the FC family's conv-BN-act units, JAX's `cba` calls."""
+    region: the FC family's conv-BN-act units, JAX's `cba` calls
+    (`depth_scale` as in `region`)."""
     if not remat.wraps(training):
         return seq(h)
     mods, ends, i = list(seq), dict(units), 0
     while i < len(mods):
         if i in ends:
-            h = remat(training, functools.partial(chain, mods[i:ends[i]]), h)
+            h = remat(training, functools.partial(chain, mods[i:ends[i]]), h,
+                      depth_scale=depth_scale)
             i = ends[i]
         else:
             h = mods[i](h)

@@ -40,10 +40,26 @@ from sivae_torch.parallel.mesh import depth_scale, slab_shape, volume_slab
 from sivae_torch.utils.dtypes import widen
 
 
-def depth_levels(cfg: SpatialVAEConfig) -> int:
-    """The number of stride-2 stages in depth, input to latent: the
-    `levels` a volume's depth slabs are split at (`parallel.mesh.volume_slab`)."""
-    return (cfg.input_shape[0] // cfg.latent_spatial_shape[0]).bit_length() - 1
+def bottom_depth(cfg) -> int:
+    """The depth at a model's coarsest resolution: the latent's of a spatial
+    config, the bottleneck's of an FC one (its Linears' volume)."""
+    if isinstance(cfg, SpatialVAEConfig):
+        return cfg.latent_spatial_shape[0]
+    return cfg.bottleneck_spatial_shape[0]
+
+
+def depth_levels(cfg) -> int:
+    """The number of stride-2 stages in depth from the input to the coarsest
+    resolution (`bottom_depth`): the `levels` a volume's depth slabs are
+    split at (`parallel.mesh.volume_slab`), 3 for spatial_1200, 4 for the FC
+    family (80 -> 5). `cfg` is a spatial or FC config, or a model part that
+    names its own (`depth_levels`: the lucky AE's 3 max-pools). A grid with
+    more spatial ranks than planes at that resolution is refused where the
+    slabs are cut (`slab_bounds`)."""
+    own = getattr(cfg, "depth_levels", None)
+    if own is not None:
+        return own
+    return (cfg.input_shape[0] // bottom_depth(cfg)).bit_length() - 1
 
 
 class SpatialEncoder(nn.Module):

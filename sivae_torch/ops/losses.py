@@ -18,7 +18,10 @@ this rank's depth slabs: every sum over voxels or latent positions is a
 partial sum, added over the ranks of the same rows (`spatial_sum`, or
 `spatial_mean` for a mean over positions) before any non-linear term (the
 expELBO's `exp`) or batch reduction sees it; a whole value that meets a
-per-position term goes through `spatial_broadcast`.
+per-position term goes through `spatial_broadcast`. A flat latent (the FC
+family's (B, z)) is whole on every spatial rank, so its KL is not summed
+over the ranks (P times the KL): the caller says which latent it passes
+(`flat`), from the model's config.
 """
 
 from __future__ import annotations
@@ -62,11 +65,18 @@ def calc_reconstruction_loss(x: Tensor, recon_x: Tensor, reduction: str = "none"
     return per_sample.mean() if reduction == "mean" else per_sample
 
 
-def calc_kl(logvar: Tensor, mu: Tensor, reduce: str = "none") -> Tensor:
+def _latent_sum(per_sample: Tensor, flat: bool) -> Tensor:
+    """A per-sample sum over this rank's latent: over the slabs for a
+    spatial latent, as it is for a flat one (whole on every rank)."""
+    return per_sample if flat else spatial_sum(per_sample)
+
+
+def calc_kl(logvar: Tensor, mu: Tensor, reduce: str = "none", flat: bool = False) -> Tensor:
     """Analytic KL to N(0, I): per-sample sum over latent dims. Argument
-    order (logvar, mu) as in the reference."""
+    order (logvar, mu) as in the reference; `flat` for a flat latent (module
+    docstring)."""
     mu, logvar = _flatten_per_sample(mu), _flatten_per_sample(logvar)
-    kl = -0.5 * spatial_sum((1.0 + logvar - mu ** 2 - torch.exp(logvar)).sum(dim=1))
+    kl = -0.5 * _latent_sum((1.0 + logvar - mu ** 2 - torch.exp(logvar)).sum(dim=1), flat)
     return _reduce(kl, reduce)
 
 
@@ -76,26 +86,29 @@ def _as_prior(v: Union[Tensor, float], like: Tensor) -> Tensor:
 
 
 def calc_kl_general(logvar: Tensor, mu: Tensor, mu_o: Union[Tensor, float] = 0.0,
-                    logvar_o: Union[Tensor, float] = 0.0, reduce: str = "none") -> Tensor:
+                    logvar_o: Union[Tensor, float] = 0.0, reduce: str = "none",
+                    flat: bool = False) -> Tensor:
     """KL(N(mu, e^logvar) || N(mu_o, e^logvar_o)), the generalized form of
     the DataParallel trainer (reference main_DataParallel.py:87-98)."""
     mu, logvar = _flatten_per_sample(mu), _flatten_per_sample(logvar)
     mu_o, logvar_o = _as_prior(mu_o, mu), _as_prior(logvar_o, mu)
-    kl = -0.5 * spatial_sum((1.0 + logvar - logvar_o - (mu - mu_o) ** 2 * torch.exp(-logvar_o)
-                             - torch.exp(logvar - logvar_o)).sum(dim=1))
+    kl = -0.5 * _latent_sum((1.0 + logvar - logvar_o - (mu - mu_o) ** 2 * torch.exp(-logvar_o)
+                             - torch.exp(logvar - logvar_o)).sum(dim=1), flat)
     return _reduce(kl, reduce)
 
 
-def calc_kl_per_position(logvar: Tensor, mu: Tensor, reduce: str = "none") -> Tensor:
+def calc_kl_per_position(logvar: Tensor, mu: Tensor, reduce: str = "none",
+                         flat: bool = False) -> Tensor:
     """KL summed over the CHANNEL axis only: the DataParallel trainer's
     calc_kl never flattens, so its `.sum(1)` hits the singleton channel of
     the conv latent (B, 1, d, h, w) and the result is a per-position KL of
     shape (B, d, h, w); 'mean' then divides by B*d*h*w, not B. The port's
     tensors are NCDHW, so the channel axis is 1 (axis -1 in the JAX package).
+    A flat latent (B, z) has no positions: its KL is `calc_kl`'s.
     """
     mu, logvar = mu.float(), logvar.float()
     kl = -0.5 * (1.0 + logvar - mu ** 2 - torch.exp(logvar)).sum(dim=1)
-    return _reduce_positions(kl, reduce)
+    return _reduce(kl, reduce) if flat else _reduce_positions(kl, reduce)
 
 
 # --- plain-VAE losses (reference models/lossf.py) --------------------------
@@ -112,26 +125,27 @@ def mse_loss(out: Tensor, x: Tensor) -> Tensor:
     return calc_reconstruction_loss(x, out, reduction="mean")
 
 
-def kld_loss(mu: Tensor, logvar: Tensor) -> Tensor:
+def kld_loss(mu: Tensor, logvar: Tensor, flat: bool = False) -> Tensor:
     """models/lossf.py:14-18."""
-    return calc_kl(logvar, mu, reduce="mean")
+    return calc_kl(logvar, mu, reduce="mean", flat=flat)
 
 
 def normal_loss(x_hat: Tensor, mu: Tensor, logvar: Tensor, x: Tensor, msew: float = 1.0,
-                kldw: float = 10.0) -> Tuple[Tensor, Tensor, Tensor]:
+                kldw: float = 10.0, flat: bool = False) -> Tuple[Tensor, Tensor, Tensor]:
     """Weighted ELBO of the plain ResNetVAE path (models/lossf.py:20-24)."""
     mse = mse_loss(x_hat, x) * msew
-    kld = kld_loss(mu, logvar) * kldw
+    kld = kld_loss(mu, logvar, flat) * kldw
     return mse + kld, mse, kld
 
 
 def localized_loss(x_hat: Tensor, mu: Tensor, logvar: Tensor, localize_loss: Tensor, x: Tensor,
                    msew: float = 1.0, kldw: float = 1.0,
-                   localizew: float = 1.0) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+                   localizew: float = 1.0, flat: bool = False
+                   ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """ELBO plus an externally supplied per-sample localization term (sum
     over dim 1, mean over the batch; models/lossf.py:26-31)."""
     mse = mse_loss(x_hat, x) * msew
-    kld = kld_loss(mu, logvar) * kldw
+    kld = kld_loss(mu, logvar, flat) * kldw
     loc = localize_loss.float().sum(dim=1).mean() * localizew
     return mse + kld + loc, mse, kld, loc
 

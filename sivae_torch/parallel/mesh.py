@@ -40,7 +40,16 @@ step see the grid:
   the data ranks the global batch's (`average_gradients`: the sum over every
   rank over the number of data ranks);
 - the latent draws keep this rank's depth slab (`normal_rows`), and
-  `gather_depth` puts whole latents back together.
+  `gather_depth` puts whole latents back together;
+- a Linear between a slab and a whole value (the FC family's heads, the
+  lucky AE's, the classifier's over its pool) is split by the slab
+  (`linear_from_slab`, `linear_to_slab`, `linear_of_partial_sums`): each
+  rank computes its slab's part with its slab's columns or rows of the
+  whole weight, so its gradient is that part's alone, as every other
+  parameter's is. A Linear run whole on every spatial rank would take the
+  whole gradient on each of them, P times the right one after the sum over
+  the grid. A flat latent is whole on every spatial rank of its rows: its
+  draws are the same there and its losses are not summed over the slabs.
 
 Every function is the one-process identity (no collective) when no process
 group is initialised or it has one process. `collectives` counts the
@@ -58,10 +67,13 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 from torch.utils._pytree import tree_map
 
+from sivae_torch.models.remat import active_tape
 from sivae_torch.parallel.distributed import (Grid, _device_of_group, grid, initialized,
                                               local_batch_slice, rank, set_grid, world_size)
+from sivae_torch.utils.dtypes import widen
 
 # collectives since the last `reset_collectives()`, by kind: "bn" (forward
 # statistics), "bn_grad" (their cotangents), "grad" (gradient buckets),
@@ -120,11 +132,17 @@ def global_mean(t: torch.Tensor) -> torch.Tensor:
 class _SpatialSum(torch.autograd.Function):
     """The sum of `t` over the spatial ranks of this rank's rows; the
     backward hands the cotangent on unchanged (module docstring: every one of
-    those ranks holds the same cotangent of the whole sum)."""
+    those ranks holds the same cotangent of the whole sum). Inside a
+    rematerialised region the first forward's sum is taped and the rerun
+    takes it (`models/remat.py`): a rerun issues no collective."""
 
     @staticmethod
     def forward(ctx, t):
-        return all_reduce_(t.clone(), "spatial", grid().spatial_group)
+        def reduce():
+            return (all_reduce_(t.clone(), "spatial", grid().spatial_group),)
+
+        tape = active_tape()
+        return reduce()[0] if tape is None else tape.received(reduce)[0].clone()
 
     @staticmethod
     def backward(ctx, g):
@@ -369,12 +387,94 @@ def gather_depth(t: torch.Tensor, depth: int, axis: int = 2) -> torch.Tensor:
     return _GatherDepth.apply(t, sizes, axis)
 
 
-def require_unsharded(what: str) -> None:
-    """Raise for a model part that has no depth-sharded form."""
-    if grid().spatial > 1:
-        raise NotImplementedError(
-            f"{what} flattens the whole volume: it has no depth-sharded form (a "
-            f"{grid().data} x {grid().spatial} grid); run it without a 'spatial' mesh axis")
+# ---------------------------------------------------------------------------
+# Linears that meet a depth slab
+# ---------------------------------------------------------------------------
+
+
+def _bottom_slab(whole: Sequence[int]) -> slice:
+    """This rank's depth slab of a (C, D, H, W) `whole` volume at its own
+    resolution (`volume_slab` at level 0)."""
+    return volume_slab(whole[1])
+
+
+def _partial_linear(linear, x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """`x @ weight.T` plus `linear`'s bias on spatial index 0 only (times 0
+    elsewhere, so every rank's bias has a gradient and the gradient buckets
+    pair up), in `linear.dtype`, summed over the spatial ranks of these rows
+    in at least fp32: the whole product, on each of them. The sum's
+    backward hands each rank the whole cotangent, so `weight`'s gradient is
+    this rank's part alone and the gradient sum over the grid is right."""
+    dt = linear.dtype
+    first = float(grid().spatial_index == 0)
+    y = F.linear(x.to(dt), weight.to(dt), (linear.bias * first).to(dt))
+    return spatial_sum(widen(y)).to(y.dtype)
+
+
+def linear_from_slab(linear, x: torch.Tensor, whole: Sequence[int]) -> torch.Tensor:
+    """`linear` (torch's (out, in) weight and bias, compute `dtype`) of the
+    (C, D, H, W) volume `whole` flattened in that order, of which `x` (B, C,
+    d, H, W) is this rank's depth slab: (B, out), whole on every spatial rank
+    of these rows. Each rank multiplies its slab's columns of the weight (a
+    (out, C, D, H, W) view: one strided block per channel) by its slab's
+    features and the partial products are summed (`_partial_linear`). The
+    parameters stay whole; each rank's gradient is zero outside its
+    columns. `linear(x.reshape(B, -1))` without depth sharding."""
+    b = x.shape[0]
+    if grid().spatial == 1:
+        return linear(x.reshape(b, -1))
+    out = linear.weight.shape[0]
+    w = linear.weight.view((out,) + tuple(whole))[:, :, _bottom_slab(whole)]
+    return _partial_linear(linear, x.reshape(b, -1), w.reshape(out, -1))
+
+
+def linear_to_slab(linear, z: torch.Tensor, whole: Sequence[int]) -> torch.Tensor:
+    """This rank's depth slab (B, C, d, H, W) of `linear(z)`, whose output
+    features are the (C, D, H, W) volume `whole` flattened in that order;
+    `z` (B, in) is whole on every spatial rank of these rows. Each rank
+    computes its slab's rows of the weight and the bias (strided once per
+    channel); `z` goes through `spatial_broadcast`, so its cotangent is the
+    sum of the slabs' parts. `linear(z)` reshaped without depth sharding."""
+    b = z.shape[0]
+    if grid().spatial == 1:
+        return linear(z).reshape((b,) + tuple(whole))
+    sl, n_in = _bottom_slab(whole), linear.weight.shape[1]
+    w = linear.weight.view(tuple(whole) + (n_in,))[:, sl].reshape(-1, n_in)
+    bias = linear.bias.view(tuple(whole))[:, sl].reshape(-1)
+    dt = linear.dtype
+    y = F.linear(spatial_broadcast(z).to(dt), w.to(dt), bias.to(dt))
+    return y.reshape((b, whole[0], sl.stop - sl.start) + tuple(whole[2:]))
+
+
+def linear_of_partial_sums(linear, x: torch.Tensor) -> torch.Tensor:
+    """`linear` of the sum over the spatial ranks of `x` (B, in), this rank's
+    partial sum (a pool's sum over its slab): the Linear of each partial,
+    the bias once, summed (`_partial_linear`), so the weight takes its
+    gradient once. `linear(x)` without depth sharding."""
+    if grid().spatial == 1:
+        return linear(x)
+    return _partial_linear(linear, x, linear.weight)
+
+
+def slab_features(t: torch.Tensor, whole: Sequence[int]) -> torch.Tensor:
+    """This rank's slab of a per-feature tensor `t` (F,) over the (C, D, H,
+    W) volume `whole` flattened in that order (a BatchNorm's parameters over
+    `linear_to_slab`'s features); `t` without depth sharding."""
+    if grid().spatial == 1:
+        return t
+    return t.view(tuple(whole))[:, _bottom_slab(whole)].reshape(-1)
+
+
+def whole_features(t: torch.Tensor, whole: Sequence[int]) -> torch.Tensor:
+    """The per-feature rows (K, F_slab) of every spatial rank's slab joined
+    into (K, F) over the (C, D, H, W) volume `whole` flattened in that order,
+    on every one of them (one `gather_depth`); `t` without depth sharding."""
+    if grid().spatial == 1:
+        return t
+    k, (c, d, h, w) = t.shape[0], whole
+    slab = _bottom_slab(whole)
+    joined = gather_depth(t.reshape(k, c, slab.stop - slab.start, h, w), d)
+    return joined.reshape(k, -1)
 
 
 def rank_generator(generator: torch.Generator, step: int) -> torch.Generator:

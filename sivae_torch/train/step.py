@@ -68,7 +68,11 @@ step computes the global-batch step of the JAX package's 2-D mesh
 - the noise batch and the reparameterisation eps are drawn for the global
   batch and the whole latent; each rank keeps its rows and its depth slab
   (`normal_rows(..., depth_axis=2)`), so the ranks together draw one
-  process's noise.
+  process's noise. A flat latent (the FC family) is whole on every spatial
+  rank: each keeps its rows of the same draw, and its KL is not summed over
+  the slabs (`flat` in `ops/losses.py`);
+- the plain VAE, CAE and classifier steps and the validation step run on
+  the grid the same way (the classifier's pool and head: `models/classifier.py`).
 `torch.nn.parallel.DistributedDataParallel` is not used: its reducer
 assumes one forward and one backward over a fixed set of parameters, where
 this step runs 13 forwards and two backwards over halves switched by
@@ -87,6 +91,8 @@ from __future__ import annotations
 
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -94,7 +100,7 @@ import torch.nn.functional as F
 from sivae_torch.config import OptimConfig, SoftIntroLossConfig
 from sivae_torch.models.blocks import Dropout
 from sivae_torch.models.remat import region, remat_policy_by_name
-from sivae_torch.models.resnet_vae import SoftIntroVAE, reparameterize
+from sivae_torch.models.resnet_vae import SoftIntroVAE, bottom_depth, reparameterize
 from sivae_torch.ops.losses import (calc_kl, calc_kl_per_position, calc_reconstruction_loss,
                                     normal_loss, soft_intro_decoder_loss,
                                     soft_intro_encoder_loss, voxel_mse)
@@ -120,6 +126,17 @@ def _depth_axis(latent_shape) -> Optional[int]:
     """The depth axis of a (B,) + `latent_shape` latent: 2 for a spatial
     latent (1, d, h, w), None for a flat one."""
     return 2 if len(latent_shape) == 4 else None
+
+
+def _flat_latent(model: torch.nn.Module) -> bool:
+    """A flat latent (the FC family's (B, z)), whole on every spatial rank."""
+    return _depth_axis(model.cfg.latent_shape) is None
+
+
+def _kl(model: torch.nn.Module, dp: bool):
+    """The step's KL, per position under dp_semantics, told whether the
+    model's latent is flat."""
+    return functools.partial(calc_kl_per_position if dp else calc_kl, flat=_flat_latent(model))
 
 
 def _noise_batch(b: int, latent_shape, dev, zero_noise: bool, fixed_noise,
@@ -213,7 +230,7 @@ def make_soft_intro_train_step(
     scale = loss_cfg.resolved_scale(input_shape)
     eps0 = 0.0 if zero_noise else None
     dp = loss_cfg.dp_semantics
-    kl = calc_kl_per_position if dp else calc_kl
+    kl = _kl(model, dp)
     recon = calc_reconstruction_loss
     elbo_recon = _elbo_recon(dp)
     enc_drops, dec_drops = _dropouts(model.encoder), _dropouts(model.decoder)
@@ -224,13 +241,15 @@ def make_soft_intro_train_step(
             raise ValueError("remat_calls rematerialises whole encode / decode calls: build "
                              "the model with remat=False, or its blocks are recomputed twice")
         saves = remat_policy_by_name(remat_calls_policy)
-        latent_depth = model.cfg.latent_shape[1] if len(model.cfg.latent_shape) == 4 else 1
+        # the whole depth over this rank's slab's at the coarsest resolution
+        # (an FC model's bottleneck), as the model halves' own remat tags it
+        bottom = bottom_depth(model.cfg)
 
         def encode(x):
-            return region(model.encode, saves, "enc", x, depth_scale=depth_scale(latent_depth))
+            return region(model.encode, saves, "enc", x, depth_scale=depth_scale(bottom))
 
         def decode(z):
-            return region(model.decode, saves, "dec", z, depth_scale=depth_scale(latent_depth))
+            return region(model.decode, saves, "dec", z, depth_scale=depth_scale(bottom))
 
     def train_step(state: SIVAETrainState, real: torch.Tensor):
         if state.model is not model:
@@ -375,7 +394,7 @@ def make_soft_intro_eval_step(
     scale = loss_cfg.resolved_scale(input_shape)
     eps0 = 0.0 if zero_noise else None
     dp = loss_cfg.dp_semantics
-    kl = calc_kl_per_position if dp else calc_kl
+    kl = _kl(model, dp)
     recon = calc_reconstruction_loss
     elbo_recon = _elbo_recon(dp)
 
@@ -468,13 +487,15 @@ def make_vae_train_step(model: SoftIntroVAE, optim_cfg: OptimConfig, steps_per_e
     vae_main.py:205): `state, metrics = step(state, real)`, metrics
     {"loss", "mse", "kl", "nan"}. The reparameterisation noise comes from
     the state's generator."""
+    flat = _flat_latent(model)
 
     def train_step(state: SIVAETrainState, real: torch.Tensor):
         def loss_fn():
             mu, logvar = model.encode(real)
             x_re = model.decode(_reparam(mu, logvar, None, state.generator,
                                          model.cfg.latent_shape))
-            loss, mse, kld = normal_loss(x_re, mu, logvar, real, msew=mse_w, kldw=kl_w)
+            loss, mse, kld = normal_loss(x_re, mu, logvar, real, msew=mse_w, kldw=kl_w,
+                                         flat=flat)
             return loss, {"loss": loss, "mse": mse, "kl": kld}
 
         return state, _plain_update(state, model, optim_cfg, steps_per_epoch, loss_fn)
@@ -487,6 +508,7 @@ def make_vae_eval_step(model: SoftIntroVAE):
     the reference: its validation calls normal_loss with the defaults
     (my_trainer.py:616), so the weights are mse 1 and KL 10 whatever the
     training weights are (`sivae_tpu/train/step.py:451`)."""
+    flat = _flat_latent(model)
 
     @torch.no_grad()
     def eval_step(state: SIVAETrainState, real: torch.Tensor,
@@ -496,13 +518,17 @@ def make_vae_eval_step(model: SoftIntroVAE):
         model.eval()
         mu, logvar = model.encode(real)
         x_re = model.decode(_reparam(mu, logvar, None, generator, model.cfg.latent_shape))
-        loss, mse, kld = normal_loss(x_re, mu, logvar, real, msew=1.0, kldw=10.0)
+        loss, mse, kld = normal_loss(x_re, mu, logvar, real, msew=1.0, kldw=10.0, flat=flat)
         return {"loss": loss, "mse": mse, "kl": kld}
 
     return eval_step
 
 
 def _labels(labels, dev) -> torch.Tensor:
+    """Class indices on `dev`: from a host array, or from a tensor on any
+    device (numpy cannot read a CUDA tensor)."""
+    if isinstance(labels, torch.Tensor):
+        return labels.to(dev).long()
     return torch.as_tensor(np.asarray(labels), device=dev).long()
 
 

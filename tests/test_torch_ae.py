@@ -69,7 +69,7 @@ from sivae_torch.utils.checkpoint import CheckpointManager
 from sivae_torch.utils.jax_import import (export_train_state, load_jax_train_state,
                                           state_dict_to_jax)
 from torch_port_common import (assert_close_scaled, assert_moments_close, flat_state,
-                               jax_state_trees, perturb, to_ncdhw, to_ndhwc)
+                               jax_state_trees, lucky_to_port, perturb, to_ncdhw, to_ndhwc)
 
 torch.set_num_threads(2)
 
@@ -253,46 +253,6 @@ def test_plain_steps_refuse_a_state_with_two_adams():
 # ---------------------------------------------------------------------------
 
 
-def _lucky_to_port(enc_v, dec_v, enc, dec, bottleneck):
-    """JAX lucky AE variables -> the port modules' tensors. The Dense layers
-    see the JAX flatten (D, H, W, C) where the port's is (C, D, H, W)."""
-    d, h, w = bottleneck
-    perm = np.arange(64 * d * h * w).reshape(64, d, h, w).transpose(1, 2, 3, 0).reshape(-1)
-
-    def t(a):
-        return torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.float32)))
-
-    def conv(mod, p):
-        mod.weight.data = t(np.asarray(p["kernel"]).transpose(4, 3, 0, 1, 2))
-        mod.bias.data = t(p["bias"])
-
-    def bn(mod, p, s, order=slice(None)):
-        for name, a in (("weight", p["scale"]), ("bias", p["bias"]),
-                        ("running_mean", s["mean"]), ("running_var", s["var"])):
-            full = np.empty(np.asarray(a).shape, np.float32)
-            full[order] = np.asarray(a)
-            getattr(mod, name).data = t(full)
-
-    p, s = enc_v["params"], enc_v["batch_stats"]
-    for i in range(4):
-        conv(enc.convs[i], p[f"Conv_{i}"])
-        bn(enc.bns[i], p[f"BatchNorm_{i}"], s[f"BatchNorm_{i}"])
-    wk = np.empty((512, 64 * d * h * w), np.float32)
-    wk[:, perm] = np.asarray(p["Dense_0"]["kernel"]).T
-    enc.fc.weight.data, enc.fc.bias.data = t(wk), t(p["Dense_0"]["bias"])
-    p, s = dec_v["params"], dec_v["batch_stats"]
-    wk = np.empty((64 * d * h * w, 512), np.float32)
-    wk[perm] = np.asarray(p["Dense_0"]["kernel"]).T
-    bias = np.empty(64 * d * h * w, np.float32)
-    bias[perm] = np.asarray(p["Dense_0"]["bias"])
-    dec.fc.weight.data, dec.fc.bias.data = t(wk), t(bias)
-    bn(dec.fc_bn, p["BatchNorm_0"], s["BatchNorm_0"], perm)
-    for i in range(4):
-        conv(dec.convs[i], p[f"Conv_{i}"])
-    for i in range(3):
-        bn(dec.bns[i], p[f"BatchNorm_{i + 1}"], s[f"BatchNorm_{i + 1}"])
-
-
 def test_lucky_ae_eval_forward_matches_jax_and_trains_its_bn():
     shape, bottleneck = (16, 24, 16), (2, 3, 2)
     x = np.random.RandomState(3).rand(2, *shape, 1).astype(np.float32)
@@ -312,7 +272,7 @@ def test_lucky_ae_eval_forward_matches_jax_and_trains_its_bn():
     dv = draw(jax.eval_shape(dec_j.init, jax.random.key(1), z_j), 2)
     y_j = jax.jit(functools.partial(dec_j.apply, train=False))(dv, z_j)
     enc, dec = LuckyEncoder(shape), LuckyDecoder(bottleneck)
-    _lucky_to_port(ev, dv, enc, dec, bottleneck)
+    lucky_to_port(ev, dv, enc, dec, bottleneck)
     enc.eval()
     dec.eval()
     with torch.no_grad():

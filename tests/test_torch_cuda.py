@@ -979,3 +979,30 @@ def test_depth_sharded_conv_sites_on_the_card_match_the_whole_volume(cuda_device
     launches = check_sharded_sites(ranks, cuda_device)
     assert launches == {"conv3d_same": 2, "conv3d_to1": 2, "conv3d_from1": 2,
                         "conv3d_fused_stats": 0}, launches
+
+
+@pytest.mark.gpu
+def test_classifier_steps_take_labels_on_the_card(cuda_device):
+    """The classifier's train and eval steps take their labels as a host
+    array or as a tensor on the card, alike (numpy cannot read a CUDA
+    tensor: a step that converted it through numpy raised)."""
+    from sivae_torch.config import OptimConfig
+    from sivae_torch.models.classifier import ResNetClassifier
+    from sivae_torch.models.registry import get_model_config
+    from sivae_torch.train.state import create_train_state
+    from sivae_torch.train.step import make_classifier_eval_step, make_classifier_train_step
+
+    cfg = get_model_config("tiny_spatial")
+    cfg = dataclasses.replace(cfg, act=cfg.act.with_no_dropout())
+    x = torch.rand((2, 1) + cfg.input_shape, generator=torch.Generator().manual_seed(3))
+    x = x.to(cuda_device)
+    losses = []
+    for labels in ([0, 1], torch.tensor([0, 1], device=cuda_device)):
+        model = ResNetClassifier(cfg, num_classes=2, generator=torch.Generator().manual_seed(0))
+        model = model.to(cuda_device).eval()
+        state = create_train_state(model, seed=0, joint_optimizer=True)
+        metrics, pred = make_classifier_eval_step(model)(state, x, labels)
+        _, m = make_classifier_train_step(model, OptimConfig(), 1)(state, x, labels)
+        losses.append((metrics["loss"].item(), m["loss"].item(), pred.cpu().tolist()))
+    assert losses[0] == losses[1]
+

@@ -28,9 +28,6 @@ from the model's conv sites.
 
 import dataclasses
 import os
-import socket
-import subprocess
-import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -57,7 +54,8 @@ from sivae_torch.utils.checkpoint import load_payload, state_payload
 from sivae_torch.utils.jax_import import export_train_state, load_jax_train_state
 from chip_smoke import soft_intro_step_halos
 from torch_port_common import (LATENT_CONV_KERNEL, assert_close_scaled, assert_moments_close,
-                               flat_random_draws, flat_state, jax_state_trees, perturb, to_ncdhw)
+                               flat_random_draws, flat_state, jax_state_trees, join_workers,
+                               launch_workers, perturb, to_ncdhw)
 
 torch.set_num_threads(2)
 
@@ -65,13 +63,6 @@ WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_depth_w
 BATCH = 4
 SHAPE = (16, 16, 16)
 LIMIT_S = 150.0
-LAUNCHER_ENV = ("RANK", "LOCAL_RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def _jax_state():
@@ -92,43 +83,6 @@ def _jax_state():
     return dataclasses.replace(cfg_t, act=act), model, st, v
 
 
-def _launch(in_dir, worlds):
-    """The worker as the ranks of one gloo group per world size in `worlds`
-    (0: one process without a launcher's environment), each into a directory
-    of its own."""
-    base = {k: v for k, v in os.environ.items() if k not in LAUNCHER_ENV}
-    base["OMP_NUM_THREADS"] = "1"
-    procs = {}
-    for world in worlds:
-        out = in_dir.parent / f"{in_dir.name}_w{world}"
-        out.mkdir()
-        port = _free_port()
-        envs = [base] if world == 0 else [
-            {**base, "RANK": str(r), "LOCAL_RANK": str(r), "WORLD_SIZE": str(world),
-             "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)} for r in range(world)]
-        procs[world] = (out, [subprocess.Popen([sys.executable, WORKER, str(in_dir), str(out)],
-                                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                               text=True, env=env) for env in envs])
-    return procs
-
-
-def _join(procs, t_end):
-    outs = {}
-    try:
-        for world, (_, ps) in procs.items():
-            outs[world] = [p.communicate(timeout=max(1.0, t_end - time.monotonic()))[0]
-                           for p in ps]
-    finally:
-        for _, ps in procs.values():
-            for p in ps:
-                if p.poll() is None:
-                    p.kill()
-                    p.communicate()
-    for world, (_, ps) in procs.items():
-        for r, p in enumerate(ps):
-            assert p.returncode == 0, f"world {world} rank {r} failed:\n{outs[world][r][-6000:]}"
-
-
 @pytest.fixture(scope="module")
 def depth(tmp_path_factory):
     t_end = time.monotonic() + LIMIT_S
@@ -145,7 +99,7 @@ def depth(tmp_path_factory):
                in_dir / "soft.pth")
     np.savez(in_dir / "inputs.npz", real=to_ncdhw(real).contiguous().numpy(), fixed=fixed,
              real24=real24, vox=to_ncdhw(vox).contiguous().numpy())
-    procs = _launch(in_dir, (4, 2, 0))
+    procs = launch_workers(WORKER, in_dir, (4, 2, 0))
     try:
         out = {"trees": trees, "cfg_t": cfg_t}
         mesh = jax_mesh.make_mesh((2, 2), ("data", "spatial"))
@@ -173,7 +127,7 @@ def depth(tmp_path_factory):
         out["jax_metrics"] = {k: float(np.asarray(v)) for k, v in m.items()}
         out["jax_mu"] = np.asarray(enc_c(vrep, vs))
     finally:
-        _join(procs, t_end)
+        join_workers(procs, t_end)
     for world, (d, ps) in procs.items():
         out[world] = [torch.load(d / f"rank{r}.pth", weights_only=False) for r in range(len(ps))]
     out["one"] = out.pop(0)[0]

@@ -15,6 +15,11 @@ import dataclasses
 import functools
 import importlib.util
 import math
+import os
+import socket
+import subprocess
+import sys
+import time
 from pathlib import Path
 
 import jax
@@ -234,3 +239,92 @@ def load_tool(name: str):
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+LAUNCHER_ENV = ("RANK", "LOCAL_RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def launch_workers(worker: str, in_dir, worlds):
+    """The script `worker` as the ranks of one gloo group per world size in
+    `worlds` (0: one process without a launcher's environment), each world
+    writing into a directory of its own beside `in_dir`, one thread each.
+    Returns {world: (out_dir, processes)} for `join_workers`."""
+    base = {k: v for k, v in os.environ.items() if k not in LAUNCHER_ENV}
+    base["OMP_NUM_THREADS"] = "1"
+    procs = {}
+    for world in worlds:
+        out = in_dir.parent / f"{in_dir.name}_w{world}"
+        out.mkdir()
+        port = _free_port()
+        envs = [base] if world == 0 else [
+            {**base, "RANK": str(r), "LOCAL_RANK": str(r), "WORLD_SIZE": str(world),
+             "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)} for r in range(world)]
+        procs[world] = (out, [subprocess.Popen([sys.executable, worker, str(in_dir), str(out)],
+                                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                               text=True, env=env) for env in envs])
+    return procs
+
+
+def join_workers(procs, t_end: float) -> None:
+    """Wait for `launch_workers`' processes until `time.monotonic()` reaches
+    `t_end`, kill what is left, and fail on a rank that did not exit 0."""
+    outs = {}
+    try:
+        for world, (_, ps) in procs.items():
+            outs[world] = [p.communicate(timeout=max(1.0, t_end - time.monotonic()))[0]
+                           for p in ps]
+    finally:
+        for _, ps in procs.values():
+            for p in ps:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+    for world, (_, ps) in procs.items():
+        for r, p in enumerate(ps):
+            assert p.returncode == 0, f"world {world} rank {r} failed:\n{outs[world][r][-6000:]}"
+
+
+def lucky_to_port(enc_v, dec_v, enc, dec, bottleneck):
+    """JAX lucky AE variables -> the port modules' tensors. The Dense layers
+    see the JAX flatten (D, H, W, C) where the port's is (C, D, H, W)."""
+    d, h, w = bottleneck
+    perm = np.arange(64 * d * h * w).reshape(64, d, h, w).transpose(1, 2, 3, 0).reshape(-1)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.float32)))
+
+    def conv(mod, p):
+        mod.weight.data = t(np.asarray(p["kernel"]).transpose(4, 3, 0, 1, 2))
+        mod.bias.data = t(p["bias"])
+
+    def bn(mod, p, s, order=slice(None)):
+        for name, a in (("weight", p["scale"]), ("bias", p["bias"]),
+                        ("running_mean", s["mean"]), ("running_var", s["var"])):
+            full = np.empty(np.asarray(a).shape, np.float32)
+            full[order] = np.asarray(a)
+            getattr(mod, name).data = t(full)
+
+    p, s = enc_v["params"], enc_v["batch_stats"]
+    for i in range(4):
+        conv(enc.convs[i], p[f"Conv_{i}"])
+        bn(enc.bns[i], p[f"BatchNorm_{i}"], s[f"BatchNorm_{i}"])
+    wk = np.empty((512, 64 * d * h * w), np.float32)
+    wk[:, perm] = np.asarray(p["Dense_0"]["kernel"]).T
+    enc.fc.weight.data, enc.fc.bias.data = t(wk), t(p["Dense_0"]["bias"])
+    p, s = dec_v["params"], dec_v["batch_stats"]
+    wk = np.empty((64 * d * h * w, 512), np.float32)
+    wk[perm] = np.asarray(p["Dense_0"]["kernel"]).T
+    bias = np.empty(64 * d * h * w, np.float32)
+    bias[perm] = np.asarray(p["Dense_0"]["bias"])
+    dec.fc.weight.data, dec.fc.bias.data = t(wk), t(bias)
+    bn(dec.fc_bn, p["BatchNorm_0"], s["BatchNorm_0"], perm)
+    for i in range(4):
+        conv(dec.convs[i], p[f"Conv_{i}"])
+    for i in range(3):
+        bn(dec.bns[i], p[f"BatchNorm_{i + 1}"], s[f"BatchNorm_{i + 1}"])
