@@ -64,8 +64,8 @@ failure exits non-zero and prints no result):
    memory, and a torch.profiler window over one batch through each entry
    point (encode, reconstruction report) and through the reconstruction
    with its metrics taken one volume at a time (the yardstick the batched
-   report replaced): device time by kernel, the idle share and the launches
-   of each. The report's batched metrics are held to the per-volume ones on
+   report replaced): device time by kernel, the launches and the
+   program's spans of each. The report's batched metrics are held to the per-volume ones on
    the same reconstructions on the card (rmse and psnr within 1e-5
    relative, each SSIM within 1e-5 absolute, `batch_ssim_center_slice`
    against the per-volume centre-slice SSIM), and the counted report's means
@@ -183,8 +183,8 @@ failure exits non-zero and prints no result):
    and gradient buckets, are printed), 5 timed steps: s/step (median, min,
    max, the slower rank), global vol/s, peak GiB per rank; the digests must
    be equal after the steps; then one step with rank 0's under the
-   profiler (its own kernels: the idle share holds the other rank's turns
-   on the card and the waits). Two ranks share one card: not a scaling
+   profiler (its own kernels and spans; its wall time holds the other
+   rank's turns on the card and the waits). Two ranks share one card: not a scaling
    figure.
    (c) The entry point: `train_on_split` (z1200) on both ranks for 2 epochs
    over phase 8's 24 volumes, global batch 8, counted (each rank's launches
@@ -819,15 +819,10 @@ def eval_path(dev, model, vox, labels, vid, tid, tag: str) -> dict:
     x8 = vox[:batch]
     profile_window(f"{tag} encode of {batch} volumes",
                    lambda: encode_dataset(model, x8, batch_size=batch))
-    rep = profile_window(f"{tag} reconstruction report of {batch} volumes",
-                         lambda: reconstruction_report(model, x8, batch_size=batch))
-    yard = profile_window(f"{tag} reconstruction with per-volume metrics (the yardstick) of "
-                          f"{batch} volumes",
-                          lambda: per_volume_report(model, x8, batch).tolist())
-    if rep is not None and yard is not None:
-        log(f"[path] {tag} report of {batch} volumes: {rep['launches']} launches, idle share "
-            f"{rep['idle']:.3f}; with per-volume metrics {yard['launches']} launches, idle share "
-            f"{yard['idle']:.3f}")
+    profile_window(f"{tag} reconstruction report of {batch} volumes",
+                   lambda: reconstruction_report(model, x8, batch_size=batch))
+    profile_window(f"{tag} reconstruction with per-volume metrics (the yardstick) of {batch} "
+                   f"volumes", lambda: per_volume_report(model, x8, batch).tolist())
     return {k: enc_counts[k] + rec_counts[k] for k in enc_counts}
 
 
@@ -993,33 +988,38 @@ def card_vs_cpu_eval(model32, x1, tag: str) -> None:
         raise SystemExit(f"chip_smoke: the {tag} kernel path disagrees with the plain path")
 
 
-def profile_window(what: str, fn, top: int = 10) -> Optional[dict]:
+def profile_window(what: str, fn, top: int = 10) -> None:
     """Device time by kernel (torch.profiler) over one call of `fn`, the
-    device's idle share of the window (the profiler's own overhead is in
-    the window), the launch count, and every library convolution kernel.
-    Returns {"launches", "idle"}, or None where no device time was
-    recorded."""
+    launch count, every library convolution kernel, and the program's spans
+    in the window (`sivae_torch.utils.trace`, as the benchmark reads them).
+    No idle share: summed kernel times overlap where streams do, so only a
+    union of the device intervals gives one (`port_bench/lib/trace.py`)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from sivae_torch.utils import trace
+
+    trace.reset()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages() if e.device_type ==
-               torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    # a host range (`record_function`, the spans) also appears on the device's
+    # timeline, spanning its kernels: it is no device work
+    ranges = {e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU}
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0 and e.key not in ranges]
     if not kernels:
         log(f"[profile] {what}: no device time recorded: not measured")
-        return None
-    busy_us = sum(e.self_device_time_total for e in kernels)
+        return
+    kernel_us = sum(e.self_device_time_total for e in kernels)
     launches = sum(e.count for e in kernels)
-    log(f"[profile] {what}: wall {wall_us / 1e3:.3f} ms, device busy "
-        f"{busy_us / 1e3:.3f} ms, idle share {1 - busy_us / wall_us:.3f}, "
-        f"{launches} kernel launches")
+    log(f"[profile] {what}: wall {wall_us / 1e3:.3f} ms, kernel time {kernel_us / 1e3:.3f} ms "
+        f"(summed over kernels), {launches} kernel launches")
     ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
     for e in ranked[:top]:
         log(f"[profile] {e.self_device_time_total / 1e3:9.3f} ms {e.count:4d}x "
-            f"{100 * e.self_device_time_total / busy_us:5.1f}%  {e.key[:110]}")
+            f"{100 * e.self_device_time_total / kernel_us:5.1f}%  {e.key[:110]}")
     marks = ("cudnn", "xmma", "cutlass", "wgrad", "dgrad", "fprop", "implicit_gemm", "convolve")
     for e in ranked[top:]:
         if "sivae::" in e.key:
@@ -1028,7 +1028,10 @@ def profile_window(what: str, fn, top: int = 10) -> Optional[dict]:
         elif any(m in e.key.lower() for m in marks):
             log(f"[profile] (library conv) {e.self_device_time_total / 1e3:9.3f} ms "
                 f"{e.count:4d}x  {e.key[:110]}")
-    return {"launches": launches, "idle": 1 - busy_us / wall_us}
+    for name, t in sorted(trace.summary().items()):
+        device = "none" if t["device_s"] is None else f"{t['device_s'] * 1e3:.3f} ms"
+        log(f"[profile] span {trace.PREFIX}{name}: {t['count']}x, host {t['host_s'] * 1e3:.3f} "
+            f"ms, self {t['self_s'] * 1e3:.3f} ms, device {device}")
 
 
 # ---------------------------------------------------------------------------
@@ -2065,7 +2068,7 @@ def ddp_flagship_rank(dev) -> dict:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     # one more step on both ranks (their collectives pair up), rank 0's
-    # under the profiler: its own kernels only, so its idle share holds the
+    # under the profiler: its own kernels only, so its wall time holds the
     # other rank's turns on the card as well as the waits
     if rank() == 0:
         profile_window("data-parallel step, rank 0 of 2 sharing the card", lambda: step(state, real),
@@ -2897,7 +2900,7 @@ def depth_flagship_rank(dev, inp: dict, mesh=None, family: str = "fullsize") -> 
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     # one more step on every rank (their exchanges pair up), rank 0's under
-    # the profiler: its own kernels, so its idle share holds the other
+    # the profiler: its own kernels, so its wall time holds the other
     # ranks' turns on the card, the host copies of the halo planes and the
     # waits
     if rank() == 0:

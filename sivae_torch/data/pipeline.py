@@ -29,6 +29,7 @@ import torch
 from sivae_torch.data.preprocess import preprocess_batch
 from sivae_torch.parallel.distributed import local_batch_slice
 from sivae_torch.utils.device import resolve_device
+from sivae_torch.utils.trace import span
 
 
 def grouped_split(
@@ -85,6 +86,11 @@ class DataPipeline:
     - under data parallelism each rank yields its rows of every global
       batch of `batch_size` (`steps_per_epoch` counts global batches);
     - a background thread prefetches `PREFETCH` batches ahead.
+
+    Spans (`utils/trace.py`, under a torch profiler only): `data.prepare`
+    around each batch's copy, augmentation and preprocessing, on the
+    producer thread (and, on a CUDA device, on its side stream), and
+    `data.wait` around the consumer's take of the next batch.
 
     On a CUDA device the thread fills one of `PREFETCH` pinned host buffers (it
     waits for that buffer's previous copy to finish before it writes it
@@ -156,8 +162,9 @@ class DataPipeline:
                     idx = order[step * self.batch_size:(step + 1) * self.batch_size][self.rows]
                     lab = self.source.labels[idx]
                     if not cuda:
-                        vox = self._device_batch(torch.from_numpy(self.source.voxels[idx]),
-                                                 epoch_idx, step)
+                        with span("data.prepare"):
+                            vox = self._device_batch(torch.from_numpy(self.source.voxels[idx]),
+                                                     epoch_idx, step)
                         if not _put(q, (vox, lab, None)):
                             return
                         continue
@@ -166,7 +173,8 @@ class DataPipeline:
                         copied[k].synchronize()  # its last copy has left the buffer
                     np.take(self.source.voxels, idx, axis=0, out=pinned[k].numpy())
                     with torch.cuda.stream(stream):
-                        vox = self._device_batch(pinned[k], epoch_idx, step)
+                        with span("data.prepare"):
+                            vox = self._device_batch(pinned[k], epoch_idx, step)
                         copied[k] = torch.cuda.Event()
                         copied[k].record(stream)
                         # the copy precedes the device work on this stream,
@@ -182,16 +190,17 @@ class DataPipeline:
         t.start()
         try:
             while True:
-                item = q.get()
-                if item is None:
-                    break
-                if isinstance(item, Exception):
-                    raise item
-                vox, lab, ready = item
-                if ready is not None:
-                    consumer = torch.cuda.current_stream(self.device)
-                    consumer.wait_event(ready)
-                    vox.record_stream(consumer)
+                with span("data.wait"):
+                    item = q.get()
+                    if item is None:
+                        break
+                    if isinstance(item, Exception):
+                        raise item
+                    vox, lab, ready = item
+                    if ready is not None:
+                        consumer = torch.cuda.current_stream(self.device)
+                        consumer.wait_event(ready)
+                        vox.record_stream(consumer)
                 yield vox, lab
         finally:
             # Runs on normal exhaustion AND on generator close/GC (the

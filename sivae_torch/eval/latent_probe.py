@@ -18,6 +18,7 @@ from sivae_torch.eval.recon_quality import eval_mode
 from sivae_torch.models.resnet_vae import depth_levels, reparameterize
 from sivae_torch.parallel.distributed import spatial_ranks
 from sivae_torch.parallel.mesh import gather_depth, volume_slab
+from sivae_torch.utils.trace import span
 
 
 @torch.no_grad()
@@ -45,6 +46,9 @@ def encode_dataset(
     back (`gather_depth`), as JAX's encode on a `volume_sharding` does
     (tests/test_spatial_sharding.py); a flat latent (the FC family) comes
     out of the encoder whole, with nothing to gather.
+
+    The batches and the latents' copy to the host are the span
+    `eval.encode` (`utils/trace.py`).
     """
     if representation not in ("mu", "z_val", "z"):
         raise ValueError(f"unknown representation {representation!r}")
@@ -54,7 +58,7 @@ def encode_dataset(
     vox = torch.as_tensor(voxels)
     n = vox.shape[0]
     out = []
-    with eval_mode(model):
+    with span("eval.encode"), eval_mode(model):
         for i in range(0, n, batch_size):
             chunk = vox[i:i + batch_size].to(dev, torch.float32)
             keep = chunk.shape[0]
@@ -76,7 +80,7 @@ def encode_dataset(
             else:
                 z = reparameterize(mu, logvar, generator=generator)
             out.append(z.reshape(z.shape[0], -1)[:keep])
-    return torch.cat(out).cpu().numpy()
+        return torch.cat(out).cpu().numpy()
 
 
 def logistic_auc(

@@ -18,6 +18,7 @@ import torch
 
 from sivae_torch.models.resnet_vae import reparameterize
 from sivae_torch.ops.metrics import batch_psnr, batch_rmse, batch_ssim
+from sivae_torch.utils.trace import span
 
 
 @contextlib.contextmanager
@@ -34,8 +35,9 @@ def eval_mode(model):
 
 @torch.no_grad()
 def reconstruct(model, x: torch.Tensor, val_eps: float = 0.1) -> torch.Tensor:
-    """Encode, fixed-eps reparameterize, decode, in eval mode."""
-    with eval_mode(model):
+    """Encode, fixed-eps reparameterize, decode, in eval mode (the span
+    `eval.reconstruct`)."""
+    with span("eval.reconstruct"), eval_mode(model):
         mu, logvar = model.encode(x)
         return model.decode(reparameterize(mu, logvar, val_eps=val_eps))
 
@@ -52,7 +54,8 @@ def reconstruction_report(
     'ssim_center_slice', 'n'}, in eval mode. The tail batch is zero-padded to
     one shape and the padding is left out of the metrics. With `panel_path`,
     the first batch's original / reconstruction panel is written there
-    (needs matplotlib)."""
+    (needs matplotlib). The metrics of each batch, and the means, are the
+    span `eval.quality`."""
     dev = next(model.parameters()).device
     vox = torch.as_tensor(voxels)
     n = vox.shape[0]
@@ -68,13 +71,16 @@ def reconstruction_report(
         if first_batch is None:
             first_batch = (a, b)
         mid = a.shape[1] // 2
-        per_volume.append(torch.stack([batch_rmse(a, b), batch_psnr(a, b), batch_ssim(a, b),
-                                       batch_ssim(a[:, mid], b[:, mid])], dim=1))
+        with span("eval.quality"):
+            per_volume.append(torch.stack([batch_rmse(a, b), batch_psnr(a, b),
+                                           batch_ssim(a, b), batch_ssim(a[:, mid], b[:, mid])],
+                                          dim=1))
     if panel_path and first_batch is not None:
         from sivae_torch.utils.plots import save_recon_panel
 
         save_recon_panel(first_batch[0], first_batch[1], panel_path)
-    metrics = torch.cat(per_volume)
-    means = metrics.mean(dim=0).tolist()
+    with span("eval.quality"):
+        metrics = torch.cat(per_volume)
+        means = metrics.mean(dim=0).tolist()
     return {"rmse": means[0], "psnr": means[1], "ssim3d": means[2],
             "ssim_center_slice": means[3], "n": metrics.shape[0]}

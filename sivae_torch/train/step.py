@@ -85,6 +85,12 @@ the step does it to whole encode and decode calls instead, as the JAX
 step's `_CheckpointedCalls` (`sivae_tpu/train/step.py:57-91`). Neither
 changes the math: the reruns replay the forwards' dropout masks and batch
 statistics, move no running statistic and issue no collective.
+
+Spans (`utils/trace.py`, recorded only under a torch profiler): `step`
+around the whole two-phase step, and in it each phase's `forward` (its
+forwards and losses), `backward` and `update` (the gradient average and the
+Adam step), as `phase_e.*` and `phase_d.*`; the plain steps' update as
+`plain.backward` and `plain.update`.
 """
 
 from __future__ import annotations
@@ -109,6 +115,7 @@ from sivae_torch.parallel.mesh import (average_gradients, depth_scale, global_me
                                        rank_generator, slab_shape, volume_slab)
 from sivae_torch.train.state import SIVAETrainState, learning_rate
 from sivae_torch.utils.dtypes import widen
+from sivae_torch.utils.trace import span
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -169,15 +176,25 @@ def _reparam(mu: torch.Tensor, logvar: torch.Tensor, val_eps: Optional[float],
     return widen(mu) + eps * std
 
 
-def _update(opt: torch.optim.Adam, loss: torch.Tensor, lr: float) -> None:
+# the spans of an update's backward and of its averaging and Adam step
+PHASE_E_SPANS = ("phase_e.backward", "phase_e.update")
+PHASE_D_SPANS = ("phase_d.backward", "phase_d.update")
+PLAIN_SPANS = ("plain.backward", "plain.update")
+
+
+def _update(opt: torch.optim.Adam, loss: torch.Tensor, lr: float,
+            spans: Tuple[str, str]) -> None:
     """One Adam update from `loss` at rate `lr`; under data parallelism the
-    gradients are averaged over the ranks between the backward and the step."""
-    opt.zero_grad(set_to_none=True)
-    loss.backward()
-    average_gradients(p for group in opt.param_groups for p in group["params"])
-    for group in opt.param_groups:
-        group["lr"] = lr
-    opt.step()
+    gradients are averaged over the ranks between the backward and the step.
+    The backward and the rest are the two spans `spans` names."""
+    with span(spans[0]):
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+    with span(spans[1]):
+        average_gradients(p for group in opt.param_groups for p in group["params"])
+        for group in opt.param_groups:
+            group["lr"] = lr
+        opt.step()
 
 
 def _elbo_recon(dp: bool):
@@ -274,37 +291,38 @@ def make_soft_intro_train_step(
 
         # ============ Phase E: update encoder ============ (my_trainer.py:241-288)
         def phase_e():
-            model.decoder.requires_grad_(False)
-            s_fake = drop_gen.get_state() if share else None
-            fake = decode(noise)
-            real_mu, real_logvar = encode(real)
-            z = reparam(real_mu, real_logvar)
-            s_rec = drop_gen.get_state() if share else None
-            rec = decode(z)
+            with span("phase_e.forward"):
+                model.decoder.requires_grad_(False)
+                s_fake = drop_gen.get_state() if share else None
+                fake = decode(noise)
+                real_mu, real_logvar = encode(real)
+                z = reparam(real_mu, real_logvar)
+                s_rec = drop_gen.get_state() if share else None
+                rec = decode(z)
 
-            loss_rec = recon(real, rec, reduction="mean")
-            kl_real = kl(real_logvar, real_mu, "mean")
+                loss_rec = recon(real, rec, reduction="mean")
+                kl_real = kl(real_logvar, real_mu, "mean")
 
-            # model.forward(rec.detach()) / model.forward(fake.detach())
-            rec_mu, rec_logvar = encode(rec.detach())
-            rec_rec = decode(reparam(rec_mu, rec_logvar))
-            fake_mu, fake_logvar = encode(fake.detach())
-            rec_fake = decode(reparam(fake_mu, fake_logvar))
+                # model.forward(rec.detach()) / model.forward(fake.detach())
+                rec_mu, rec_logvar = encode(rec.detach())
+                rec_rec = decode(reparam(rec_mu, rec_logvar))
+                fake_mu, fake_logvar = encode(fake.detach())
+                rec_fake = decode(reparam(fake_mu, fake_logvar))
 
-            # dp_semantics: the DP reconstruction loss ignores `reduction`, so
-            # the expELBO recon terms are batch-mean scalars there, of the
-            # global batch: they go inside exp
-            loss_fake_rec = elbo_recon(fake, rec_fake)
-            # the target `rec` is NOT detached here (my_trainer.py:275)
-            loss_rec_rec = elbo_recon(rec, rec_rec)
-            loss_e, e_fake, e_rec = soft_intro_encoder_loss(
-                loss_rec=loss_rec, kl_real=kl_real, loss_fake_rec=loss_fake_rec,
-                loss_rec_rec=loss_rec_rec, fake_kl=kl(fake_logvar, fake_mu, "none"),
-                rec_kl=kl(rec_logvar, rec_mu, "none"), scale=scale, beta_rec=loss_cfg.beta_rec,
-                beta_neg=loss_cfg.beta_neg, beta_kl=loss_cfg.beta_kl,
-                exp_elbo_weight=loss_cfg.exp_elbo_weight,
-                loss_multiplier=loss_cfg.loss_multiplier)
-            _update(state.opt_e, loss_e, lr)
+                # dp_semantics: the DP reconstruction loss ignores `reduction`, so
+                # the expELBO recon terms are batch-mean scalars there, of the
+                # global batch: they go inside exp
+                loss_fake_rec = elbo_recon(fake, rec_fake)
+                # the target `rec` is NOT detached here (my_trainer.py:275)
+                loss_rec_rec = elbo_recon(rec, rec_rec)
+                loss_e, e_fake, e_rec = soft_intro_encoder_loss(
+                    loss_rec=loss_rec, kl_real=kl_real, loss_fake_rec=loss_fake_rec,
+                    loss_rec_rec=loss_rec_rec, fake_kl=kl(fake_logvar, fake_mu, "none"),
+                    rec_kl=kl(rec_logvar, rec_mu, "none"), scale=scale, beta_rec=loss_cfg.beta_rec,
+                    beta_neg=loss_cfg.beta_neg, beta_kl=loss_cfg.beta_kl,
+                    exp_elbo_weight=loss_cfg.exp_elbo_weight,
+                    loss_multiplier=loss_cfg.loss_multiplier)
+            _update(state.opt_e, loss_e, lr, PHASE_E_SPANS)
             model.decoder.requires_grad_(True)
             aux = {"lossE": loss_e, "kl_real": kl_real, "exp_elbo_fake": e_fake,
                    "exp_elbo_rec": e_rec}
@@ -314,55 +332,58 @@ def make_soft_intro_train_step(
         # with the freshly updated encoder, as optimizer_e.step() precedes the
         # decoder graph in the reference
         def phase_d(z, s_fake, s_rec):
-            model.encoder.requires_grad_(False)
-            fake = replayed_decode(noise, s_fake)
-            rec = replayed_decode(z, s_rec)
-            # dp_semantics: the DP trainer detaches rec here, so its decoder
-            # gets no reconstruction gradient from this term
-            loss_rec = recon(real, rec.detach() if dp else rec, reduction="mean")
+            with span("phase_d.forward"):
+                model.encoder.requires_grad_(False)
+                fake = replayed_decode(noise, s_fake)
+                rec = replayed_decode(z, s_rec)
+                # dp_semantics: the DP trainer detaches rec here, so its decoder
+                # gets no reconstruction gradient from this term
+                loss_rec = recon(real, rec.detach() if dp else rec, reduction="mean")
 
-            rec_mu, rec_logvar = encode(rec)
-            z_rec = reparam(rec_mu, rec_logvar)
-            fake_mu, fake_logvar = encode(fake)
-            z_fake = reparam(fake_mu, fake_logvar)
-            # dp_semantics: the DP trainer does not detach z_rec / z_fake
-            # before the re-decode, unlike my_trainer.py:310-311
-            rec_rec = decode(z_rec if dp else z_rec.detach())
-            rec_fake = decode(z_fake if dp else z_fake.detach())
+                rec_mu, rec_logvar = encode(rec)
+                z_rec = reparam(rec_mu, rec_logvar)
+                fake_mu, fake_logvar = encode(fake)
+                z_fake = reparam(fake_mu, fake_logvar)
+                # dp_semantics: the DP trainer does not detach z_rec / z_fake
+                # before the re-decode, unlike my_trainer.py:310-311
+                rec_rec = decode(z_rec if dp else z_rec.detach())
+                rec_fake = decode(z_fake if dp else z_fake.detach())
 
-            rec_kl = kl(rec_logvar, rec_mu, "mean")
-            fake_kl = kl(fake_logvar, fake_mu, "mean")
-            loss_d = soft_intro_decoder_loss(
-                loss_rec=loss_rec, rec_kl=rec_kl, fake_kl=fake_kl,
-                loss_rec_rec=recon(rec.detach(), rec_rec, reduction="mean"),
-                loss_fake_rec=recon(fake.detach(), rec_fake, reduction="mean"),
-                scale=scale, beta_rec=loss_cfg.beta_rec, beta_kl=loss_cfg.beta_kl,
-                gamma_r=loss_cfg.gamma_r, loss_multiplier=loss_cfg.loss_multiplier)
-            _update(state.opt_d, loss_d, lr)
+                rec_kl = kl(rec_logvar, rec_mu, "mean")
+                fake_kl = kl(fake_logvar, fake_mu, "mean")
+                loss_d = soft_intro_decoder_loss(
+                    loss_rec=loss_rec, rec_kl=rec_kl, fake_kl=fake_kl,
+                    loss_rec_rec=recon(rec.detach(), rec_rec, reduction="mean"),
+                    loss_fake_rec=recon(fake.detach(), rec_fake, reduction="mean"),
+                    scale=scale, beta_rec=loss_cfg.beta_rec, beta_kl=loss_cfg.beta_kl,
+                    gamma_r=loss_cfg.gamma_r, loss_multiplier=loss_cfg.loss_multiplier)
+            _update(state.opt_d, loss_d, lr, PHASE_D_SPANS)
             model.encoder.requires_grad_(True)
             aux = {"lossD": loss_d, "loss_rec": loss_rec, "rec_kl": rec_kl, "fake_kl": fake_kl}
             return {k: v.detach() for k, v in aux.items()}
 
-        model.train()
-        _set_generator(enc_drops + dec_drops, drop_gen)
-        try:
-            noise = _noise_batch(b, model.cfg.latent_shape, dev, zero_noise, fixed_noise, gen)
-            aux_e, z, s_fake, s_rec = phase_e()
-            aux_d = phase_d(z, s_fake, s_rec)
-        finally:
-            _set_generator(enc_drops + dec_drops, None)
-            model.requires_grad_(True)
-            model.eval()
-        state.step += 1
-        metrics = {
-            "lossE": aux_e["lossE"], "lossD": aux_d["lossD"], "loss_rec": aux_d["loss_rec"],
-            "kl_real": aux_e["kl_real"], "rec_kl": aux_d["rec_kl"], "fake_kl": aux_d["fake_kl"],
-            "exp_elbo_fake": aux_e["exp_elbo_fake"], "exp_elbo_rec": aux_e["exp_elbo_rec"],
-            "diff_kl": aux_d["fake_kl"] - aux_e["kl_real"],
-            # the reference's NaN guard (my_trainer.py:327-328), for the host
-            # to read when it chooses to
-            "nan": torch.isnan(aux_e["lossE"]) | torch.isnan(aux_d["lossD"]),
-        }
+        with span("step"):
+            model.train()
+            _set_generator(enc_drops + dec_drops, drop_gen)
+            try:
+                noise = _noise_batch(b, model.cfg.latent_shape, dev, zero_noise, fixed_noise,
+                                     gen)
+                aux_e, z, s_fake, s_rec = phase_e()
+                aux_d = phase_d(z, s_fake, s_rec)
+            finally:
+                _set_generator(enc_drops + dec_drops, None)
+                model.requires_grad_(True)
+                model.eval()
+            state.step += 1
+            metrics = {
+                "lossE": aux_e["lossE"], "lossD": aux_d["lossD"], "loss_rec": aux_d["loss_rec"],
+                "kl_real": aux_e["kl_real"], "rec_kl": aux_d["rec_kl"], "fake_kl": aux_d["fake_kl"],
+                "exp_elbo_fake": aux_e["exp_elbo_fake"], "exp_elbo_rec": aux_e["exp_elbo_rec"],
+                "diff_kl": aux_d["fake_kl"] - aux_e["kl_real"],
+                # the reference's NaN guard (my_trainer.py:327-328), for the host
+                # to read when it chooses to
+                "nan": torch.isnan(aux_e["lossE"]) | torch.isnan(aux_d["lossD"]),
+            }
         return state, metrics
 
     return train_step
@@ -472,7 +493,8 @@ def _plain_update(state: SIVAETrainState, model: torch.nn.Module, optim_cfg: Opt
     _set_generator(drops, gen if world_size() == 1 else rank_generator(gen, state.step))
     try:
         loss, aux = loss_fn()
-        _update(state.opt_e, loss, learning_rate(optim_cfg, steps_per_epoch, state.step))
+        _update(state.opt_e, loss, learning_rate(optim_cfg, steps_per_epoch, state.step),
+                PLAIN_SPANS)
     finally:
         _set_generator(drops, None)
         model.eval()

@@ -194,6 +194,7 @@ def fit_case(run_dir):
     from sivae_torch.data.pipeline import BrainDataSource, DataPipeline
     from sivae_torch.data.synthetic import SyntheticBrainSource
     from sivae_torch.models.registry import make_model
+    from sivae_torch.parallel.distributed import barrier
     from sivae_torch.parallel.mesh import state_digest
     from sivae_torch.train.loop import SoftIntroTrainer
 
@@ -221,6 +222,8 @@ def fit_case(run_dir):
         with open(os.path.join(run_dir, name)) as f:
             files[name] = f.read()
     files["ckpt"] = sorted(os.listdir(os.path.join(run_dir, "ckpt")))
+    # every rank has read the files before rank 0's new trainer rewrites the CSV
+    barrier()
     again = trainer()
     resumed = again.try_resume()
     return {"history": hist, "files": files, "digest_end": state_digest(t.state).hex(),
