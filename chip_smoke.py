@@ -44,6 +44,22 @@ failure exits non-zero and prints no result):
    version takes the same bf16 inputs and accumulates in fp32); plane sums
    1e-3 * max(1, max|plain sum|) (fp32 sums of H*W rounded values in another
    order, a few of which differ by one rounding).
+3b. Train-mode BatchNorm + LeakyReLU 0.2 (phase `bn`, `kernels/batchnorm.py`,
+   `csrc/batchnorm.cu`) at the train cells' full-resolution sites, bf16:
+   64 channels at 80x96x80 batch 8 and 12 channels at 80x96x80 batch 32.
+   The kernels' forward (y, mean, var) and backward (dx, dweight, dbias)
+   against the plain version (the ATen passes the port ran before them) on
+   the card, with `tests/test_torch_cuda.py`'s tolerances: mean and var
+   within 1e-5 of max(1, their largest), dweight and dbias within 1e-4, the
+   tie factor equal, and each element of y within one bf16 ulp (of y / 0.2
+   times 0.2, plus one of y, below 0) and of dx within one ulp, each plus
+   1e-5 of max(1, the tensor's largest magnitude); each kernel's
+   device time (torch.profiler, finalize kernels apart) against its bytes
+   bound at 3.35 TB/s (`bn_stats` 1x the tensor, `bn_apply` 2x,
+   `bn_bwd_reduce` 2x, `bn_bwd_apply` 3x) and its share of it; the
+   forward and backward in the kernels, in the plain version and in
+   PyTorch's own `batch_norm` + `leaky_relu` (a yardstick: cuDNN's
+   BatchNorm, which the port never calls), timed with CUDA events.
 4. Gradients: each of the four differentiable wrappers (`conv3d_same`,
    `conv3d_to1`, `conv3d_from1`, `conv3d_stats`) at 64 channels, 80x96x80,
    batch 2: dx and dw on the card against fp32 autograd through the plain
@@ -92,7 +108,10 @@ failure exits non-zero and prints no result):
    fp32 parameters, dropout on, default loss config, the first 8 synthetic
    volumes. One warm-up step; one step with the counters at 0 (155
    conv3d_same, 10 conv3d_to1, 12 conv3d_from1 launches expected, forward
-   and backward together; conv3d_same's are also printed by site); 5 timed
+   and backward together; conv3d_same's are also printed by site; as many
+   `bn_apply` launches as train-mode BN calls, which forward hooks count,
+   and the BN kernels' launches, sites and layout copies printed; phase 9
+   checks the same for its FC steps); 5 timed
    steps (median, min, max s/step, vol/s);
    the last step's metrics must be finite and `nan` unset; encoder and
    decoder parameters and both halves' BN running statistics must have
@@ -167,15 +186,19 @@ failure exits non-zero and prints no result):
    dropout, global batch 4 of phase 5's volumes (2 a rank), the fixed
    numpy noise batch of seed 11, `zero_noise` (as phase 7's card-vs-CPU
    step) and a learning rate of 0 (`ddp_equality_step` says why); the same
-   step in one process on the card first, and once more with the batch's
-   rows reversed (the same step in exact arithmetic). The mean of the
-   ranks' lossE / lossD within 1e-4 relative of one process's, every first
-   moment within 1e-3 of its tensor's max|m| or within twice the reversed
-   batch's difference (fp32's sum order alone moves the weight gradients
-   of convs in front of a BN by up to ~6e-3 at this width), the 3 whose
-   exact gradient is 0 below 1e-2 of the largest moment, BN running
-   statistics within 1e-5 of the largest running statistic, the ranks'
-   state digests equal.
+   step in one process on the card first, once more with the batch's rows
+   reversed (the same step in exact arithmetic), and once in float64 with
+   every conv by cuDNN and every BN by its plain version (the yardstick).
+   Phase 12's rule (`_compare_depth`): the mean of the ranks' lossE /
+   lossD within 1e-4 relative of one process's; each first moment of the
+   ranks at most twice as far from the float64 one as the farther of one
+   process's two fp32 steps, plus 1e-4 of the tensor's largest and 1e-6 of
+   the largest moment (fp32's sum order alone moves the weight gradients of
+   convs in front of a BN by up to ~6e-3 of their largest at this width);
+   the exactly-zero gradients below 1e-4 of the largest moment; the rule
+   must refuse twice and minus the ranks' moments; BN running statistics
+   within 1e-5 of the largest running statistic, the ranks' state digests
+   equal.
    (b) The bf16 flagship under data parallelism: spatial_1200, dropout on,
    2 ranks x 4 = global 8; a warm-up step, one step with the counters at 0
    on each rank (its launches must equal phase 7's 155 / 10 / 12; the
@@ -202,7 +225,9 @@ failure exits non-zero and prints no result):
    from the model), 3 timed steps (median, min, max s/step), peak memory
    against the card's, finite metrics. Its launches and the ranks' counted
    ones enter the kernel record as `launches_by_path.fullsize` and
-   `ddp_ranks`.
+   `ddp_ranks`. In (b), (c) and (d) the counted step (the fit in (c)) must
+   launch `bn_apply` once a train-mode BN call, as in phase 7, on each
+   rank; phases 11 and 12 check the same of every counted step.
 
 11. Rematerialisation (`sivae_torch/models/remat.py`), bf16, dropout on
    where the family has it:
@@ -235,7 +260,8 @@ failure exits non-zero and prints no result):
    TF32 off, no dropout, global batch 2 (2 synthetic volumes of seed 7), the
    fixed noise batch of seed 11, `zero_noise`, lr 0 (phase 10 (a) says
    why): one process's step on the card, the same on the reversed batch,
-   the same in float64 with every conv by cuDNN in float64 (the yardstick),
+   the same in float64 with every conv by cuDNN and every BN by its plain
+   version in float64 (the yardstick),
    then a 1 x 2 grid (slabs of 80 planes). Losses within 1e-4 relative of
    one process's, BN running statistics within 1e-5 of the largest, first
    moments by step 0's rule (`_compare_depth`: the grid's distance from the
@@ -282,7 +308,7 @@ failure exits non-zero and prints no result):
    ranks on a card each, joined by NCCL (the halo planes card to card); it
    ends with `{"ok": false, "partial": ["depth-cards"]}`.
 
-`--only kernels,grad,path,stage,train,trainer,families,ddp,remat,depth` runs a
+`--only kernels,bn,grad,path,stage,train,trainer,families,ddp,remat,depth` runs a
 subset while working on one phase; it ends with `{"ok": false, "partial":
 ...}`, never with the result.
 
@@ -294,6 +320,7 @@ of each kernel under "rows"); the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import functools
@@ -396,8 +423,18 @@ SOURCES = {
 # (8 conv3d_same + 1 conv3d_from1 each) and 6 decodes (5 conv3d_same + 1
 # conv3d_to1 each)
 VAL_LAUNCHES = {"conv3d_same": 54, "conv3d_to1": 6, "conv3d_from1": 3, "conv3d_fused_stats": 0}
-PHASES = ("kernels", "grad", "path", "stage", "train", "trainer", "families", "ddp", "remat",
-          "depth")
+PHASES = ("kernels", "bn", "grad", "path", "stage", "train", "trainer", "families", "ddp",
+          "remat", "depth")
+# train-mode BatchNorm (batch, C, grid), bf16: the z1200 and z600 train cells'
+# full-resolution sites
+BN_SITES = [(8, 64, (80, 96, 80)), (32, 12, (80, 96, 80))]
+BN_KERNELS = ("bn_stats", "bn_finalize", "bn_apply", "bn_bwd_reduce", "bn_bwd_finalize",
+              "bn_bwd_apply")
+# bytes each BN kernel must move, in units of the tensor's bytes
+BN_BYTES = {"bn_stats": 1, "bn_apply": 2, "bn_bwd_reduce": 2, "bn_bwd_apply": 3}
+# BN kernel launches and train-mode BN calls of the counted paths, by path
+# (phases train, families, ddp, remat and depth; `bn_engagement`)
+BN_BY_PATH: dict = {}
 
 
 def log(msg: str) -> None:
@@ -671,6 +708,182 @@ def phase_kernels(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 
+class BnCalls:
+    """Train-mode BatchNorm forwards on CUDA tensors while the block runs,
+    counted as they begin by a forward pre-hook on every module (`BatchNorm`
+    and `FeatureBatchNorm` ones count; remat reruns included, also those
+    that torch's checkpoint stops inside the BN once it has recomputed what
+    the backward needs, after the kernels ran): the denominator of the BN
+    kernels' engagement share. Set the counters to 0 before the block;
+    `record()` then gives the kernels' launches beside the calls."""
+
+    def __init__(self):
+        from sivae_torch.models.blocks import BatchNorm
+
+        self.kind, self.n, self.handle = BatchNorm, 0, None
+
+    def _hook(self, module, inputs):
+        if isinstance(module, self.kind) and module.training and inputs[0].is_cuda:
+            self.n += 1
+
+    def __enter__(self):
+        self.handle = torch.nn.modules.module.register_module_forward_pre_hook(self._hook)
+        return self
+
+    def __exit__(self, *exc):
+        self.handle.remove()
+
+    def record(self) -> dict:
+        """The BN kernels' launches since the counters were set to 0, the
+        calls, the layout copies and the sites."""
+        from sivae_torch.kernels import build
+
+        return {**{k: build.launches[k] for k in BN_KERNELS}, "calls": self.n,
+                "layout_copies": build.bn_layout_copies, "sites": dict(build.bn_sites)}
+
+
+def bn_engagement(tag: str, records: list) -> dict:
+    """Log each `BnCalls.record()` of a path (one a rank or a run) and fail
+    unless every train-mode BN call went through the kernels (`bn_apply`
+    launches equal to the calls); the records summed, sites left out."""
+    total = {}
+    for i, rec in enumerate(records):
+        who = tag if len(records) == 1 else f"{tag} #{i}"
+        bn = {k: rec[k] for k in BN_KERNELS}
+        log(f"[{who}] BatchNorm: {rec['calls']} train-mode calls on the card, kernels {bn} "
+            f"(engagement {100.0 * bn['bn_apply'] / max(rec['calls'], 1):.1f}%), layout copies "
+            f"{rec['layout_copies']}; sites {json.dumps(rec['sites'])}")
+        if rec["calls"] == 0 or bn["bn_apply"] != rec["calls"]:
+            raise SystemExit(f"chip_smoke: {who}: {bn['bn_apply']} bn_apply launches for "
+                             f"{rec['calls']} train-mode BatchNorm calls")
+        total = _add_counts(total, {k: v for k, v in rec.items() if k != "sites"})
+    return total
+
+
+def _bn_kernel_ms(fn, reps: int) -> dict:
+    """Device ms a call of each `sivae::bn_*` kernel over `reps` calls of fn
+    (torch.profiler), keyed by kernel; {} where the profiler saw no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.self_device_time_total <= 0:
+            continue
+        for k in BN_KERNELS:
+            if f"::{k}_" in e.key or f"::{k}<" in e.key or f"::{k}(" in e.key:
+                out[k] = out.get(k, 0.0) + e.self_device_time_total / 1e3 / reps
+    return out
+
+
+def _bf16_ulp(v: torch.Tensor) -> torch.Tensor:
+    """One bf16 unit in the last place at |v| (8 significand bits)."""
+    return torch.exp2(torch.floor(torch.log2(v.abs().clamp_min(2.0 ** -126))) - 7)
+
+
+def phase_bn(dev) -> dict:
+    """Phase 3b: the BN kernels against the plain version and their bytes
+    bounds at the train cells' sites."""
+    from sivae_torch.kernels import build
+    from sivae_torch.kernels.batchnorm import (batchnorm_train, batchnorm_train_backward,
+                                               batchnorm_train_backward_plain,
+                                               batchnorm_train_plain)
+
+    reps, rows = 20, []
+    build.reset_launches()
+    for batch, c, sp in BN_SITES:
+        dtype = torch.bfloat16
+        gen = torch.Generator(device=dev).manual_seed(31)
+        shape = (batch, c) + tuple(sp)
+        x = (torch.randn(shape, generator=gen, device=dev) * 1.5 + 0.3).to(dtype)
+        x = x.contiguous(memory_format=torch.channels_last_3d)
+        g = torch.randn(shape, generator=gen, device=dev).to(dtype).contiguous(
+            memory_format=torch.channels_last_3d)
+        w = 1.0 + 0.1 * torch.randn(c, generator=gen, device=dev)
+        b = 0.1 * torch.randn(c, generator=gen, device=dev)
+        site = f"{c}@{grid_name(sp)} b{batch} bf16"
+        fwd = functools.partial(batchnorm_train, x, w, b, 1e-5, 0.2, dtype)
+        y, mean, var, rstd, k, n, xs = fwd()
+        bwd = functools.partial(batchnorm_train_backward, g, xs, w, b, mean, rstd, k, n, 0.2,
+                                True)
+        dx, dw, db = bwd()
+        pfwd = functools.partial(batchnorm_train_plain, x, w, b, 1e-5, 0.2, dtype)
+        yp, mp, vp, _, kp, _, _ = pfwd()
+        # the kernels' statistics: both then take the same activation branch everywhere
+        pbwd = functools.partial(batchnorm_train_backward_plain, g, x, w, b, mean, rstd, k, n,
+                                 0.2, True)
+        dxp, dwp, dbp = pbwd()
+        torch.cuda.synchronize()
+        errs = {"mean": _compare(mean, mp, 1e-5), "var": _compare(var, vp, 1e-5),
+                "dweight": _compare(dw, dwp, 1e-4), "dbias": _compare(db, dbp, 1e-4)}
+        # y and dx element by element, as test_bn_kernels_match_plain_at_the_sites
+        yw, dxw = yp.float(), dxp.float()
+        y_gap = ((y.float() - yw).abs() / _bf16_ulp(yw)).max().item()
+        y_tol = torch.where(yw > 0, _bf16_ulp(yw), 0.2 * _bf16_ulp(yw / 0.2) + _bf16_ulp(yw))
+        y_out = int(((y.float() - yw).abs() > y_tol + 1e-5 * max(
+            1.0, yw.abs().max().item())).sum().item())
+        dx_tol = _bf16_ulp(dxw) + 1e-5 * max(1.0, dxw.abs().max().item())
+        dx_out = int(((dx.float() - dxw).abs() > dx_tol).sum().item())
+        dx_gap = ((dx.float() - dxw).abs() / _bf16_ulp(dxw)).max().item()
+        log(f"[bn] {site}: mean {errs['mean'][1]:.2e}, var {errs['var'][1]:.2e}, dweight "
+            f"{errs['dweight'][1]:.2e}, dbias {errs['dbias'][1]:.2e} (rel. to max(1, max|plain|)); "
+            f"y within {y_gap:.2f} bf16 ulps of the plain version's, {y_out} elements outside "
+            f"its bound; dx within {dx_gap:.2f} ulps, {dx_out} outside its bound")
+        if (not all(e[2] for e in errs.values()) or y_out or dx_out
+                or not torch.equal(k, kp)):
+            raise SystemExit(f"chip_smoke: BN kernels vs plain at {site}: {errs}, y {y_out} and "
+                             f"dx {dx_out} elements outside their bounds")
+        del yp, dxp, yw, dxw, y_tol, dx_tol
+
+        def both():
+            out = fwd()
+            batchnorm_train_backward(g, out[6], w, b, out[1], out[3], out[4], out[5], 0.2, True)
+
+        per_kernel = _bn_kernel_ms(both, reps)
+        tensor_bytes = x.numel() * x.element_size()
+        k_fwd, k_bwd = time_ms(fwd, reps), time_ms(bwd, reps)
+        p_fwd = time_ms(pfwd, 5)
+        p_bwd = time_ms(pbwd, 5)
+        xl = x.detach().requires_grad_()
+        wl, bl = w.clone().requires_grad_(), b.clone().requires_grad_()
+
+        def lib_fwd():
+            return F.leaky_relu(F.batch_norm(xl, None, None, wl, bl, True, 0.1, 1e-5), 0.2)
+
+        ylib = lib_fwd()
+        l_fwd = time_ms(lib_fwd, 5)
+        l_bwd = time_ms(lambda: torch.autograd.grad(ylib, (xl, wl, bl), g, retain_graph=True),
+                        5)
+        kernels = {}
+        for kname, mult in BN_BYTES.items():
+            ms = per_kernel.get(kname)
+            bound_ms = mult * tensor_bytes / PEAK_BYTES * 1e3
+            kernels[kname] = {"ms": ms, "bound_ms": bound_ms,
+                              "share": None if ms is None else bound_ms / ms}
+            log(f"[bn] {site} {kname}: "
+                + ("not measured" if ms is None else f"{ms:.4f} ms")
+                + f", bound {bound_ms:.4f} ms ({mult}x {tensor_bytes / 1e6:.1f} MB at 3.35 TB/s)"
+                + ("" if ms is None else f", {100 * bound_ms / ms:.1f}% of it"))
+        fin = sum(per_kernel.get(k, 0.0) for k in ("bn_finalize", "bn_bwd_finalize"))
+        log(f"[bn] {site}: finalize kernels {fin:.4f} ms; forward kernels {k_fwd:.4f} ms, plain "
+            f"{p_fwd:.4f} ms, library {l_fwd:.4f} ms; backward kernels {k_bwd:.4f} ms, plain "
+            f"{p_bwd:.4f} ms, library {l_bwd:.4f} ms")
+        rows.append({"site": site, "kernels": kernels, "fwd_ms": k_fwd, "bwd_ms": k_bwd,
+                     "plain_fwd_ms": p_fwd, "plain_bwd_ms": p_bwd, "library_fwd_ms": l_fwd,
+                     "library_bwd_ms": l_bwd, "y_ulps": y_gap, "dx_ulps": dx_gap, "errors": {
+                         key: e[1] for key, e in errs.items()}})
+        del x, g, y, dx, xl, ylib
+        torch.cuda.empty_cache()
+    build.reset_launches()
+    return {"rows": rows}
+
+
 def phase_gradients(dev) -> None:
     from sivae_torch.kernels import build
     from sivae_torch.kernels.conv3d import conv3d_same, conv3d_same_plain
@@ -773,11 +986,11 @@ def eval_path(dev, model, vox, labels, vid, tid, tag: str) -> dict:
     build.reset_launches()
     z = encode_dataset(model, vox, batch_size=batch)
     torch.cuda.synchronize()
-    enc_counts = dict(build.launches)
+    enc_counts = build.conv_launches()
     p_at_k = retrieval_precision_at_k(z[vid], labels[vid], z[tid], labels[tid], k=10, device=dev)
     report = reconstruction_report(model, vox, batch_size=batch)
     torch.cuda.synchronize()
-    counts = dict(build.launches)
+    counts = build.conv_launches()
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     rec_counts = {k: counts[k] - enc_counts[k] for k in counts}
     bodies = site_bodies(dev)
@@ -1115,7 +1328,7 @@ def _stage(dev, dtype) -> dict:
     y, mean, var = fused_stage()
     dx, dw = fused_grad()
     torch.cuda.synchronize()
-    counts = dict(build.launches)
+    counts = build.conv_launches()
     want = {"conv3d_same": 0, "conv3d_to1": 0, "conv3d_from1": 0, "conv3d_fused_stats": 3}
     if counts != want:
         raise SystemExit(f"chip_smoke: {dtype_name(dtype)} stage launches {counts}, "
@@ -1188,9 +1401,11 @@ def phase_train(dev, real) -> dict:
     log(f"[train] warm-up step {time.perf_counter() - t0:.2f} s")
 
     build.reset_launches()
-    step(state, real)
-    torch.cuda.synchronize()
-    counts = dict(build.launches)
+    with BnCalls() as bn_calls:
+        step(state, real)
+        torch.cuda.synchronize()
+    counts = build.conv_launches()
+    BN_BY_PATH["train_step"] = bn_engagement("train", [bn_calls.record()])
     log(f"[train] launches in one step {counts}")
     log(f"[train] conv3d_same launches by site {json.dumps(build.conv3d_same_sites)}")
     if counts != TRAIN_LAUNCHES:
@@ -1249,8 +1464,10 @@ class KinkReplay:
     11) moved Adam's first moments by up to 6.5e-3 of a tensor's largest.
     Each element whose branch the CPU's own input would flip is counted and
     must be such a tie: the two inputs within 1e-4 of the tensor's largest
-    (the forward tolerance). The BN + activation backward derives its own
-    mask, which the replay does not reach."""
+    (the forward tolerance). The BatchNorm's own activation is not replayed:
+    on the card its kernels apply it, and on the CPU the plain version's
+    `act` runs unrecorded; its backward derives its own mask from the
+    pre-activation, which no replay reached either."""
 
     def __init__(self):
         self.record, self.calls, self.at, self.flips, self.gap = True, [], 0, 0, 0.0
@@ -1270,15 +1487,21 @@ class KinkReplay:
         return torch.where(mask, x, x * slope)
 
     def __enter__(self):
-        self._orig = F.relu, F.leaky_relu
-        relu, leaky = self._orig
+        from sivae_torch.kernels import batchnorm
+
+        self._orig = F.relu, F.leaky_relu, batchnorm.act
+        relu, leaky, _ = self._orig
         F.relu = lambda x, inplace=False: self._act(x, 0.0, relu, inplace)
         F.leaky_relu = lambda x, negative_slope=0.01, inplace=False: self._act(
             x, negative_slope, leaky, negative_slope, inplace)
+        batchnorm.act = lambda y, slope: (y if slope is None else relu(y) if slope == 0.0
+                                          else leaky(y, slope))
         return self
 
     def __exit__(self, *exc):
-        F.relu, F.leaky_relu = self._orig
+        from sivae_torch.kernels import batchnorm
+
+        F.relu, F.leaky_relu, batchnorm.act = self._orig
         self.record = False
 
 
@@ -1317,7 +1540,7 @@ def card_vs_cpu_step(dev, cfg, max_floored: int) -> None:
         names = {p: k for k, p in m_t.named_parameters()}
         moments = {names[p]: s["exp_avg"].detach().cpu()
                    for opt in (s_t.opt_e, s_t.opt_d) for p, s in opt.state.items()}
-        done[where.type] = (_metrics_line(met), moments, dict(build.launches))
+        done[where.type] = (_metrics_line(met), moments, build.conv_launches())
     (m_k, mom_k, n_k), (m_p, mom_p, n_p) = done["cuda"], done["cpu"]
     if n_k["conv3d_same"] == 0 or any(n_p.values()):
         raise SystemExit(f"chip_smoke: fp32 step launches card {n_k} CPU {n_p}")
@@ -1418,7 +1641,7 @@ def phase_trainer(dev) -> dict:
     trainer = cli_train.train_on_split(args, train_src, val_src)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    counts = dict(build.launches)
+    counts = build.conv_launches()
     want = {k: 4 * TRAIN_LAUNCHES[k] + 2 * VAL_LAUNCHES[k] for k in TRAIN_LAUNCHES}
     log(f"[trainer] fit of 2 epochs {fit_s:.2f} s; launches {counts} (expected {want})")
     if counts != want:
@@ -1547,7 +1770,7 @@ def run_dir_tool(dev, run_dir: str, val_src, sweep: list, model_cfg) -> None:
     rows, health = posthoc_health(run_dir, val_src, dev, panels=True)
     torch.cuda.synchronize()
     tool_s = time.perf_counter() - t0
-    counts = dict(build.launches)
+    counts = build.conv_launches()
     model = make_model(model_cfg, device=dev)
     e, d = conv_sites(model.encoder), conv_sites(model.decoder)
     n_batches = -(-len(val_src) // 8)
@@ -1736,7 +1959,7 @@ def fc_forward_check(dev, real) -> None:
           and rec16.shape == real.shape and bool(torch.isfinite(rec16).all()))
     log(f"[families] fc_150 forward, eval, {real.shape[0]} volumes: bf16 vs fp32 on the card, "
         f"mu rel {e_mu:.3e}, reconstruction rel {e_rec:.3e} (limit {TOL_FC_FORWARD}); bf16 "
-        f"launches {dict(build.launches)}; bodies {json.dumps(bodies)} "
+        f"launches {build.conv_launches()}; bodies {json.dumps(bodies)} "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("chip_smoke: fc_150 bf16 forward disagrees with its fp32 forward")
@@ -1788,9 +2011,11 @@ def phase_families(dev, real) -> dict:
         torch.cuda.synchronize()
         log(f"[families] {preset} warm-up step {time.perf_counter() - t0:.2f} s")
         build.reset_launches()
-        step(state, real)
-        torch.cuda.synchronize()
-        counts, bodies = dict(build.launches), site_bodies(dev)
+        with BnCalls() as bn_calls:
+            step(state, real)
+            torch.cuda.synchronize()
+        counts, bodies = build.conv_launches(), site_bodies(dev)
+        BN_BY_PATH[preset] = bn_engagement(f"families {preset}", [bn_calls.record()])
         log(f"[families] {preset} launches in one step {counts} (expected {want}); conv3d_same "
             f"by site {json.dumps(build.conv3d_same_sites)}; bodies {json.dumps(bodies)}")
         if counts != want:
@@ -1862,7 +2087,7 @@ def phase_families(dev, real) -> dict:
         trainer = cli_train.train_on_split(args, train_src, val_src)
         torch.cuda.synchronize()
         epoch_s = time.perf_counter() - t0
-        counts, bodies = dict(build.launches), site_bodies(dev)
+        counts, bodies = build.conv_launches(), site_bodies(dev)
         files = ["args.json", "train_result.csv", "metrics.jsonl", os.path.join("ckpt", "0.pth")]
         if preset == "vae2soft":
             files += [os.path.join("vae_stage", "train_losses.txt"),
@@ -1899,7 +2124,7 @@ def phase_families(dev, real) -> dict:
     losses = [float(step(state, vox, lab)[1]["loss"]) for vox, lab in pipe.epoch(0)]
     preds, labels, acc = predict_all(make_classifier_eval_step(model), state, pipe)
     torch.cuda.synchronize()
-    counts, bodies = dict(build.launches), site_bodies(dev)
+    counts, bodies = build.conv_launches(), site_bodies(dev)
     log(f"[families] classifier spatial_150 bf16 batch 8: losses {losses}, predict_all accuracy "
         f"{acc:.3f} over {len(preds)} volumes; launches {counts} (expected {want}); bodies "
         f"{json.dumps(bodies)}")
@@ -1962,7 +2187,7 @@ def _launcher_free_env() -> dict:
     return {k: v for k, v in os.environ.items() if k not in LAUNCHER_ENV}
 
 
-def ddp_equality_step(dev, reverse: bool = False) -> dict:
+def ddp_equality_step(dev, reverse: bool = False, exact: bool = False) -> dict:
     """Part (a) on this process's rows (all of them in one process): one
     fp32 spatial_1200 step, TF32 off, no dropout, global batch 4 of phase
     5's volumes (seed 7), the fixed numpy noise batch of seed 11,
@@ -1978,9 +2203,11 @@ def ddp_equality_step(dev, reverse: bool = False) -> dict:
     hold the whole gradient of both phases and the running statistics all
     13 forwards. `reverse` takes the batch's rows (volumes and noise) in
     reverse order: the same step in exact arithmetic, its sums in another
-    order. Metrics, first moments and BN running statistics on the CPU, the
-    names of the tensors whose exact gradient is 0, and the state's
-    digest."""
+    order. `exact`: the same step in float64, the same weights, convs by
+    cuDNN and train-mode BatchNorms by their plain version (`_float64_twin`),
+    the yardstick of the fp32 runs. Metrics, first moments and BN running
+    statistics on the CPU in float64, the names of the tensors whose exact
+    gradient is 0, and the state's digest."""
     import numpy as np
 
     from sivae_torch.config import OptimConfig, SoftIntroLossConfig
@@ -1997,16 +2224,19 @@ def ddp_equality_step(dev, reverse: bool = False) -> dict:
     if reverse:
         real, fixed = real.flip(0), np.ascontiguousarray(fixed[::-1])
     model = make_model(cfg, device=dev, seed=0)
+    if exact:
+        model, real = _float64_twin(cfg, model, dev), real.double()
     state = replicate_state(create_train_state(model, seed=0))
     step = make_soft_intro_train_step(model, SoftIntroLossConfig(), OptimConfig(lr=0.0), 1,
                                       cfg.input_shape, zero_noise=True, fixed_noise=fixed)
-    _, metrics = step(state, real)
-    torch.cuda.synchronize()
+    with _library_layers() if exact else contextlib.nullcontext():
+        _, metrics = step(state, real)
+        torch.cuda.synchronize()
     names = {p: k for k, p in model.named_parameters()}
     out = {"metrics": _metrics_line(metrics),
-           "moments": {names[p]: s["exp_avg"].detach().cpu()
+           "moments": {names[p]: s["exp_avg"].detach().double().cpu()
                        for opt in (state.opt_e, state.opt_d) for p, s in opt.state.items()},
-           "stats": {k: v.detach().cpu() for k, v in model.state_dict().items()
+           "stats": {k: v.detach().double().cpu() for k, v in model.state_dict().items()
                      if "running" in k},
            "zero_grad": zero_gradient_tensors(model), "digest": state_digest(state).hex()}
     del state, step, model, real
@@ -2057,9 +2287,11 @@ def ddp_flagship_rank(dev) -> dict:
     torch.cuda.synchronize()
     build.reset_launches()
     reset_collectives()
-    step(state, real)
-    torch.cuda.synchronize()
-    counts, coll = dict(build.launches), {k: list(v) for k, v in collectives.items()}
+    with BnCalls() as calls:
+        step(state, real)
+        torch.cuda.synchronize()
+    counts, coll = build.conv_launches(), {k: list(v) for k, v in collectives.items()}
+    bn = calls.record()
     times = []
     for _ in range(REPEATS):
         torch.cuda.synchronize()
@@ -2076,7 +2308,7 @@ def ddp_flagship_rank(dev) -> dict:
     else:
         step(state, real)
     replicate_state(state)
-    out = {"launches": counts, "collectives": coll, "times": times,
+    out = {"launches": counts, "collectives": coll, "times": times, "bn": bn,
            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
            "metrics": _metrics_line(metrics), "digest": state_digest(state).hex(),
            "batch": real.shape[0]}
@@ -2110,10 +2342,12 @@ def ddp_trainer_rank(dev, run_dir: str) -> dict:
     build.reset_launches()
     reset_collectives()
     t0 = time.perf_counter()
-    trainer = cli_train.train_on_split(args, train_src, val_src)
-    torch.cuda.synchronize()
+    with BnCalls() as calls:
+        trainer = cli_train.train_on_split(args, train_src, val_src)
+        torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    counts, coll = dict(build.launches), {k: list(v) for k, v in collectives.items()}
+    counts, coll = build.conv_launches(), {k: list(v) for k, v in collectives.items()}
+    bn = calls.record()
     files = {}
     for name in ("train_result.csv", "metrics.jsonl"):
         with open(os.path.join(run_dir, name)) as f:
@@ -2125,7 +2359,7 @@ def ddp_trainer_rank(dev, run_dir: str) -> dict:
                              OptimConfig(), trainer.train_cfg, run_dir=run_dir,
                              steps_per_epoch=2)
     resumed = again.try_resume()
-    out = {"launches": counts, "collectives": coll, "fit_s": fit_s, "files": files,
+    out = {"launches": counts, "collectives": coll, "fit_s": fit_s, "files": files, "bn": bn,
            "world_size": args.world_size, "history": hist, "digest_end": end,
            "resumed": resumed, "digest_resumed": state_digest(again.state).hex()}
     del trainer, again
@@ -2203,62 +2437,6 @@ def run_ranks(tag: str, args: list, world: int, out_dir: str, limit_s: float,
             for r in range(world)]
 
 
-def _compare_equality(ref: dict, ctl: dict, ranks: list) -> list:
-    """(a): the mean of the ranks' lossE / lossD within 1e-4 relative of one
-    process's; each first moment within 1e-3 of max|m| of its tensor (one
-    that is exactly 0 in one process exactly 0 in the ranks too), or within
-    twice what one process's step on the reversed batch (`ctl`: the same
-    step in exact arithmetic) differs by: a weight gradient of a conv in
-    front of a BN at full width is a sum of ~1e8 products that nearly
-    cancel, and fp32's sum order alone moves it by up to ~6e-3 of its
-    largest element on the card; those whose exact gradient is 0
-    (`zero_gradient_tensors`) hold rounding noise and must stay below 1e-2
-    of the model's largest moment in both runs; each BN running statistic
-    within 1e-5 of the largest running statistic; the ranks' digests
-    equal."""
-    two, zero = ranks[0], set(ref["zero_grad"])
-    rel = {k: abs(sum(r["metrics"][k] for r in ranks) / len(ranks) - ref["metrics"][k])
-           / abs(ref["metrics"][k]) for k in ("lossE", "lossD")}
-    top_m = max(m.abs().max().item() for m in ref["moments"].values())
-
-    def err(got, want):
-        scale = want.abs().max().item()
-        # an exactly-zero moment (the zero-initialised logvar head under
-        # zero_noise) must be exactly zero in both runs
-        return (got - want).abs().max().item() / scale if scale else float(bool(got.any()))
-
-    worst, noise, bad, by_ctl, ctl_over = (0.0, "", 0.0), 0.0, [], 0, 0
-    for k, want in ref["moments"].items():
-        got = two["moments"][k]
-        if k in zero:
-            noise = max(noise, want.abs().max().item() / top_m, got.abs().max().item() / top_m)
-            continue
-        e, e_ctl = err(got, want), err(ctl["moments"][k], want)
-        worst = max(worst, (e, k, e_ctl))
-        ctl_over += e_ctl > 1e-3
-        if e > 1e-3:
-            by_ctl += e <= 2 * e_ctl
-            if e > 2 * e_ctl:
-                bad.append((k, e, e_ctl))
-    top_s = max(v.abs().max().item() for v in ref["stats"].values())
-    stat_worst = max(((two["stats"][k] - v).abs().max().item() / top_s, k)
-                     for k, v in ref["stats"].items())
-    same = len({r["digest"] for r in ranks}) == 1
-    log(f"[ddp] (a) fp32 spatial_1200 80x96x80 step at lr 0, global batch 4: {len(ranks)} gloo "
-        f"ranks x 2 on the card vs one process x 4 on the card: lossE rel {rel['lossE']:.2e}, "
-        f"lossD rel {rel['lossD']:.2e} (limit 1e-4); first moments of "
-        f"{len(ref['moments']) - len(zero)} tensors worst {worst[0]:.2e} of max|m| at {worst[1]} "
-        f"(the reversed batch there {worst[2]:.2e}); over 1e-3: {by_ctl} tensors, each within "
-        f"2x the reversed batch's difference (which is over 1e-3 at {ctl_over} tensors itself); "
-        f"{len(zero)} with an exact gradient of 0 {sorted(zero)} at most {noise:.2e} of the "
-        f"largest moment (limit 1e-2); BN running statistics worst {stat_worst[0]:.2e} of the "
-        f"largest {top_s:.3f} at {stat_worst[1]} (limit 1e-5); ranks' digests equal {same}")
-    if max(rel.values()) > 1e-4 or bad or noise > 1e-2 or stat_worst[0] > 1e-5 or not same:
-        return [f"(a) 2 ranks disagree with one process: {rel} {bad} noise {noise:.2e} "
-                f"{stat_worst} digests equal {same}"]
-    return []
-
-
 def _cli_world_of_one(tmp: str) -> None:
     """`python -m sivae_torch.cli.train` with `WORLD_SIZE=1`: the CLI joins an
     NCCL group of one on the card (its digest gather, its checkpoint
@@ -2333,9 +2511,11 @@ def ddp_fullsize(dev, card: str) -> tuple:
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
     build.reset_launches()
-    step(state, real)
-    torch.cuda.synchronize()
-    counts = dict(build.launches)
+    with BnCalls() as calls:
+        step(state, real)
+        torch.cuda.synchronize()
+    counts = build.conv_launches()
+    BN_BY_PATH["fullsize"] = bn_engagement("ddp fullsize", [calls.record()])
     times = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -2374,8 +2554,10 @@ def phase_ddp(dev, card: str) -> tuple:
     t0 = time.perf_counter()
     ref = ddp_equality_step(dev)
     ctl = ddp_equality_step(dev, reverse=True)
-    log(f"[ddp] (a) one-process reference step and its reversed batch "
-        f"{time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    exact = ddp_equality_step(dev, exact=True)
+    log(f"[ddp] (a) one-process reference step and its reversed batch {t1 - t0:.1f} s, the "
+        f"float64 step (cuDNN's convs, BN's plain version) {time.perf_counter() - t1:.1f} s")
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -2383,7 +2565,10 @@ def phase_ddp(dev, card: str) -> tuple:
     log(f"[ddp] {DDP_WORLD} gloo ranks on the one card (gloo all-reduces the CUDA tensors), "
         f"(a) + (b) + (c) in {time.perf_counter() - t0:.1f} s")
 
-    failed = _compare_equality(ref, ctl, [r["a"] for r in ranks])
+    failed = _compare_depth(
+        ref, ctl, exact, [r["a"] for r in ranks], f"[ddp] (a) fp32 spatial_1200 80x96x80 step at "
+        f"lr 0, global batch 4: {DDP_WORLD} gloo ranks x 2 on the card vs one process x 4 on "
+        f"the card", "a", "ddp")
 
     b = [r["b"] for r in ranks]
     medians = [sorted(x["times"])[REPEATS // 2] for x in b]
@@ -2420,6 +2605,7 @@ def phase_ddp(dev, card: str) -> tuple:
         f"{[x['digest_resumed'][:12] for x in c]}; epoch train_lossE {c[0]['history'].get('train_lossE')}")
     if not ok:
         failed.append("(c) the data-parallel trainer run is wrong")
+    BN_BY_PATH["ddp_ranks"] = bn_engagement("ddp ranks", [x["bn"] for x in b + c])
     _cli_world_of_one(tmp.name)
     counted = {k: sum(x["launches"][k] + y["launches"][k] for x, y in zip(b, c))
                for k in TRAIN_LAUNCHES}
@@ -2513,10 +2699,11 @@ def remat_mode(dev, cfg, real, kind, policy, timed: int, profile: str = "") -> d
         opt.zero_grad = functools.partial(_note_allocated, held, dev, opt.zero_grad)
     build.reset_launches()
     t0 = time.perf_counter()
-    _, m = step(state, real)
-    torch.cuda.synchronize()
+    with BnCalls() as calls:
+        _, m = step(state, real)
+        torch.cuda.synchronize()
     counted_s = time.perf_counter() - t0
-    out["launches"] = dict(build.launches)
+    out["launches"], out["bn"] = build.conv_launches(), calls.record()
     for opt in (state.opt_e, state.opt_d):
         del opt.zero_grad
     out["held_gib"] = [h / 2**30 for h in held]
@@ -2580,7 +2767,7 @@ def phase_remat(dev, vox, fullsize_b1_gib: Optional[float]) -> dict:
     import numpy as np
 
     t_phase = time.perf_counter()
-    failed = []
+    failed, bn_recs = [], []
     bf16 = torch.bfloat16
     cfg = dataclasses.replace(get_model_config("spatial_1200"), dtype=bf16)
     real = vox[:8]
@@ -2598,6 +2785,7 @@ def phase_remat(dev, vox, fullsize_b1_gib: Optional[float]) -> dict:
     big = torch.cat([vox, vox[:16]])
     for label, kind in (("remat_calls", "calls"), ("remat None", "block")):
         r = remat_mode(dev, cfg, big, kind, None, 2)
+        bn_recs.append(r["bn"])
         failed += _remat_line("(b) spatial_1200 bf16 batch 48", label, r, None)
         log(f"[remat] (b) spatial_1200 batch 48 {label}: peak {r['peak_gib']:.2f} GiB against "
             f"{6 * off_gib:.1f} GiB without remat (6 x (a)'s off peak), card "
@@ -2609,6 +2797,7 @@ def phase_remat(dev, vox, fullsize_b1_gib: Optional[float]) -> dict:
     raw = np.stack([r["voxel"] for r in SyntheticBrainSource(4, full.input_shape, seed=7)])
     real16 = preprocess_batch(torch.from_numpy(raw).to(dev)).repeat(4, 1, 1, 1, 1)
     r = remat_mode(dev, full, real16, "calls", None, 2)
+    bn_recs.append(r["bn"])
     failed += _remat_line("(b) spatial_1200_fullsize bf16 batch 16", "remat_calls", r, None)
     scaled = ("phase 10 (d) did not run" if fullsize_b1_gib is None else
               f"against {16 * fullsize_b1_gib:.1f} GiB without remat (16 x phase 10 (d)'s "
@@ -2622,6 +2811,8 @@ def phase_remat(dev, vox, fullsize_b1_gib: Optional[float]) -> dict:
     failed += _remat_line("(c) fc_150 bf16 batch 8", "off", fc_off, None)
     fc_on = remat_mode(dev, fc, real, "block", fc.remat_policy, 3)
     failed += _remat_line("(c) fc_150 bf16 batch 8", f"remat {fc.remat_policy}", fc_on, fc_off)
+    bn_recs += [x["bn"] for x in list(results.values()) + [fc_off, fc_on]]
+    BN_BY_PATH["remat"] = bn_engagement("remat", bn_recs)
     log(f"[remat] phase 11 in {time.perf_counter() - t_phase:.1f} s")
     if failed:
         raise SystemExit("chip_smoke: phase 11: " + "; ".join(failed))
@@ -2690,6 +2881,38 @@ def _library_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 4, 1)
 
 
+def _float64_twin(cfg, model, dev):
+    """`model` (of `cfg`) in float64 on `dev`, the same weights: the float64
+    yardstick's model (phases 10 (a) and 12; run it under `_library_layers`)."""
+    from sivae_torch.models.registry import make_model
+
+    f64 = torch.float64
+    wide = make_model(dataclasses.replace(cfg, dtype=f64, param_dtype=f64), device=dev)
+    wide.load_state_dict(model.state_dict())
+    return wide
+
+
+@contextlib.contextmanager
+def _library_layers():
+    """Every conv by cuDNN (`_library_conv`) and every train-mode BatchNorm by
+    its plain version while the block runs (the kernels have no float64
+    form): the float64 yardstick's layers."""
+    from sivae_torch.kernels.batchnorm import (batchnorm_train_backward_plain,
+                                               batchnorm_train_plain)
+    from sivae_torch.models import blocks
+
+    kernels = dict(blocks._KERNELS)
+    bn = blocks.batchnorm_train, blocks.batchnorm_train_backward
+    blocks._KERNELS.update(dict.fromkeys(kernels, _library_conv))
+    blocks.batchnorm_train = batchnorm_train_plain
+    blocks.batchnorm_train_backward = batchnorm_train_backward_plain
+    try:
+        yield None
+    finally:
+        blocks._KERNELS.update(kernels)
+        blocks.batchnorm_train, blocks.batchnorm_train_backward = bn
+
+
 def depth_step(dev, inp: dict, mesh=None, reverse: bool = False, exact: bool = False,
                family: str = "fullsize") -> dict:
     """(a) on this process's depth slab (the whole batch without `mesh`): one
@@ -2700,13 +2923,13 @@ def depth_step(dev, inp: dict, mesh=None, reverse: bool = False, exact: bool = F
     tensors whose exact gradient is 0, the digest, launches against the
     derived counts, collectives, seconds and peak GiB. With `exact` the
     same step in float64, the same weights, every conv by cuDNN in float64
-    (the kernels have no float64 form): the yardstick of the fp32 runs.
+    and every train-mode BatchNorm by its plain version (the kernels have no
+    float64 form): the yardstick of the fp32 runs.
     `family` "fc": (d), the same for fc_600 at 80x96x80 (`_step_inputs`)."""
     import numpy as np
 
     from sivae_torch.config import OptimConfig, SoftIntroLossConfig
     from sivae_torch.kernels import build
-    from sivae_torch.models import blocks
     from sivae_torch.models.registry import make_model
     from sivae_torch.models.resnet_vae import depth_levels
     from sivae_torch.parallel import replicate_state
@@ -2721,13 +2944,8 @@ def depth_step(dev, inp: dict, mesh=None, reverse: bool = False, exact: bool = F
     if mesh is not None:
         real = shard_batch(real, mesh, spatial_axis="spatial", levels=depth_levels(cfg))
     model = make_model(cfg, device=dev, seed=0)
-    kernels = dict(blocks._KERNELS)
     if exact:
-        f64 = torch.float64
-        wide = make_model(dataclasses.replace(cfg, dtype=f64, param_dtype=f64), device=dev)
-        wide.load_state_dict(model.state_dict())
-        model, real = wide, real.to(f64)
-        blocks._KERNELS.update(dict.fromkeys(kernels, _library_conv))
+        model, real = _float64_twin(cfg, model, dev), real.double()
     real = real.to(dev)
     state = replicate_state(create_train_state(model, seed=0))
     step = make_soft_intro_train_step(model, SoftIntroLossConfig(), OptimConfig(lr=0.0), 1,
@@ -2737,11 +2955,9 @@ def depth_step(dev, inp: dict, mesh=None, reverse: bool = False, exact: bool = F
     build.reset_launches()
     reset_collectives()
     t0 = time.perf_counter()
-    try:
+    with _library_layers() if exact else BnCalls() as calls:
         _, metrics = step(state, real)
         torch.cuda.synchronize()
-    finally:
-        blocks._KERNELS.update(kernels)
     secs = time.perf_counter() - t0
     names = {p: k for k, p in model.named_parameters()}
     out = {"metrics": _metrics_line(metrics),
@@ -2750,7 +2966,7 @@ def depth_step(dev, inp: dict, mesh=None, reverse: bool = False, exact: bool = F
            "stats": {k: v.detach().double().cpu() for k, v in model.state_dict().items()
                      if "running" in k},
            "zero_grad": zero_gradient_tensors(model), "digest": state_digest(state).hex(),
-           "launches": dict(build.launches),
+           "launches": build.conv_launches(), "bn": None if exact else calls.record(),
            "want": ({k: 0 for k in TRAIN_LAUNCHES} if exact else soft_intro_launches(model)),
            "collectives": {k: list(v) for k, v in collectives.items()}, "s": secs,
            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
@@ -2786,8 +3002,8 @@ def _depth_moment_check(grid: dict, ref: dict, ctl: dict, exact: dict) -> tuple:
 
 
 def _compare_depth(ref: dict, ctl: dict, exact: dict, ranks: list, what: str,
-                   part: str = "a") -> list:
-    """(a) (and (d), `part`): the mean of the ranks' lossE / lossD within 1e-4 relative of one
+                   part: str = "a", tag: str = "depth") -> list:
+    """(a) (and (d), `part`; phase 10 (a) with `tag` "ddp"): the mean of the ranks' lossE / lossD within 1e-4 relative of one
     process's fp32 step; BN running statistics within 1e-5 of the largest;
     the ranks' digests equal. First moments by step 0's rule
     (tests/torch_port_common.py `assert_nearer_float64`), the float64 step
@@ -2841,8 +3057,8 @@ def _compare_depth(ref: dict, ctl: dict, exact: dict, ranks: list, what: str,
         + f"; BN running statistics worst {stat_worst[0]:.2e} of the largest {top_s:.3f} at "
         f"{stat_worst[1]} (limit 1e-5); ranks' digests equal {same}")
     for k, g, o, r in bad:
-        log(f"[depth] ({part}) over the limit: {k}: grid {g:.2e}, one {o:.2e}, reversed {r:.2e} of "
-            f"max|m| from the float64 moment")
+        log(f"[{tag}] ({part}) over the limit: {k}: grid {g:.2e}, one {o:.2e}, reversed {r:.2e} "
+            f"of max|m| from the float64 moment")
     failed = []
     if max(rel.values()) > 1e-4 or bad or stat_worst[0] > 1e-5 or not same:
         failed.append(f"({part}) the grid disagrees with one process: {rel} {bad} noise "
@@ -2888,9 +3104,11 @@ def depth_flagship_rank(dev, inp: dict, mesh=None, family: str = "fullsize") -> 
     warm = time.perf_counter() - t0
     build.reset_launches()
     reset_collectives()
-    step(state, real)
-    torch.cuda.synchronize()
-    counts, coll = dict(build.launches), {k: list(v) for k, v in collectives.items()}
+    with BnCalls() as calls:
+        step(state, real)
+        torch.cuda.synchronize()
+    counts, coll = build.conv_launches(), {k: list(v) for k, v in collectives.items()}
+    bn = calls.record()
     bodies = site_bodies(dev)
     times = []
     for _ in range(REPEATS):
@@ -2911,6 +3129,7 @@ def depth_flagship_rank(dev, inp: dict, mesh=None, family: str = "fullsize") -> 
         step(state, real)
     replicate_state(state)
     out = {"launches": counts, "want": soft_intro_launches(model), "collectives": coll,
+           "bn": bn,
            "halos_want": soft_intro_step_halos(cfg), "bodies": bodies, "times": times,
            "warm_s": warm, "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
            "metrics": _metrics_line(metrics), "digest": state_digest(state).hex(),
@@ -2936,7 +3155,7 @@ def depth_encode(dev, inp: dict) -> dict:
     t0 = time.perf_counter()
     mu = encode_dataset(model, inp["vox"], batch_size=8)
     torch.cuda.synchronize()
-    out = {"mu": mu, "s": time.perf_counter() - t0, "launches": dict(build.launches),
+    out = {"mu": mu, "s": time.perf_counter() - t0, "launches": build.conv_launches(),
            "collectives": {k: list(v) for k, v in collectives.items()}}
     del model
     torch.cuda.empty_cache()
@@ -2990,20 +3209,22 @@ def depth_others(dev, inp: dict, mesh=None) -> dict:
         state = create_train_state(model, seed=0, joint_optimizer=True)
         extra = (torch.tensor([0, 1], device=dev),) if name == "classifier" else ()
         build.reset_launches()
-        _, metrics = steps[name](model)(state, part(depth_levels(c)), *extra)
-        torch.cuda.synchronize()
-        out[name] = {"metrics": _metrics_line(metrics), "launches": dict(build.launches),
-                     "digest": state_digest(state).hex()}
+        with BnCalls() as calls:
+            _, metrics = steps[name](model)(state, part(depth_levels(c)), *extra)
+            torch.cuda.synchronize()
+        out[name] = {"metrics": _metrics_line(metrics), "launches": build.conv_launches(),
+                     "bn": calls.record(), "digest": state_digest(state).hex()}
         del model, state
     gen = torch.Generator().manual_seed(0)
     enc = LuckyEncoder(whole.shape[2:], generator=gen).to(dev).train()
     dec = LuckyDecoder(tuple(d // 8 for d in whole.shape[2:]), generator=gen).to(dev).train()
     build.reset_launches()
-    with torch.no_grad():
+    with torch.no_grad(), BnCalls() as calls:
         z = enc(part(enc.depth_levels, inp["vox"]))
         y = gather_depth(dec(z), whole.shape[2])
-    torch.cuda.synchronize()
-    out["lucky"] = {"z": z.cpu(), "y": y.cpu(), "launches": dict(build.launches)}
+        torch.cuda.synchronize()
+    out["lucky"] = {"z": z.cpu(), "y": y.cpu(), "launches": build.conv_launches(),
+                    "bn": calls.record()}
     torch.cuda.empty_cache()
     build.reset_launches()
     return out
@@ -3216,9 +3437,10 @@ def phase_depth(dev, card: str, own_cards: bool = False) -> dict:
     if failed:
         raise SystemExit("chip_smoke: phase 12: " + "; ".join(failed))
     tmp.cleanup()
-    counted = [x["launches"] for g in grids.values() for x in g]
-    counted += [r["f"][m]["launches"] for r in ranks for m in ("classifier", "vae", "cae", "lucky")]
-    return {k: sum(c.get(k, 0) for c in counted) for k in TRAIN_LAUNCHES}
+    others = [r["f"][m] for r in ranks for m in ("classifier", "vae", "cae", "lucky")]
+    counted = [x for g in grids.values() for x in g] + others
+    BN_BY_PATH["depth_ranks"] = bn_engagement("depth ranks", [x["bn"] for x in counted])
+    return {k: sum(x["launches"].get(k, 0) for x in counted) for k in TRAIN_LAUNCHES}
 
 
 def main(argv=None):
@@ -3249,6 +3471,7 @@ def main(argv=None):
     dev = resolve_device("cuda")  # also turns TF32 off for the fp32 checks
     phase_build()
     rows = phase_kernels(dev) if "kernels" in want else {}
+    bn = phase_bn(dev) if "bn" in want else {}
     if "grad" in want:
         phase_gradients(dev)
     src, vox = (synthetic_volumes(dev) if want & {"path", "train", "families", "remat"}
@@ -3304,6 +3527,18 @@ def main(argv=None):
                         "bodies": sorted({v["body"] for k, v in rows.items() if k[0] == kname}),
                         "rows": [dict(site=k[1], dtype=dtype_name(k[2]), **v)
                                  for k, v in rows.items() if k[0] == kname]})
+    z = bn["rows"][0]   # BN_SITES[0]: the z1200 cell's full-resolution site
+    kernels.append({"name": "batchnorm_train", "route": "cuda",
+                    "source": "sivae_torch/csrc/batchnorm.cu",
+                    "replaces": "none: added because train-mode BN's ATen passes held ~60% of "
+                                "the step",
+                    "launches": sum(v["bn_apply"] for v in BN_BY_PATH.values()),
+                    "launches_by_path": BN_BY_PATH,
+                    "ms": z["fwd_ms"] + z["bwd_ms"],
+                    "plain_ms": z["plain_fwd_ms"] + z["plain_bwd_ms"],
+                    "bound_ms": sum(v["bound_ms"] for v in z["kernels"].values()),
+                    "bound_by": "bytes", "library_ms": z["library_fwd_ms"] + z["library_bwd_ms"],
+                    "site": f"{z['site']}, forward + backward", "rows": bn["rows"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

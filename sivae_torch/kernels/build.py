@@ -38,6 +38,7 @@ LINK_FLAGS = ARCH_FLAGS + ["-shared", "-Xcompiler", "-fPIC"]
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C entry points: name -> argument types (all return int)
 SIGNATURES = {
     "sivae_conv3d_same": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
@@ -60,6 +61,10 @@ SIGNATURES = {
     "sivae_conv3d_fused_stats_wgmma": [_P, _P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                        _I, _I, _P],
     "sivae_conv3d_fused_stats_wgmma_shape": [_I, _I, _I, _I, _I],
+    "sivae_bn_forward": [_P, _P, _L, _I, _I, _I, _I, _I, _P, _I, _F, _P, _P, _F, _I, _F, _P, _P,
+                         _P, _P],
+    "sivae_bn_backward": [_P, _P, _P, _L, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _I, _F,
+                          _F, _P, _P, _P],
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -68,7 +73,10 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # its kernel and nowhere else (a CPU tensor takes the plain version and
 # counts nothing).
 launches: Dict[str, int] = {"conv3d_same": 0, "conv3d_to1": 0, "conv3d_from1": 0,
-                            "conv3d_fused_stats": 0}
+                            "conv3d_fused_stats": 0, "bn_stats": 0, "bn_finalize": 0,
+                            "bn_apply": 0, "bn_bwd_reduce": 0, "bn_bwd_finalize": 0,
+                            "bn_bwd_apply": 0}
+CONV_KERNELS = ("conv3d_same", "conv3d_to1", "conv3d_from1", "conv3d_fused_stats")
 
 # the launches of conv3d_same keyed by site, "Ci->Co@DxHxW b B dtype", of
 # conv3d_to1, "C->1@...", and of conv3d_from1, "1->C@...": which shapes and
@@ -76,16 +84,29 @@ launches: Dict[str, int] = {"conv3d_same": 0, "conv3d_to1": 0, "conv3d_from1": 0
 conv3d_same_sites: Dict[str, int] = {}
 conv3d_to1_sites: Dict[str, int] = {}
 conv3d_from1_sites: Dict[str, int] = {}
+# train-mode BatchNorm forwards through the kernels keyed "C@M dtype" (M rows
+# of C channels), apart from the conv sites (`port_bench` reads those as convs)
+bn_sites: Dict[str, int] = {}
+# operands of the BatchNorm kernels that arrived outside channels-last memory
+# and were copied into it
+bn_layout_copies = 0
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
 
 
 def reset_launches() -> None:
+    global bn_layout_copies
     for k in launches:
         launches[k] = 0
-    for sites in (conv3d_same_sites, conv3d_to1_sites, conv3d_from1_sites):
+    for sites in (conv3d_same_sites, conv3d_to1_sites, conv3d_from1_sites, bn_sites):
         sites.clear()
+    bn_layout_copies = 0
+
+
+def conv_launches() -> Dict[str, int]:
+    """The conv kernels' launch counts (`launches` without the BatchNorm's)."""
+    return {k: launches[k] for k in CONV_KERNELS}
 
 
 def _nvcc() -> str:

@@ -29,6 +29,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from sivae_torch.config import ActivationConfig
+from sivae_torch.kernels.batchnorm import BN_VIEW as _BN_VIEW
+from sivae_torch.kernels.batchnorm import act as _act
+from sivae_torch.kernels.batchnorm import batchnorm_train, batchnorm_train_backward
 from sivae_torch.kernels.conv3d import conv3d_same
 from sivae_torch.kernels.conv3d_small import conv3d_from1, conv3d_to1
 from sivae_torch.models import remat
@@ -36,7 +39,6 @@ from sivae_torch.ops.fused_upconv import upsampled_conv3x3
 from sivae_torch.parallel import halo
 from sivae_torch.parallel.distributed import grid, spatial_ranks, world_size
 from sivae_torch.parallel.mesh import all_reduce_, slab_features, whole_features
-from sivae_torch.utils.dtypes import widen
 
 CL = torch.channels_last_3d
 
@@ -260,27 +262,17 @@ class UpsampleConv3d(Conv3d):
         return y[:, :, 2:-2].contiguous(memory_format=CL)
 
 
-_BN_AXES = (0, 2, 3, 4)
-_BN_VIEW = (1, -1, 1, 1, 1)
-
-
-def _act(y: torch.Tensor, slope: Optional[float]) -> torch.Tensor:
-    if slope is None:
-        return y
-    return F.relu(y) if slope == 0.0 else F.leaky_relu(y, slope)
-
-
 class _BatchNormTrain(torch.autograd.Function):
     """Train-mode BatchNorm (+ optional LeakyReLU / ReLU) that keeps only its
     input and the per-channel fp32 statistics (float64 for a float64 input)
-    for the backward pass.
+    for the backward pass (`kernels/batchnorm.py`: the kernels for a CUDA
+    tensor, the plain version for a CPU tensor).
 
-    Written as separate eager ops, autograd would keep `x.float()`, `x - mean`
-    and the scaled product alive for every BN site of every forward of the
-    two-phase step: several GB per full-resolution site. Here the backward
-    recomputes them from `x` in fp32, the gradient through the batch mean
-    and variance included. Plain torch ops on purpose: the JAX package has
-    no kernel here either.
+    Written as separate eager ops under autograd, it would keep `x.float()`,
+    `x - mean` and the scaled product alive for every BN site of every
+    forward of the two-phase step: several GB per full-resolution site. Here
+    the backward recomputes them from `x` in fp32, the gradient through the
+    batch mean and variance included.
 
     Returns (y, mean, var); mean and var (biased) are not differentiable and
     feed the running statistics. `stats`, when given, is a list: an empty
@@ -307,37 +299,21 @@ class _BatchNormTrain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, weight, bias, eps, slope, out_dtype, stats=None, rows_only=False):
-        ctx.world, ctx.group = (grid().data, grid().data_group) if rows_only else \
-            (world_size(), None)
-        if stats:
-            mean, raw_var, ctx.n = stats
-        else:
-            xf = widen(x)
-            if ctx.world == 1:
-                ctx.n = x.numel() // x.shape[1]
-                mean = xf.mean(dim=_BN_AXES)
-                raw_var = (xf * xf).mean(dim=_BN_AXES) - mean * mean
-            else:
-                local = x.new_full((1,), x.numel() // x.shape[1], dtype=torch.float64)
-                sums = torch.cat([xf.sum(dim=_BN_AXES).double(),
-                                  (xf * xf).sum(dim=_BN_AXES).double(), local])
-                sums = all_reduce_(sums, "bn", ctx.group)
-                ctx.n = sums[-1:].to(xf.dtype)
-                mean, ex2 = (sums[:-1] / sums[-1]).to(xf.dtype).chunk(2)
-                raw_var = ex2 - mean * mean
-            del xf
-            if stats is not None:
-                stats += [mean, raw_var, ctx.n]
-        var = raw_var.clamp_min(0.0)  # flax's fast variance: max(0, E[x^2] - mean^2)
-        rstd = torch.rsqrt(var + eps)
-        # same op order as the eval branch (flax `_normalize`)
-        y = x - mean.view(_BN_VIEW)
-        y = y.mul_((rstd * weight.to(rstd.dtype)).view(_BN_VIEW))
-        y = y.add_(bias.to(rstd.dtype).view(_BN_VIEW))
-        y = _act(y.to(out_dtype), slope)
-        # d max(0, v) / dv: 1 above 0, 0 below, 1/2 at the tie (as jnp.maximum)
-        k = (raw_var > 0).to(rstd.dtype) + 0.5 * (raw_var == 0).to(rstd.dtype)
-        ctx.save_for_backward(x, weight, bias, mean, rstd, k)
+        world, group = (grid().data, grid().data_group) if rows_only else (world_size(), None)
+        ctx.reduce_grads = None
+        reduce_sums = None
+        if world > 1:
+            ctx.reduce_grads = lambda t: all_reduce_(t, "bn_grad", group)
+
+            def reduce_sums(sum_x, sum_xx, count):
+                local = sum_x.new_full((1,), count, dtype=torch.float64)
+                sums = all_reduce_(torch.cat([sum_x.double(), sum_xx.double(), local]), "bn",
+                                   group)
+                mean, ex2 = (sums[:-1] / sums[-1]).to(sum_x.dtype).chunk(2)
+                return mean, ex2 - mean * mean, sums[-1:].to(sum_x.dtype)
+        y, mean, var, rstd, k, ctx.n, x_saved = batchnorm_train(
+            x, weight, bias, eps, slope, out_dtype, stats, reduce_sums)
+        ctx.save_for_backward(x_saved, weight, bias, mean, rstd, k)
         ctx.slope = slope
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
@@ -345,26 +321,10 @@ class _BatchNormTrain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g, _g_mean, _g_var):
         x, weight, bias, mean, rstd, k = ctx.saved_tensors
-        n = ctx.n
-        d = x - mean.view(_BN_VIEW)                      # fp32, a new tensor
-        mul = rstd * weight.to(rstd.dtype)
-        gf = g.to(rstd.dtype)
-        if ctx.slope is not None:                        # the forward's own pre-activation
-            pos = (d * mul.view(_BN_VIEW) + bias.to(rstd.dtype).view(_BN_VIEW)) > 0
-            gf = torch.where(pos, gf, gf * ctx.slope)
-            del pos
-        xhat = d.mul_(rstd.view(_BN_VIEW))
-        dbias = gf.sum(dim=_BN_AXES)
-        dweight = (gf * xhat).sum(dim=_BN_AXES)
-        dx = None
-        if ctx.needs_input_grad[0]:
-            sum_gx, sum_g = dweight, dbias
-            if ctx.world > 1:
-                sum_gx, sum_g = all_reduce_(torch.cat([dweight, dbias]), "bn_grad",
-                                            ctx.group).chunk(2)
-            dx = xhat.mul_((-k * sum_gx / n).view(_BN_VIEW)).add_(gf)
-            dx = dx.sub_((sum_g / n).view(_BN_VIEW)).mul_(mul.view(_BN_VIEW)).to(x.dtype)
-        return dx, dweight.to(weight.dtype), dbias.to(bias.dtype), None, None, None, None, None
+        dx, dweight, dbias = batchnorm_train_backward(
+            g, x, weight, bias, mean, rstd, k, ctx.n, ctx.slope, ctx.needs_input_grad[0],
+            ctx.reduce_grads)
+        return dx, dweight, dbias, None, None, None, None, None
 
 
 class BatchNorm(nn.Module):

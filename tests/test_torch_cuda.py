@@ -843,7 +843,8 @@ def test_remat_modes_on_the_card_take_the_step_without(cuda_device):
     rule), the stem BN's mean, which sees that bias move, within 1e-4,
     `num_batches_tracked` equal. After the second: losses within 1e-4. Each
     step's launches equal the step's without remat plus the reruns'
-    derived counts."""
+    derived counts (conv kernels), and the same BatchNorm statistics and
+    backward launches."""
     import numpy as np
 
     from sivae_torch.config import OptimConfig, SoftIntroLossConfig
@@ -885,7 +886,12 @@ def test_remat_modes_on_the_card_take_the_step_without(cuda_device):
         for n, ((ma, sa, mo_a, na), (mb, sb, mo_b, nb)) in enumerate(zip(base, got)):
             for k, v in ma.items():
                 assert abs(mb[k] - v) <= (1e-5 if n == 0 else 1e-4) * abs(v), (kind, pol, n, k)
-            assert nb == {k: na[k] + extra.get(k, 0) for k in na}, (kind, pol, n)
+            assert ({k: nb[k] for k in build.CONV_KERNELS}
+                    == {k: na[k] + extra.get(k, 0) for k in build.CONV_KERNELS}), (kind, pol, n)
+            # a rerun normalises with its first forward's statistics: no statistics
+            # kernel, and its node is never differentiated
+            for k in ("bn_stats", "bn_bwd_reduce", "bn_bwd_apply"):
+                assert nb[k] == na[k], (kind, pol, n, k)
         (_, sa, mo_a, _), (_, sb, mo_b, _) = base[0], got[0]
         for k, v in mo_a.items():
             scale = max(v.abs().max().item(), floor)
@@ -978,7 +984,9 @@ def test_depth_sharded_conv_sites_on_the_card_match_the_whole_volume(cuda_device
     ranks = [torch.load(tmp_path / f"rank{r}.pth", weights_only=False) for r in range(2)]
     launches = check_sharded_sites(ranks, cuda_device)
     assert launches == {"conv3d_same": 2, "conv3d_to1": 2, "conv3d_from1": 2,
-                        "conv3d_fused_stats": 0}, launches
+                        "conv3d_fused_stats": 0, "bn_stats": 0, "bn_finalize": 0,
+                        "bn_apply": 0, "bn_bwd_reduce": 0, "bn_bwd_finalize": 0,
+                        "bn_bwd_apply": 0}, launches
 
 
 @pytest.mark.gpu
@@ -1006,3 +1014,197 @@ def test_classifier_steps_take_labels_on_the_card(cuda_device):
         losses.append((metrics["loss"].item(), m["loss"].item(), pred.cpu().tolist()))
     assert losses[0] == losses[1]
 
+
+
+# train-mode BatchNorm sites (N, C, D, H, W): the train cells' full-resolution
+# sites and their coarser ones (spatial_1200 at batch 8, fc_150 at batch 32),
+# an M (2079 rows) that no block size divides with a partial last vector, the
+# lucky AE's 3 channels, and a FeatureBatchNorm's features (M = 8, "cols")
+BN_SITES = [(8, 64, 80, 96, 80), (32, 12, 80, 96, 80), (32, 24, 40, 48, 40),
+            (32, 32, 20, 24, 20), (32, 48, 10, 12, 10), (8, 128, 20, 24, 20),
+            (8, 256, 10, 12, 10), (3, 12, 7, 9, 11), (2, 3, 16, 16, 16), (8, 30720, 1, 1, 1)]
+BN_SMALL = [(3, 12, 7, 9, 11), (2, 3, 16, 16, 16), (4, 64, 8, 10, 12), (2, 24, 5, 6, 7),
+            (8, 3000, 1, 1, 1)]
+
+
+def _bn_operands(shape, dtype, dev, seed, constant_channel=False):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(shape, generator=gen, device=dev) * 1.5 + 0.3
+    if constant_channel:
+        x[:, 1] = 0.75  # raw variance exactly 0: the tie factor 1/2
+    x = x.to(dtype).contiguous(memory_format=torch.channels_last_3d)
+    c = shape[1]
+    w = 1.0 + 0.1 * torch.randn(c, generator=gen, device=dev)
+    b = 0.1 * torch.randn(c, generator=gen, device=dev)
+    g = torch.randn(shape, generator=gen, device=dev).to(dtype).contiguous(
+        memory_format=torch.channels_last_3d)
+    return x, w, b, g
+
+
+def _bf16_ulp(v: torch.Tensor) -> torch.Tensor:
+    """One bf16 unit in the last place at |v| (8 significand bits)."""
+    e = torch.floor(torch.log2(v.abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", BN_SITES)
+def test_bn_kernels_match_plain_at_the_sites(cuda_device, shape, dtype):
+    """The kernels (forward, then backward with dx) against the plain version
+    on the card, LeakyReLU 0.2 as the models run it. The statistics differ
+    only in the order of their fp32 sums: mean and var within 1e-5 of
+    max(1, their largest). The plain backward takes the kernels' saved
+    statistics, so both take the same branch of the activation at every
+    element (with its own, the plain version's pre-activation moves by the
+    statistics' last bits, and the few elements within that of 0 take the
+    other branch: 0.8 of their cotangent, ~0.45 of a channel's sum in fp32);
+    dweight and dbias within 1e-4 of max(1, their largest) (sums over up to
+    2e7 rows). y and dx follow the statistics through the same elementwise
+    arithmetic: bf16 y within one bf16 ulp of
+    its pre-activation (of y on the positive side; 0.2 of one of y / 0.2,
+    plus one of y, where the LeakyReLU rounds a second time) plus 1e-5 of
+    max(1, max|y|) (near 0 the statistics' last bits move the pre-activation
+    by more than an ulp of it), fp32 y within 1e-5 of max(1, max|y|); dx
+    within one ulp (bf16) plus 1e-5 of max(1, max|dx|) (its coefficients are
+    order-dependent sums)."""
+    from sivae_torch.kernels.batchnorm import (batchnorm_train, batchnorm_train_backward,
+                                               batchnorm_train_backward_plain,
+                                               batchnorm_train_plain)
+
+    x, w, b, g = _bn_operands(shape, dtype, cuda_device, 11)
+    y, mean, var, rstd, k, n, xs = batchnorm_train(x, w, b, 1e-5, 0.2, dtype)
+    dx, dw, db = batchnorm_train_backward(g, xs, w, b, mean, rstd, k, n, 0.2, True)
+    yp, mp, vp, _, kp, npl, _ = batchnorm_train_plain(x, w, b, 1e-5, 0.2, dtype)
+    dxp, dwp, dbp = batchnorm_train_backward_plain(g, x, w, b, mean, rstd, k, n, 0.2, True)
+    torch.cuda.synchronize()
+    assert n == npl and y.shape == x.shape and y.dtype == dtype and dx.dtype == dtype
+    for got, want in ((mean, mp), (var, vp)):
+        assert (got - want).abs().max().item() <= 1e-5 * max(1.0, want.abs().max().item())
+    assert torch.equal(k, kp)
+    for got, want in ((dw, dwp), (db, dbp)):
+        assert (got - want).abs().max().item() <= 1e-4 * max(1.0, want.abs().max().item())
+    yd, yw = y.float(), yp.float()
+    dxd, dxw = dx.float(), dxp.float()
+    if dtype == torch.bfloat16:
+        floor = 1e-5 * max(1.0, yw.abs().max().item())
+        tol = torch.where(yw > 0, _bf16_ulp(yw),
+                          0.2 * _bf16_ulp(yw / 0.2) + _bf16_ulp(yw)) + floor
+        assert bool(((yd - yw).abs() <= tol).all())
+        tol = _bf16_ulp(dxw) + 1e-5 * max(1.0, dxw.abs().max().item())
+        assert bool(((dxd - dxw).abs() <= tol).all())
+    else:
+        assert (yd - yw).abs().max().item() <= 1e-5 * max(1.0, yw.abs().max().item())
+        assert (dxd - dxw).abs().max().item() <= 1e-5 * max(1.0, dxw.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("slope", [None, 0.0, 0.2])
+@pytest.mark.parametrize("shape", BN_SMALL)
+def test_bn_kernels_take_the_plain_arithmetic_bit_for_bit(cuda_device, shape, slope, dtype):
+    """Given the same statistics (a remat replay's filled `stats`, which
+    skips the statistics kernel) and the same gradient sums (passed where
+    several ranks pass their all-reduced ones), y and dx are the plain
+    version's on the CPU bit for bit: every elementwise step keeps its fp32
+    operations, their order and their roundings. A constant channel reads
+    raw_var 0 and k 1/2. Counters: one count a launch."""
+    from sivae_torch.kernels.batchnorm import (batchnorm_train, batchnorm_train_backward,
+                                               batchnorm_train_backward_plain,
+                                               batchnorm_train_plain)
+
+    x, w, b, g = _bn_operands(shape, dtype, cuda_device, 12, constant_channel=True)
+    xc, wc, bc, gc = (t.cpu() for t in (x, w, b, g))
+    stats = []
+    first = batchnorm_train(x, w, b, 1e-5, slope, dtype, stats)
+    assert len(stats) == 3 and float(first[4][1]) == 0.5 and float(stats[1][1]) == 0.0
+    cpu_stats = [stats[0].cpu(), stats[1].cpu(), stats[2]]
+    before = dict(build.launches)
+    y, mean, var, rstd, k, n, xs = batchnorm_train(x, w, b, 1e-5, slope, dtype, list(stats))
+    torch.cuda.synchronize()
+    assert build.launches["bn_stats"] == before["bn_stats"]
+    assert build.launches["bn_finalize"] == before["bn_finalize"] + 1
+    assert build.launches["bn_apply"] == before["bn_apply"] + 1
+    yp, mp, vp, rp, kp, npl, _ = batchnorm_train_plain(xc, wc, bc, 1e-5, slope, dtype,
+                                                       list(cpu_stats))
+    assert torch.equal(y.cpu(), yp) and torch.equal(first[0], y)
+    for got, want in ((mean, mp), (var, vp), (rstd, rp), (k, kp)):
+        assert torch.equal(got.cpu(), want)
+    _, dwp, dbp = batchnorm_train_backward_plain(gc, xc, wc, bc, mp, rp, kp, npl, slope, False)
+    given = torch.cat([dwp, dbp]).to(cuda_device)
+    before = dict(build.launches)
+    dx, dw, db = batchnorm_train_backward(g, xs, w, b, mean, rstd, k, n, slope, True,
+                                          lambda t: given)
+    torch.cuda.synchronize()
+    for key in ("bn_bwd_reduce", "bn_bwd_finalize", "bn_bwd_apply"):
+        assert build.launches[key] == before[key] + 1
+    dxp, _, _ = batchnorm_train_backward_plain(gc, xc, wc, bc, mp, rp, kp, npl, slope, True,
+                                               lambda t: given.cpu())
+    assert torch.equal(dx.cpu(), dxp)
+    for got, want in ((dw, dwp), (db, dbp)):
+        assert (got.cpu() - want).abs().max().item() <= 1e-5 * max(1.0, want.abs().max().item())
+    before = dict(build.launches)
+    assert batchnorm_train_backward(g, xs, w, b, mean, rstd, k, n, slope, False)[0] is None
+    assert build.launches["bn_bwd_apply"] == before["bn_bwd_apply"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bn_kernels_are_deterministic_and_count_their_launches(cuda_device, dtype):
+    """Two runs of the forward and backward give the same bits (fixed-order
+    sums, no atomics); each launch counts once, and the site is counted by
+    "C@M dtype"."""
+    from sivae_torch.kernels.batchnorm import batchnorm_train, batchnorm_train_backward
+
+    x, w, b, g = _bn_operands((8, 64, 40, 48, 40), dtype, cuda_device, 13)
+    build.reset_launches()
+    runs = []
+    for _ in range(2):
+        y, mean, var, rstd, k, n, xs = batchnorm_train(x, w, b, 1e-5, 0.2, dtype)
+        runs.append((y, mean, var, rstd, k)
+                    + batchnorm_train_backward(g, xs, w, b, mean, rstd, k, n, 0.2, True))
+    torch.cuda.synchronize()
+    for a, e in zip(*runs):
+        assert torch.equal(a, e)
+    assert {k: v for k, v in build.launches.items() if k.startswith("bn_")} == {
+        "bn_stats": 2, "bn_finalize": 2, "bn_apply": 2, "bn_bwd_reduce": 2,
+        "bn_bwd_finalize": 2, "bn_bwd_apply": 2}
+    assert build.bn_sites == {f"64@{8 * 40 * 48 * 40} {str(dtype)[6:]}": 2}
+    assert build.bn_layout_copies == 0
+
+
+@pytest.mark.gpu
+def test_bn_modules_on_the_card_match_the_cpu(cuda_device):
+    """`BatchNorm` and `FeatureBatchNorm` in training mode on the card
+    (kernels) against the same modules on the CPU (plain version), fp32:
+    output, input and parameter gradients and running statistics within
+    1e-5 of max(1, their largest) (the order of the fp32 sums). An input
+    outside channels-last memory is copied into it once and counted; a
+    float64 tensor on the card raises."""
+    from sivae_torch.models.blocks import BatchNorm, FeatureBatchNorm
+
+    gen = torch.Generator().manual_seed(14)
+    cases = [(BatchNorm(24, act_slope=0.2), torch.randn((4, 24, 6, 7, 8), generator=gen)),
+             (FeatureBatchNorm((8, 3, 4, 5), act_slope=0.0),
+              torch.randn((6, 480), generator=gen))]
+    for mod, x in cases:
+        out = {}
+        for dev in (cuda_device, torch.device("cpu")):
+            m = __import__("copy").deepcopy(mod).to(dev).train()
+            xi = x.to(dev).requires_grad_()
+            build.reset_launches()
+            y = m(xi)
+            y.backward(torch.cos(y.detach()))
+            out[dev.type] = (y.detach().cpu(), xi.grad.cpu(), m.weight.grad.cpu(),
+                             m.bias.grad.cpu(), m.running_mean.cpu(), m.running_var.cpu(),
+                             build.bn_layout_copies, build.launches["bn_apply"])
+        got, want = out["cuda"], out["cpu"]
+        for a, e in zip(got[:6], want[:6]):
+            assert (a - e).abs().max().item() <= 1e-5 * max(1.0, e.abs().max().item())
+        # the NCDHW-contiguous 5-D input of BatchNorm is copied once; the
+        # features' (B, F, 1, 1, 1) view is already [M, C]
+        assert got[6] == (0 if isinstance(mod, FeatureBatchNorm) else 1)
+        assert got[7] == 1 and want[6:] == (0, 0)
+    with pytest.raises(TypeError):
+        BatchNorm(3).to(cuda_device).double().train()(
+            torch.randn((2, 3, 2, 2, 2), dtype=torch.float64, device=cuda_device))

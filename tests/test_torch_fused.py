@@ -187,7 +187,9 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
         with pytest.raises(ValueError):
             conv3d_fused_stats_earlier_body(x, w, ia, ib, 0.2)
     assert build.launches == {"conv3d_same": 0, "conv3d_to1": 0, "conv3d_from1": 0,
-                              "conv3d_fused_stats": 0}
+                              "conv3d_fused_stats": 0, "bn_stats": 0, "bn_finalize": 0,
+                              "bn_apply": 0, "bn_bwd_reduce": 0, "bn_bwd_finalize": 0,
+                              "bn_bwd_apply": 0}
 
 
 @pytest.mark.parametrize("bad", ["one_of_a_b", "a_shape", "w_shape", "x_rank"])

@@ -327,7 +327,9 @@ def test_cpu_tensors_take_plain_versions_and_count_nothing():
     x1t, w1t = torch.from_numpy(x1), torch.from_numpy(w1)
     assert torch.equal(conv3d_from1(x1t, w1t), conv3d_from1_plain(x1t, w1t))
     assert build.launches == {"conv3d_same": 0, "conv3d_to1": 0, "conv3d_from1": 0,
-                              "conv3d_fused_stats": 0}
+                              "conv3d_fused_stats": 0, "bn_stats": 0, "bn_finalize": 0,
+                              "bn_apply": 0, "bn_bwd_reduce": 0, "bn_bwd_finalize": 0,
+                              "bn_bwd_apply": 0}
 
 
 @pytest.mark.parametrize("fn,x_shape,w_shape", [
